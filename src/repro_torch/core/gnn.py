@@ -1,0 +1,367 @@
+"""GraphSAGE for AIG node classification (paper §III-C/D), in PyTorch.
+
+Port of ``repro/core/gnn.py`` (inference).  Direction- and
+polarity-separated SAGE: each layer aggregates its fanin edges in four
+(slot x polarity) groups and its fanout edges in two, with separate weights:
+
+    h'_u = relu( W_s h_u + sum_g W_g mean_{g-edges of u} h_v + b )
+
+The parameters live in :class:`GrootGNN` (weights stored ``(in, out)`` and
+applied as ``h @ W``, as in the reference).  They are bridged from and to
+the reference's numpy tree ``{"layers": [{w_self, w_in_*, w_out_*, b}],
+"head": {w, b}}`` by :func:`params_from_numpy` / :func:`params_to_numpy`,
+and stored as a flat ``.npz`` (:func:`load_params` / :func:`save_params`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.core import aig as A
+from repro_torch.kernels import ref as kref
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    in_features: int = 4
+    hidden: int = 32
+    num_layers: int = 4
+    num_classes: int = A.NUM_CLASSES
+    # dtype of the staged edge streams (staged weights + gathered features)
+    # on the groot* backends: "float32" or "bfloat16" (kernels accumulate
+    # in f32).  Read by the pipeline; direct forward/predict callers pass
+    # ``stream_dtype=``.
+    stream_dtype: str = "float32"
+
+
+IN_GROUPS = ("w_in_l_pos", "w_in_l_neg", "w_in_r_pos", "w_in_r_neg")
+OUT_GROUPS = ("w_out_pos", "w_out_neg")
+LAYER_WEIGHTS = ("w_self",) + IN_GROUPS + OUT_GROUPS
+
+
+class SageLayer(nn.Module):
+    """One layer's weights: ``w_self`` and one ``(in, out)`` matrix per group."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        for nm in LAYER_WEIGHTS:
+            self.register_parameter(nm, nn.Parameter(torch.zeros(d_in, d_out)))
+        self.b = nn.Parameter(torch.zeros(d_out))
+
+    def stack(self, names) -> torch.Tensor:
+        """The (G, in, out) weight stack of the named groups, contiguous f32."""
+        return torch.stack([getattr(self, nm) for nm in names]).float().contiguous()
+
+
+class Head(nn.Module):
+    def __init__(self, hidden: int, num_classes: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(hidden, num_classes))
+        self.b = nn.Parameter(torch.zeros(num_classes))
+
+
+class GrootGNN(nn.Module):
+    """The model's parameters; :meth:`forward` is :func:`forward`."""
+
+    def __init__(self, cfg: GNNConfig):
+        super().__init__()
+        self.cfg = cfg
+        dims = [cfg.in_features] + [cfg.hidden] * cfg.num_layers
+        self.layers = nn.ModuleList(
+            SageLayer(dims[i], dims[i + 1]) for i in range(cfg.num_layers)
+        )
+        self.head = Head(cfg.hidden, cfg.num_classes)
+
+    def forward(self, x, edge_src, edge_dst, edge_inv=None, edge_slot=None, *,
+                num_nodes: int, agg=None, stream_dtype: Optional[str] = None):
+        return forward(self, x, edge_src, edge_dst, edge_inv, edge_slot,
+                       num_nodes=num_nodes, agg=agg, stream_dtype=stream_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Params bridge
+# ---------------------------------------------------------------------------
+
+def params_from_numpy(tree: dict, device="cpu") -> GrootGNN:
+    """Build a :class:`GrootGNN` from the reference's params tree (numpy or
+    anything ``np.asarray`` takes); values are copied exactly."""
+    layers = tree["layers"]
+    cfg = GNNConfig(
+        in_features=int(np.shape(layers[0]["w_self"])[0]),
+        hidden=int(np.shape(layers[0]["w_self"])[1]),
+        num_layers=len(layers),
+        num_classes=int(np.shape(tree["head"]["w"])[1]),
+    )
+    model = GrootGNN(cfg)
+    with torch.no_grad():
+        for mod, layer in zip(model.layers, layers):
+            for nm in LAYER_WEIGHTS + ("b",):
+                getattr(mod, nm).copy_(torch.as_tensor(np.asarray(layer[nm], np.float32)))
+        model.head.w.copy_(torch.as_tensor(np.asarray(tree["head"]["w"], np.float32)))
+        model.head.b.copy_(torch.as_tensor(np.asarray(tree["head"]["b"], np.float32)))
+    return model.to(device)
+
+
+def params_to_numpy(model: GrootGNN) -> dict:
+    """The reference's params tree, as numpy float32 arrays."""
+    def a(p):
+        return p.detach().cpu().numpy().copy()
+
+    return {
+        "layers": [
+            {nm: a(getattr(mod, nm)) for nm in LAYER_WEIGHTS + ("b",)}
+            for mod in model.layers
+        ],
+        "head": {"w": a(model.head.w), "b": a(model.head.b)},
+    }
+
+
+def save_params(tree: dict, path) -> None:
+    """Write a params tree as a flat ``.npz`` (keys ``layers.<i>.<name>``,
+    ``head.w``, ``head.b``)."""
+    flat = {
+        f"layers.{i}.{nm}": np.asarray(v, np.float32)
+        for i, layer in enumerate(tree["layers"]) for nm, v in layer.items()
+    }
+    flat.update({f"head.{nm}": np.asarray(v, np.float32) for nm, v in tree["head"].items()})
+    np.savez(path, **flat)
+
+
+def load_params(path) -> dict:
+    """Read a params tree written by :func:`save_params`."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    n = 1 + max(int(k.split(".")[1]) for k in flat if k.startswith("layers."))
+    return {
+        "layers": [
+            {nm: flat[f"layers.{i}.{nm}"] for nm in LAYER_WEIGHTS + ("b",)}
+            for i in range(n)
+        ],
+        "head": {"w": flat["head.w"], "b": flat["head.b"]},
+    }
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _segment_sum(w: torch.Tensor, idx: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    out = torch.zeros((num_nodes,) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
+    return out.index_add_(0, idx, w)
+
+
+def _stream_dtype(stream_dtype: Optional[str]) -> Optional[torch.dtype]:
+    if stream_dtype is None or stream_dtype == "float32":
+        return None
+    return getattr(torch, stream_dtype)
+
+
+def _head(params: GrootGNN, h: torch.Tensor) -> torch.Tensor:
+    return h @ params.head.w + params.head.b
+
+
+@torch.no_grad()
+def forward(
+    params: GrootGNN,
+    x: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_inv: Optional[torch.Tensor] = None,
+    edge_slot: Optional[torch.Tensor] = None,
+    *,
+    num_nodes: int,
+    agg=None,
+    stream_dtype: Optional[str] = None,
+) -> torch.Tensor:
+    """Full forward pass -> logits (num_nodes, num_classes).
+
+    ``agg`` is an :class:`repro_torch.kernels.ops.AggPair` (or None for the
+    gather + ``index_add_`` reference).  Paths, most specific wins:
+
+      * **hoisted grouped** (``fwd_plan`` present — the groot backends):
+        group-weight streams staged once per forward, activations padded
+        once per layer and shared by both directions, scatter-free
+        assembly; ``stream_dtype="bfloat16"`` narrows the staged streams.
+      * **grouped** (``in_agg_grouped`` present): one grouped aggregation
+        per direction per layer, mean norms folded into the (E, 4) / (E, 2)
+        weights, the per-group ``@ W`` as one ``einsum`` (or fused).
+      * **per-group loop** (ref / None): aggregate per group, then
+        post-scale by the per-destination norm.
+
+    Inference only: there is no backward through the CUDA kernels.
+    """
+    if getattr(agg, "in_agg_grouped", None) is not None and \
+            getattr(agg, "out_agg_grouped", None) is not None:
+        wg_in, wg_out = grouped_edge_weights(edge_src, edge_dst, edge_inv, edge_slot,
+                                             num_nodes, x.dtype)
+        return _forward_grouped(params, x, wg_in, wg_out, agg, stream_dtype=stream_dtype)
+
+    group_w, out_w = _group_weights(edge_dst, edge_inv, edge_slot, x.dtype)
+    norm_in = {
+        nm: (1.0 / torch.clamp_min(_segment_sum(w, edge_dst, num_nodes), 1.0))[:, None]
+        for nm, w in group_w.items()
+    }
+    norm_out = {
+        nm: (1.0 / torch.clamp_min(_segment_sum(w, edge_src, num_nodes), 1.0))[:, None]
+        for nm, w in out_w.items()
+    }
+    if agg is None:
+        def in_agg(h, w):
+            return kref.spmm_ref(h, edge_src, edge_dst, num_nodes, w)
+
+        def out_agg(h, w):
+            return kref.spmm_ref(h, edge_dst, edge_src, num_nodes, w)
+    else:
+        in_agg, out_agg = agg.in_agg, agg.out_agg
+
+    h = x
+    for layer in params.layers:
+        acc = h @ layer.w_self + layer.b
+        for nm in IN_GROUPS:
+            acc = acc + (in_agg(h, group_w[nm]) * norm_in[nm]) @ getattr(layer, nm)
+        for nm in OUT_GROUPS:
+            acc = acc + (out_agg(h, out_w[nm]) * norm_out[nm]) @ getattr(layer, nm)
+        h = torch.relu(acc)
+    return _head(params, h)
+
+
+def _group_weights(edge_dst, edge_inv, edge_slot, dtype) -> tuple[dict, dict]:
+    """Per-edge 0/1 membership of each fanin and fanout group."""
+    one = torch.ones(edge_dst.shape[0], dtype=dtype, device=edge_dst.device)
+    w_neg = edge_inv.to(dtype) if edge_inv is not None else torch.zeros_like(one)
+    w_pos = 1.0 - w_neg
+    w_r = edge_slot.to(dtype) if edge_slot is not None else torch.zeros_like(one)
+    w_l = 1.0 - w_r
+    group_w = {
+        "w_in_l_pos": w_l * w_pos,
+        "w_in_l_neg": w_l * w_neg,
+        "w_in_r_pos": w_r * w_pos,
+        "w_in_r_neg": w_r * w_neg,
+    }
+    out_w = {"w_out_pos": w_pos, "w_out_neg": w_neg}
+    return group_w, out_w
+
+
+def grouped_edge_weights(edge_src, edge_dst, edge_inv, edge_slot, num_nodes: int,
+                         dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (E, 4) fanin and (E, 2) fanout group-weight matrices (column
+    order IN_GROUPS / OUT_GROUPS) with each group's per-destination mean
+    norm folded in — the weights the grouped SpMM walks consume."""
+    group_w, out_w = _group_weights(edge_dst, edge_inv, edge_slot, dtype)
+    wg_in = torch.stack([group_w[nm] for nm in IN_GROUPS], dim=1)      # (E, 4)
+    wg_out = torch.stack([out_w[nm] for nm in OUT_GROUPS], dim=1)      # (E, 2)
+    deg_in = _segment_sum(wg_in, edge_dst, num_nodes)
+    deg_out = _segment_sum(wg_out, edge_src, num_nodes)
+    wg_in = wg_in * (1.0 / torch.clamp_min(deg_in, 1.0))[edge_dst]
+    wg_out = wg_out * (1.0 / torch.clamp_min(deg_out, 1.0))[edge_src]
+    return wg_in, wg_out
+
+
+def _forward_grouped(params, x, wg_in, wg_out, agg, *, stream_dtype: Optional[str] = None):
+    """Grouped hot path: one aggregation per direction per layer over the
+    normalised (E, G) group weights."""
+    fp = getattr(agg, "fwd_plan", None)
+    if fp is not None and agg.in_agg_staged is not None:
+        return _forward_hoisted(params, x, wg_in, wg_out, agg, fp, stream_dtype)
+
+    h = x
+    for layer in params.layers:
+        acc = h @ layer.w_self + layer.b
+        w_in_stack = layer.stack(IN_GROUPS)
+        w_out_stack = layer.stack(OUT_GROUPS)
+        if agg.in_agg_mm_grouped is not None:
+            acc = acc + agg.in_agg_mm_grouped(h, wg_in, w_in_stack)
+        else:
+            gin = agg.in_agg_grouped(h, wg_in)                        # (4, N, F)
+            acc = acc + torch.einsum("gnf,gfh->nh", gin.to(acc.dtype), w_in_stack)
+        gout = agg.out_agg_grouped(h, wg_out)                         # (2, N, F)
+        acc = acc + torch.einsum("gnf,gfh->nh", gout.to(acc.dtype), w_out_stack)
+        h = torch.relu(acc)
+    return _head(params, h)
+
+
+def _forward_hoisted(params, x, wg_in, wg_out, agg, fp, stream_dtype):
+    """Hoisted grouped hot path: the fanin/fanout group-weight streams are
+    staged into kernel layout ONCE per forward; activations are padded once
+    per layer, shared by both direction walks; output assembly inside the
+    walks is one permutation gather.  ``stream_dtype="bfloat16"`` narrows
+    the staged weight streams and the gathered features; the kernels
+    accumulate in f32."""
+    sdt = _stream_dtype(stream_dtype)
+    sw_in = fp.stage_in(wg_in, dtype=sdt)
+    sw_out = fp.stage_out(wg_out, dtype=sdt)
+    fused = agg.in_agg_mm_staged is not None
+    h = x
+    for layer in params.layers:
+        w_in_stack = layer.stack(IN_GROUPS)
+        w_out_stack = layer.stack(OUT_GROUPS)
+        acc = h @ layer.w_self + layer.b
+        h_p = fp.pad_x(h)
+        if sdt is not None:
+            h_p = h_p.to(sdt)
+        if fused:
+            acc = acc + agg.in_agg_mm_staged(h_p, sw_in, w_in_stack).to(acc.dtype)
+        else:
+            gin = agg.in_agg_staged(h_p, sw_in)                       # (4, N, F)
+            acc = acc + torch.einsum("gnf,gfh->nh", gin.to(acc.dtype), w_in_stack)
+            del gin
+        gout = agg.out_agg_staged(h_p, sw_out)                        # (2, N, F)
+        acc = acc + torch.einsum("gnf,gfh->nh", gout.to(acc.dtype), w_out_stack)
+        del gout, h_p
+        h = torch.relu(acc)
+    return _head(params, h)
+
+
+# ---------------------------------------------------------------------------
+# Prediction
+# ---------------------------------------------------------------------------
+
+def _make_agg(g, backend: str, device):
+    """The aggregation pair for a graph (None = the plain reference)."""
+    if backend in (None, "ref"):
+        return None
+    from repro_torch.kernels import ops
+
+    return ops.make_agg_pair(g.edge_src, g.edge_dst, g.num_nodes, backend, device=device)
+
+
+def graph_tensors(g, device) -> tuple:
+    """(edge_src, edge_dst, edge_inv, edge_slot) of an EdgeGraph on ``device``
+    (indices int64; missing annotations stay None)."""
+    def t(a, dtype=None):
+        a = torch.as_tensor(np.ascontiguousarray(a))
+        return a.to(device=device, dtype=dtype)
+
+    return (
+        t(g.edge_src, torch.int64),
+        t(g.edge_dst, torch.int64),
+        None if g.edge_inv is None else t(g.edge_inv),
+        None if g.edge_slot is None else t(g.edge_slot),
+    )
+
+
+def predict(params: GrootGNN, design, features, backend: str = "ref", *,
+            stream_dtype: Optional[str] = None, device=None) -> np.ndarray:
+    """Per-node class predictions (int32 argmax of the logits), computed on
+    ``device`` (``cuda`` unless the caller names another)."""
+    device = resolve_device(device)
+    p_dev = next(params.parameters()).device
+    if p_dev.type != device.type or (device.index is not None and p_dev != device):
+        raise ValueError(f"params lie on {p_dev}, prediction runs on {device}")
+    g = design.to_edge_graph() if hasattr(design, "to_edge_graph") else design
+    src, dst, inv, slot = graph_tensors(g, device)
+    x = torch.as_tensor(np.asarray(features, np.float32)).to(device)
+    logits = forward(
+        params, x, src, dst, inv, slot, num_nodes=g.num_nodes,
+        agg=_make_agg(g, backend, device), stream_dtype=stream_dtype,
+    )
+    return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+
+
+def accuracy(pred: np.ndarray, labels: np.ndarray) -> float:
+    return float((pred == labels).mean())

@@ -1,0 +1,517 @@
+"""GROOT degree-bucketed grouped SpMM: host plan, device walk, CUDA kernels.
+
+Port of ``repro/kernels/groot_spmm.py``.  The host plan (the count-sort /
+row assembly of paper Fig. 5) is a numpy copy whose arrays are identical to
+the reference's, ``rows_per_tile`` included.  The device walk runs the
+grouped multi-polarity SpMM
+
+    out[g, r] = sum_{e: dst[e] = r} wg[e, g] * x[src[e]]
+
+through two hand-written CUDA kernels (``csrc/groot_spmm.cu``):
+
+  K1 ``ld_grouped_apply``  low-degree rows (degree <= e_t), one ELL bucket of
+     power-of-two degree d per launch; replaces ``_ld_kernel_grouped``.
+  K2 ``hd_grouped_apply``  high-degree rows (degree > e_t), split into e_t-edge
+     chunks; replaces ``_hd_kernel_grouped``.
+
+Unlike the TPU walk, the kernels gather ``x_p[cols]`` themselves (no message
+slab in device memory) and the feature axis is not padded to a 128-lane
+quantum: ``x_p`` is ``(N + 1, F)`` with one zero row at index N, the target of
+every pad column.  Each wrapper runs its plain PyTorch version on a CPU tensor
+and its kernel on a CUDA tensor, and counts its kernel launches.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+
+# Paper §IV thresholds: HD rows have degree > E_T; LD buckets are the
+# power-of-two degrees up to E_T.  LD_TILE_EDGES and SUBLANE keep
+# ``rows_per_tile`` (and so every padded bucket shape) equal to the
+# reference's, even though the CUDA kernels do not tile by it.
+E_T = 512
+LD_TILE_EDGES = 2048
+SUBLANE = 8
+
+
+# ---------------------------------------------------------------------------
+# Host-side plan (the count-sort / row-assembly of paper Fig. 5, step B)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LdBucket:
+    """All rows whose (padded) degree is ``deg``: an ELL slab."""
+
+    deg: int
+    rows: np.ndarray        # (R_pad,) int32 destination row ids (pad = -1)
+    cols: np.ndarray        # (R_pad * deg,) int32 source node ids (pad = N)
+    eids: np.ndarray        # (R_pad * deg,) int32 edge ids (pad = E)
+    rows_per_tile: int      # R_t
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.rows.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class HdPlan:
+    """Rows with degree > E_T, chunked into E_t-edge pieces."""
+
+    rows: np.ndarray        # (n_hd,) int32 destination row ids
+    cols: np.ndarray        # (n_chunks * E_t,) int32 source ids (pad = N)
+    eids: np.ndarray        # (n_chunks * E_t,) int32 edge ids (pad = E)
+    chunk_meta: np.ndarray  # (n_chunks, 2) int32: [output row slot, is_first]
+
+    @property
+    def num_chunks(self) -> int:
+        return int(self.chunk_meta.shape[0])
+
+    def row_chunks(self) -> np.ndarray:
+        """(n_hd, 2) int32 ``[first chunk, chunk count]`` per HD row, derived
+        from ``chunk_meta`` (a row's chunks are consecutive): the CUDA HD
+        kernel walks one row's chunks in one block."""
+        slots = self.chunk_meta[:, 0].astype(np.int64)
+        n_hd = int(self.rows.shape[0])
+        first = np.searchsorted(slots, np.arange(n_hd))
+        count = np.bincount(slots, minlength=n_hd)
+        return np.stack([first, count], axis=1).astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmmPlan:
+    num_nodes: int
+    num_edges: int
+    buckets: tuple          # tuple[LdBucket, ...]
+    hd: Optional[HdPlan]
+    e_t: int = E_T
+    # Inverse count-sort permutation for scatter-free output assembly:
+    # bucket (then HD) reductions concatenated row-major form a
+    # (asm_rows, F) array whose LAST row is zero; ``asm_index[r]`` is the
+    # concat position of destination row r (degree-0 rows point at the
+    # zero row).  A row appears in exactly one LD bucket OR the HD plan —
+    # never both — so one gather (no adds) assembles the (N, F) output.
+    asm_index: Optional[np.ndarray] = None   # (N,) int32
+    asm_rows: int = 0
+    # device copies of the index arrays, one DevicePlan per device (filled
+    # by :meth:`on`; not part of the plan's value)
+    _device: dict = dataclasses.field(
+        default_factory=dict, compare=False, repr=False
+    )
+
+    @property
+    def num_slots(self) -> int:
+        """Gathered edge-stream rows per walk (real edges + ELL padding)."""
+        return sum(b.eids.size for b in self.buckets) + (
+            self.hd.eids.size if self.hd else 0
+        )
+
+    def on(self, device) -> "DevicePlan":
+        """The plan's index arrays on ``device``, copied there once."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            # "cuda" and the tensors' "cuda:<n>" must share one copy
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = str(device)
+        dp = self._device.get(key)
+        if dp is None:
+            dp = DevicePlan.build(self, device)
+            self._device[key] = dp
+        return dp
+
+
+def build_plan(
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    num_nodes: int,
+    *,
+    e_t: int = E_T,
+    ld_tile_edges: int = LD_TILE_EDGES,
+) -> SpmmPlan:
+    """Degree count-sort + row assembly (paper Fig. 5 step B, host, O(E)).
+
+    ``eids`` index the *edge array*, so one plan serves any (x, w) pair on
+    the same graph (all six slot/polarity groups of the GNN reuse it).
+    """
+    edge_src = np.asarray(edge_src, dtype=np.int64)
+    edge_dst = np.asarray(edge_dst, dtype=np.int64)
+    n, e = int(num_nodes), int(edge_dst.shape[0])
+    # indices are staged as int32 (halves the index bytes per launch)
+    if not (n < 2**31 and e < 2**31):
+        raise ValueError(f"graph too large for int32 plan indices ({n} nodes, {e} edges)")
+    deg = np.bincount(edge_dst, minlength=n).astype(np.int64)
+
+    # CSR-style row starts after a stable count-sort of edges by dest row.
+    order = np.argsort(edge_dst, kind="stable").astype(np.int64)
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=starts[1:])
+
+    buckets: list[LdBucket] = []
+    d = 1
+    while d <= e_t:
+        lo = 1 if d == 1 else d // 2 + 1
+        rows = np.where((deg >= lo) & (deg <= d))[0]
+        if rows.size:
+            r_t = max(SUBLANE, (ld_tile_edges // d) // SUBLANE * SUBLANE)
+            r_pad = -rows.size % r_t
+            eids = np.full((rows.size + r_pad, d), e, dtype=np.int64)
+            for slot in range(d):  # d slots; loop count <= 512, host-only
+                take = deg[rows] > slot
+                eids[: rows.size][take, slot] = order[starts[rows[take]] + slot]
+            rows_p = np.concatenate(
+                [rows, np.full(r_pad, -1, dtype=np.int64)]
+            ).astype(np.int32)
+            flat = eids.reshape(-1)
+            cols = np.where(flat < e, edge_src[np.minimum(flat, e - 1)], n)
+            buckets.append(
+                LdBucket(
+                    deg=d,
+                    rows=rows_p,
+                    cols=cols.astype(np.int32),
+                    eids=flat.astype(np.int32),
+                    rows_per_tile=r_t,
+                )
+            )
+        d *= 2
+
+    hd_rows = np.where(deg > e_t)[0]
+    hd = None
+    if hd_rows.size:
+        n_chunks_per = -(-deg[hd_rows] // e_t)
+        total_chunks = int(n_chunks_per.sum())
+        eids = np.full((total_chunks, e_t), e, dtype=np.int64)
+        meta = np.zeros((total_chunks, 2), dtype=np.int32)
+        c = 0
+        for slot_i, r in enumerate(hd_rows):
+            row_edges = order[starts[r] : starts[r + 1]]
+            for k in range(int(n_chunks_per[slot_i])):
+                chunk = row_edges[k * e_t : (k + 1) * e_t]
+                eids[c, : chunk.size] = chunk
+                meta[c] = (slot_i, 1 if k == 0 else 0)
+                c += 1
+        flat = eids.reshape(-1)
+        cols = np.where(flat < e, edge_src[np.minimum(flat, e - 1)], n)
+        hd = HdPlan(
+            rows=hd_rows.astype(np.int32),
+            cols=cols.astype(np.int32),
+            eids=flat.astype(np.int32),
+            chunk_meta=meta,
+        )
+
+    asm_index, asm_rows = _assembly_index(n, buckets, hd)
+    return SpmmPlan(
+        num_nodes=n, num_edges=e, buckets=tuple(buckets), hd=hd, e_t=e_t,
+        asm_index=asm_index, asm_rows=asm_rows,
+    )
+
+
+def _assembly_index(
+    n: int, buckets: list[LdBucket], hd: Optional[HdPlan]
+) -> tuple[np.ndarray, int]:
+    """Inverse count-sort permutation (scatter-free output assembly).
+
+    Concatenating every bucket's padded reduction and the HD rows
+    row-major, followed by one zero row, gives an (asm_rows, F) array
+    where ``take(cat, asm_index)`` is the (N, F) output — a destination
+    row belongs to exactly one LD bucket or the HD plan, so no adds are
+    needed.
+    """
+    asm = np.full(n, -1, dtype=np.int64)
+    off = 0
+    for b in buckets:
+        live = b.rows >= 0
+        rows_live = b.rows[live].astype(np.int64)
+        assert (asm[rows_live] < 0).all(), "row in two LD buckets"
+        asm[rows_live] = off + np.nonzero(live)[0]
+        off += b.rows.shape[0]
+    if hd is not None:
+        hd_rows = hd.rows.astype(np.int64)
+        # a row receiving both an LD and an HD contribution would need an
+        # add on top of the gather; the degree partition makes it
+        # impossible within one plan — assert it
+        assert (asm[hd_rows] < 0).all(), "row is both LD and HD"
+        asm[hd_rows] = off + np.arange(hd.rows.shape[0])
+        off += hd.rows.shape[0]
+    zero_row = off
+    asm[asm < 0] = zero_row           # degree-0 rows read the zero row
+    asm_rows = off + 1
+    assert asm_rows < 2**31
+    return asm.astype(np.int32), asm_rows
+
+
+def plan_cat_eids(plan: SpmmPlan) -> np.ndarray:
+    """Concatenated edge-id stream of every bucket + HD chunk (int32) —
+    the single gather index of :func:`stage_group_weights`."""
+    parts = [b.eids for b in plan.buckets]
+    if plan.hd is not None:
+        parts.append(plan.hd.eids)
+    if not parts:
+        return np.zeros(0, np.int32)
+    return np.concatenate(parts).astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DevicePlan:
+    """A plan's index arrays as tensors on one device, plus where each
+    bucket's rows start in the (G, asm_rows, F) concatenation buffer."""
+
+    plan: SpmmPlan
+    cols: tuple             # per bucket (R_pad * deg,) int32
+    offsets: tuple          # per bucket: first concat row
+    hd_cols: Optional[torch.Tensor]        # (n_chunks * e_t,) int32
+    hd_meta: Optional[torch.Tensor]        # (n_chunks, 2) int32 chunk_meta
+    hd_row_chunks: Optional[torch.Tensor]  # (n_hd, 2) int32 [first, count]
+    hd_offset: int
+    cat_eids: torch.Tensor  # (num_slots,) int64 staging index
+    asm_index: torch.Tensor  # (N,) int64
+
+    @classmethod
+    def build(cls, plan: SpmmPlan, device: torch.device) -> "DevicePlan":
+        def t(a, dtype=torch.int32):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+        offsets, off = [], 0
+        for b in plan.buckets:
+            offsets.append(off)
+            off += b.num_rows
+        hd = plan.hd
+        return cls(
+            plan=plan,
+            cols=tuple(t(b.cols) for b in plan.buckets),
+            offsets=tuple(offsets),
+            hd_cols=None if hd is None else t(hd.cols),
+            hd_meta=None if hd is None else t(hd.chunk_meta),
+            hd_row_chunks=None if hd is None else t(hd.row_chunks()),
+            hd_offset=off,
+            cat_eids=t(plan_cat_eids(plan), torch.int64),
+            asm_index=t(plan.asm_index, torch.int64),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Forward-invariant weight staging: ONE gather of the concatenated edge-id
+# stream puts the (E, G) group weights into every bucket's ELL layout and
+# the HD chunk layout; layers 2..L touch zero edge-weight bytes.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StagedWeights:
+    """Edge-weight streams pre-gathered into kernel layout (aligned with
+    ``plan.buckets`` order; ``hd`` in HD-chunk layout)."""
+
+    buckets: tuple                      # per-bucket (R_pad * deg, G)
+    hd: Optional[torch.Tensor]          # (n_chunks * e_t, G) or None
+    groups: int
+
+
+def stage_group_weights(plan: SpmmPlan, wg: torch.Tensor, *, dtype=None) -> StagedWeights:
+    """Gather the (E, G) group-weight matrix into every bucket's ELL layout
+    and the HD chunk layout in ONE ``index_select`` (``dtype`` casts the
+    staged streams, e.g. bf16 — kernels accumulate in f32 regardless)."""
+    dp = plan.on(wg.device)
+    g = wg.shape[1]
+    wg_p = torch.cat([wg.float(), wg.new_zeros((1, g), dtype=torch.float32)])  # row E = 0
+    cat = wg_p.index_select(0, dp.cat_eids)
+    if dtype is not None:
+        cat = cat.to(dtype)
+    chunks, off = [], 0
+    for b in plan.buckets:
+        chunks.append(cat[off : off + b.eids.size])
+        off += b.eids.size
+    hd = None
+    if plan.hd is not None:
+        hd = cat[off : off + plan.hd.eids.size]
+    return StagedWeights(buckets=tuple(chunks), hd=hd, groups=g)
+
+
+def pad_features(x: torch.Tensor) -> torch.Tensor:
+    """Feature staging for the walks: one zero row appended (the gather pad
+    target, index N).  The feature axis stays whole — no lane padding."""
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+
+# ---------------------------------------------------------------------------
+# K1: grouped LD kernel
+# ---------------------------------------------------------------------------
+
+def check_stream(name: str, x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
+                 slots: int) -> None:
+    """Reject kernel inputs of the wrong device, dtype, shape or layout."""
+    if x_p.dim() != 2 or not x_p.is_contiguous():
+        raise ValueError(f"{name}: x_p must be a contiguous (N + 1, F) tensor")
+    if x_p.dtype not in (torch.float32, torch.bfloat16) or wg.dtype != x_p.dtype:
+        raise ValueError(f"{name}: x_p and wg must share dtype float32 or bfloat16, "
+                         f"got {x_p.dtype} and {wg.dtype}")
+    if cols.dtype != torch.int32 or cols.shape != (slots,) or not cols.is_contiguous():
+        raise ValueError(f"{name}: cols must be contiguous int32 of shape ({slots},)")
+    if wg.dim() != 2 or wg.shape[0] != slots or not wg.is_contiguous():
+        raise ValueError(f"{name}: wg must be contiguous of shape ({slots}, G)")
+    if not 1 <= wg.shape[1] <= 4:
+        raise ValueError(f"{name}: the kernels take 1 to 4 groups, got {wg.shape[1]}")
+    for t in (cols, wg):
+        if t.device != x_p.device:
+            raise ValueError(f"{name}: every input must lie on {x_p.device}, got {t.device}")
+
+
+def check_out(name: str, out: torch.Tensor, shape: tuple, device) -> None:
+    if (out.dtype != torch.float32 or tuple(out.shape) != shape or out.device != device
+            or out.stride(-1) != 1 or out.stride(-2) != shape[-1]):
+        raise ValueError(f"{name}: out must be float32 {shape} on {device} with "
+                         f"contiguous rows, got {out.dtype} {tuple(out.shape)} "
+                         f"strides {out.stride()} on {out.device}")
+
+
+def grouped_rowsum(msgs: torch.Tensor, wg: torch.Tensor, deg: int) -> torch.Tensor:
+    """Weighted ELL row sums of gathered messages, in f32:
+    msgs (R * deg, F), wg (R * deg, G) -> (G, R, F)."""
+    m, w = msgs.float(), wg.float()
+    prod = w.t()[:, :, None] * m[None, :, :]                        # (G, R*d, F)
+    return prod.reshape(w.shape[1], -1, deg, m.shape[1]).sum(dim=2)
+
+
+def ld_grouped_plain(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
+                     deg: int) -> torch.Tensor:
+    """Plain PyTorch version of K1: gather, weight, reshape-sum.
+    x_p (N + 1, F), cols (R * deg,), wg (R * deg, G) -> (G, R, F) f32."""
+    return grouped_rowsum(x_p.index_select(0, cols.long()), wg, deg)
+
+
+def ld_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor, deg: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1: grouped LD row sums of one ELL bucket, the gather fused in.
+
+    x_p (N + 1, F) f32/bf16, cols (R * deg,) int32, wg (R * deg, G) of
+    x_p's dtype -> ``out`` (G, R, F) f32, which may be a row slice of a
+    larger buffer (rows contiguous, any group stride).  CPU tensors run
+    :func:`ld_grouped_plain`; CUDA tensors launch the kernel.
+    """
+    slots = cols.shape[0]
+    if deg < 1 or slots % deg:
+        raise ValueError(f"ld_grouped_apply: {slots} slots do not split into rows of {deg}")
+    check_stream("ld_grouped_apply", x_p, cols, wg, slots)
+    g, rows, feat = wg.shape[1], slots // deg, x_p.shape[1]
+    if out is None:
+        out = torch.empty((g, rows, feat), dtype=torch.float32, device=x_p.device)
+    check_out("ld_grouped_apply", out, (g, rows, feat), x_p.device)
+    if x_p.device.type == "cpu":
+        out.copy_(ld_grouped_plain(x_p, cols, wg, deg))
+        return out
+    if x_p.device.type != "cuda":
+        raise ValueError(f"ld_grouped_apply: no kernel for device {x_p.device}")
+    lib = build.library("groot_spmm")
+    rc = lib.groot_ld_grouped(
+        x_p.data_ptr(), cols.data_ptr(), wg.data_ptr(), out.data_ptr(),
+        rows, deg, g, feat, out.stride(0), int(x_p.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x_p.device).cuda_stream,
+    )
+    build.check(rc, "ld_grouped_apply")
+    ld_grouped_apply.launches += 1
+    return out
+
+
+ld_grouped_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: grouped HD kernel
+# ---------------------------------------------------------------------------
+
+def hd_grouped_plain(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
+                     chunk_meta: torch.Tensor, n_hd: int, e_t: int) -> torch.Tensor:
+    """Plain PyTorch version of K2: per-chunk weighted sums, then
+    ``index_add_`` of each chunk into its row (``chunk_meta[:, 0]``).
+    -> (G, n_hd, F) f32."""
+    g, feat = wg.shape[1], x_p.shape[1]
+    msgs = x_p.index_select(0, cols.long()).float().reshape(-1, e_t, feat)
+    w = wg.float().reshape(-1, e_t, g)
+    part = torch.einsum("ceg,cef->gcf", w, msgs)                       # (G, C, F)
+    out = torch.zeros((g, n_hd, feat), dtype=torch.float32, device=x_p.device)
+    return out.index_add_(1, chunk_meta[:, 0].long(), part)
+
+
+def hd_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
+                     chunk_meta: torch.Tensor, row_chunks: torch.Tensor, e_t: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2: grouped sums of the HD rows, one block per row over its chunks.
+
+    x_p (N + 1, F), cols (C * e_t,) int32, wg (C * e_t, G), chunk_meta
+    (C, 2) int32, row_chunks (n_hd, 2) int32 ``[first chunk, count]`` ->
+    ``out`` (G, n_hd, F) f32 (rows contiguous, any group stride).  CPU
+    tensors run :func:`hd_grouped_plain`; CUDA tensors launch the kernel.
+    """
+    slots = cols.shape[0]
+    if slots != chunk_meta.shape[0] * e_t:
+        raise ValueError(f"hd_grouped_apply: {slots} slots != {chunk_meta.shape[0]} chunks x {e_t}")
+    check_stream("hd_grouped_apply", x_p, cols, wg, slots)
+    n_hd = row_chunks.shape[0]
+    for name, t in (("chunk_meta", chunk_meta), ("row_chunks", row_chunks)):
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != 2 or not t.is_contiguous() \
+                or t.device != x_p.device:
+            raise ValueError(f"hd_grouped_apply: {name} must be contiguous int32 (., 2) "
+                             f"on {x_p.device}")
+    g, feat = wg.shape[1], x_p.shape[1]
+    if out is None:
+        out = torch.empty((g, n_hd, feat), dtype=torch.float32, device=x_p.device)
+    check_out("hd_grouped_apply", out, (g, n_hd, feat), x_p.device)
+    if x_p.device.type == "cpu":
+        out.copy_(hd_grouped_plain(x_p, cols, wg, chunk_meta, n_hd, e_t))
+        return out
+    if x_p.device.type != "cuda":
+        raise ValueError(f"hd_grouped_apply: no kernel for device {x_p.device}")
+    lib = build.library("groot_spmm")
+    rc = lib.groot_hd_grouped(
+        x_p.data_ptr(), cols.data_ptr(), wg.data_ptr(), row_chunks.data_ptr(), out.data_ptr(),
+        n_hd, e_t, g, feat, out.stride(0), int(x_p.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x_p.device).cuda_stream,
+    )
+    build.check(rc, "hd_grouped_apply")
+    hd_grouped_apply.launches += 1
+    return out
+
+
+hd_grouped_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The grouped walk: per-bucket kernels -> permutation assembly
+# ---------------------------------------------------------------------------
+
+def assemble_rows_grouped(plan: SpmmPlan, cat: torch.Tensor) -> torch.Tensor:
+    """Scatter-free output assembly: ``cat`` is the (G, asm_rows, F)
+    concatenation of every bucket's rows (then HD, then one zero row) that
+    the kernels wrote in place; one gather along axis 1 gives (G, N, F)."""
+    return cat.index_select(1, plan.on(cat.device).asm_index)
+
+
+def apply_plan_grouped_staged(plan: SpmmPlan, x_p: torch.Tensor,
+                              staged: StagedWeights) -> torch.Tensor:
+    """Hoisted grouped walk: pre-padded features (see :func:`pad_features`)
+    + pre-staged weight streams in, ``(G, N, F)`` f32 out."""
+    dp = plan.on(x_p.device)
+    g, feat = staged.groups, x_p.shape[1]
+    cat = torch.empty((g, plan.asm_rows, feat), dtype=torch.float32, device=x_p.device)
+    cat[:, -1].zero_()
+    for b, cols, off, wge in zip(plan.buckets, dp.cols, dp.offsets, staged.buckets):
+        ld_grouped_apply(x_p, cols, wge, b.deg, out=cat[:, off : off + b.num_rows])
+    if plan.hd is not None:
+        n_hd = plan.hd.rows.shape[0]
+        hd_grouped_apply(
+            x_p, dp.hd_cols, staged.hd, dp.hd_meta, dp.hd_row_chunks, plan.e_t,
+            out=cat[:, dp.hd_offset : dp.hd_offset + n_hd],
+        )
+    return assemble_rows_grouped(plan, cat)
+
+
+def apply_plan_grouped(plan: SpmmPlan, x: torch.Tensor, wg: torch.Tensor) -> torch.Tensor:
+    """All-groups SpMM: ``out[g, r] = sum_{e: dst[e]=r} wg[e, g] * x[src[e]]``.
+
+    ``wg`` is ``(E, G)``; returns ``(G, N, F)`` in ``x.dtype``.  Stages the
+    weight streams per call; the hoisted forward stages once per forward.
+    """
+    staged = stage_group_weights(plan, wg)
+    out = apply_plan_grouped_staged(plan, pad_features(x.float()), staged)
+    return out.to(x.dtype)

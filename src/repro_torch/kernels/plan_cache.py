@@ -1,0 +1,112 @@
+"""Process-wide structural plan cache (port of ``repro/kernels/plan_cache.py``).
+
+An :class:`~repro_torch.kernels.groot_spmm.SpmmPlan` is a pure function of
+the graph structure, so one LRU keyed on a content hash of the edge arrays
+serves every caller:
+
+  * ``("plan", graph_key, e_t)``            -> a built ``SpmmPlan``
+  * ``("fwd", graph_key, e_t)``             -> a built ``ForwardPlan``
+  * ``("pair", graph_key, backend, device)`` -> a built ``AggPair``
+
+Plans carry their device copies (``SpmmPlan.on``), so a recurring structure
+neither rebuilds its plan nor copies its indices to the card again.
+Thread-safe.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import threading
+from collections import OrderedDict
+from typing import Callable, Hashable
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class PlanCacheStats:
+    hits: int = 0
+    misses: int = 0
+    builds: int = 0
+    evictions: int = 0
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+
+class PlanCache:
+    """LRU of structure-keyed build products (plans, agg pairs)."""
+
+    def __init__(self, capacity: int = 256):
+        assert capacity > 0
+        self.capacity = capacity
+        self._lock = threading.RLock()
+        self._data: OrderedDict[Hashable, object] = OrderedDict()
+        self.stats = PlanCacheStats()
+
+    def get_or_build(self, key: Hashable, builder: Callable[[], object]) -> object:
+        with self._lock:
+            if key in self._data:
+                self._data.move_to_end(key)
+                self.stats.hits += 1
+                return self._data[key]
+            self.stats.misses += 1
+            # build under the lock: building the same plan twice
+            # concurrently would hand two callers two different objects
+            value = builder()
+            self.stats.builds += 1
+            self._data[key] = value
+            while len(self._data) > self.capacity:
+                self._data.popitem(last=False)
+                self.stats.evictions += 1
+            return value
+
+    def snapshot(self) -> PlanCacheStats:
+        with self._lock:
+            return dataclasses.replace(self.stats)
+
+
+#: The process-wide instance (pipeline and predict paths share it).
+PLAN_CACHE = PlanCache(capacity=256)
+
+
+def graph_key(edge_src, edge_dst, num_nodes: int) -> str:
+    """Content hash of a graph structure (direction-sensitive: the fanin
+    and fanout plans of the same graph hash differently, as they must)."""
+    h = hashlib.sha256()
+    h.update(np.int64(num_nodes).tobytes())
+    h.update(np.ascontiguousarray(np.asarray(edge_src, dtype=np.int64)).tobytes())
+    h.update(b"|")
+    h.update(np.ascontiguousarray(np.asarray(edge_dst, dtype=np.int64)).tobytes())
+    return h.hexdigest()
+
+
+def cached_plan(edge_src, edge_dst, num_nodes: int, *, e_t: int | None = None):
+    """``build_plan`` through the process-wide cache."""
+    from repro_torch.kernels.groot_spmm import E_T, build_plan
+
+    e_t = E_T if e_t is None else e_t
+    key = ("plan", graph_key(edge_src, edge_dst, num_nodes), e_t)
+    return PLAN_CACHE.get_or_build(
+        key, lambda: build_plan(edge_src, edge_dst, num_nodes, e_t=e_t)
+    )
+
+
+def cached_forward_plan(edge_src, edge_dst, num_nodes: int, *, e_t: int | None = None):
+    """The graph's :class:`~repro_torch.kernels.forward_plan.ForwardPlan`
+    through the process-wide cache (direction plans come from
+    :func:`cached_plan`, so a recurring structure builds nothing)."""
+    from repro_torch.kernels.forward_plan import build_forward_plan
+    from repro_torch.kernels.groot_spmm import E_T
+
+    e_t = E_T if e_t is None else e_t
+    key = ("fwd", graph_key(edge_src, edge_dst, num_nodes), e_t)
+    return PLAN_CACHE.get_or_build(
+        key,
+        lambda: build_forward_plan(
+            cached_plan(edge_src, edge_dst, num_nodes, e_t=e_t),
+            cached_plan(edge_dst, edge_src, num_nodes, e_t=e_t),
+        ),
+    )
