@@ -7,23 +7,34 @@ Phases (any failure raises and the script exits non-zero):
 
  1. device    the card's name and power limit (``nvidia-smi``)
  2. build     the CUDA kernels, compiled from ``src/repro_torch/csrc`` (timed)
- 3. parity    every kernel of the full-graph path (K1 grouped LD, K2 grouped
-              HD, K3 grouped fused LD) against its plain PyTorch version at
-              the csa-<bits> shapes: each fanin bucket (G=4), each fanout
-              bucket (G=2), the HD chunks; f32 and bf16 streams, hidden
-              width 32 and the 4-wide first layer.  Kernel, plain and
-              library (``torch.sparse.mm``) times by CUDA events.
- 4. forward   the model forward on ``groot``, ``groot_fused`` and ``ref``,
+ 3. parity    every kernel against its plain PyTorch version at the
+              csa-<bits> shapes, f32 and bf16 streams, hidden width 32 and
+              the 4-wide first layer: K1 grouped LD, K2 grouped HD, K3
+              grouped fused LD (each fanin bucket G=4, each fanout bucket
+              G=2, the HD chunks); K4 grouped MXU LD (the buckets of degree
+              > 1); K5 ungrouped LD (every bucket, with and without a
+              weight, VPU and MXU bodies), K6 ungrouped HD, K7 ungrouped
+              fused LD (the fanin buckets).  Kernel, plain and library
+              (``torch.sparse.mm``) times by CUDA events.
+ 4. spmm      the paper's single SpMM, ``ops.groot_spmm(x, src, dst, n, w)``
+              and its transpose, F=32 f32, on ``groot`` and ``groot_mxu``,
+              against ``spmm_ref`` and timed beside ``torch.sparse.mm``.
+ 5. forward   the model forward on ``groot``, ``groot_mxu``,
+              ``groot_fused``, the per-group forwards ``ops.ungrouped(pair)``
+              on ``groot``, ``groot_mxu`` and ``groot_fused``, and ``ref``,
               timed with ``torch.cuda.synchronize()`` around it; logits
-              finite, compared with ``ref``.
- 5. main path ``repro_torch.api.Session(params=<groot_csa8.npz>, backend=b)
-              .verify(dataset="csa", bits=<bits>)`` for ``groot`` and
-              ``groot_fused`` with every kernel's launch count set to 0
-              just before and read just after, then ``ref`` (no kernel).
+              finite, compared with ``ref``.  ``onehot`` against ``ref`` at
+              csa-32 (its (E, N) one-hot cannot exist at csa-1024).
+ 6. main path ``repro_torch.api.Session(params=<groot_csa8.npz>, backend=b)
+              .verify(dataset="csa", bits=<bits>)`` for ``groot``,
+              ``groot_mxu`` and ``groot_fused``, then ``ref`` (no kernel).
               Verdicts must equal ``ref``'s and predictions may differ on at
               most 1e-5 of the nodes.
 
-The line before the last is the ``{"kernels": [...]}`` summary; the last is
+Every driven path of phases 4-6 runs with each kernel's launch count set to
+0 just before it and read just after; a kernel's ``launches`` in the summary
+is the sum over those paths, and every kernel must have been launched.  The
+line before the last is the ``{"kernels": [...]}`` summary; the last is
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device, or run from a
 directory that lacks the repository, it exits non-zero and prints no result.
@@ -44,11 +55,20 @@ ROOT = Path(__file__).resolve().parent
 # outside the tensor cores, which the kernels' FMA loops run on.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-# |kernel - plain| <= TOL * max(1, max|plain|): both sides widen bf16 inputs
-# to f32 exactly and accumulate in f32, so only the order of the sums
-# differs (a few f32 ulps over at most 1024 terms of mean-normalised weights).
+# |kernel - plain| <= TOL * max(1, max|plain|): both sides round each
+# message-weight product the same way (K1-K3 widen bf16 to f32 exactly, K4-K7
+# round the product to the stream dtype) and accumulate in f32, so only the
+# order of the sums differs (a few f32 ulps over at most 1024 terms of
+# mean-normalised weights), plus what K4's two-term TF32 split of an f32
+# product loses (under 2^-22 of it).
 TOL = 1e-5
 MAX_PRED_MISMATCH = 1e-5
+# |logits - ref logits| <= LOGIT_TOL * max(1, max|ref logits|) for every
+# forward: four layers of f32 sums in other orders (6.3e-5 at most on an
+# H100 at csa-1024, PERF.md)
+LOGIT_TOL = 1e-3
+# the design onehot runs on: its (E, N) one-hot grows with E * N
+ONEHOT_BITS = 32
 
 
 def log(msg: str) -> None:
@@ -107,6 +127,7 @@ def main() -> int:
     from repro_torch.core import gnn
     from repro_torch.core import pipeline as P
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ref as kref
     from repro_torch.kernels import groot_spmm as gs
     from repro_torch.kernels import fused_sage as fs
 
@@ -140,7 +161,7 @@ def main() -> int:
     g = prep.graph
     t0 = time.perf_counter()
     pairs = {b: ops.make_agg_pair(g.edge_src, g.edge_dst, g.num_nodes, b, device=dev)
-             for b in ("groot", "groot_fused")}
+             for b in ("groot", "groot_mxu", "groot_fused")}
     t_plan = time.perf_counter() - t0
     in_plan, out_plan = pairs["groot"].in_plan, pairs["groot"].out_plan
     fp = pairs["groot"].fwd_plan
@@ -154,7 +175,7 @@ def main() -> int:
     }
     log(f"design csa-{args.bits}: {json.dumps(report['design'])}")
     if out_plan.hd is None:
-        fail(f"csa-{args.bits} has no HD rows: K2 would not run (need bits > {gs.E_T})")
+        fail(f"csa-{args.bits} has no HD rows: K2 and K6 would not run (need bits > {gs.E_T})")
 
     # -- 3. parity + kernel timing at the main path's shapes -------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -171,21 +192,23 @@ def main() -> int:
         staged[("in", sdt)] = fp.stage_in(wg_in, dtype=sdt)
         staged[("out", sdt)] = fp.stage_out(wg_out, dtype=sdt)
 
-    kernels = {
-        "ld_grouped": dict(name="ld_grouped", route="cuda",
-                           source="src/repro_torch/csrc/groot_spmm.cu",
-                           replaces="src/repro/kernels/groot_spmm.py:513", fn=gs.ld_grouped_apply),
-        "hd_grouped": dict(name="hd_grouped", route="cuda",
-                           source="src/repro_torch/csrc/groot_spmm.cu",
-                           replaces="src/repro/kernels/groot_spmm.py:590", fn=gs.hd_grouped_apply),
-        "fused_ld_grouped": dict(name="fused_ld_grouped", route="cuda",
-                                 source="src/repro_torch/csrc/fused_sage.cu",
-                                 replaces="src/repro/kernels/fused_sage.py:91",
-                                 fn=fs.fused_ld_matmul_grouped),
-    }
-    for k in kernels.values():
-        k.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                 bytes_ms=0.0, ops_ms=0.0, shapes=[])
+    def kernel(name, source, replaces, fn):
+        return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
+                    replaces=replaces, fn=fn, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                    bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, shapes=[])
+
+    spmm_py = "src/repro/kernels/groot_spmm.py"
+    kernels = {k["name"]: k for k in (
+        kernel("ld_grouped", "groot_spmm.cu", f"{spmm_py}:513", gs.ld_grouped_apply),
+        kernel("hd_grouped", "groot_spmm.cu", f"{spmm_py}:590", gs.hd_grouped_apply),
+        kernel("fused_ld_grouped", "fused_sage.cu", "src/repro/kernels/fused_sage.py:91",
+               fs.fused_ld_matmul_grouped),
+        kernel("ld_grouped_mxu", "groot_spmm.cu", f"{spmm_py}:524", gs.ld_grouped_mxu_apply),
+        kernel("ld_bucket", "groot_spmm.cu", f"{spmm_py}:309", gs.ld_bucket_apply),
+        kernel("hd", "groot_spmm.cu", f"{spmm_py}:368", gs.hd_apply),
+        kernel("fused_ld", "fused_sage.cu", "src/repro/kernels/fused_sage.py:29",
+               fs.fused_ld_matmul),
+    )}
 
     def compare(kname, what, got, want):
         torch.cuda.synchronize()
@@ -194,7 +217,7 @@ def main() -> int:
         err = (got - want).abs().max().item()
         scale = max(1.0, want.abs().max().item())
         ok = err <= TOL * scale
-        log(f"parity {kname:17s} {what:34s} max_abs_err {err:.3e} tol {TOL * scale:.3e} "
+        log(f"parity {kname:17s} {what:44s} max_abs_err {err:.3e} tol {TOL * scale:.3e} "
             f"{'ok' if ok else 'MISS'}")
         kernels[kname]["max_abs_err"] = max(kernels[kname]["max_abs_err"], err)
         if not ok:
@@ -205,81 +228,118 @@ def main() -> int:
         kernels[kname]["shapes"].append(dict(
             what=what, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
             bytes=bytes_, flops=flops))
-        if timed:  # the layer the summary line reports: hidden 32, f32 streams
+        if timed:  # the launches the summary line reports (see PERF.md)
             kernels[kname]["ms"] += ms
             kernels[kname]["plain_ms"] += plain_ms
             kernels[kname]["bound_ms"] += b_ms
             kernels[kname]["bytes_ms"] += bytes_ / PEAK_BYTES_PER_S * 1e3
             kernels[kname]["ops_ms"] += flops / PEAK_F32_FLOPS * 1e3
-        log(f"time   {kname:17s} {what:34s} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        log(f"time   {kname:17s} {what:44s} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"bound {b_ms:.4f} ms ({by})")
+
+    def check(kname, what, run, plain, bytes_of, flops, timed, reps):
+        """Hold one kernel launch against its plain version, then time both."""
+        got = run(None)
+        want = plain()
+        compare(kname, what, got, want)
+        del want
+        ms = cuda_ms(lambda: run(got), reps)
+        plain_ms = cuda_ms(plain, 2)
+        account(kname, what, ms, plain_ms, bytes_of(got), flops, timed)
 
     def distinct_row_bytes(cols, x):
         return torch.unique(cols).numel() * x.shape[1] * x.element_size()
 
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    # ungrouped weight streams per direction: one mean-normalised group column
+    w_edge = {"fanin": wg_in[:, 0].contiguous(), "fanout": wg_out[:, 0].contiguous()}
     for sdt in (None, torch.bfloat16):
         tag = "bf16" if sdt is not None else "f32"
         for x in (x32, x4) if sdt is None else (x32,):
             xs = x if sdt is None else x.to(sdt)
             feat = x.shape[1]
+            # the summary reports hidden 32 with f32 streams
             timed = sdt is None and feat == 32
-            reps = args.reps if sdt is None else 2
+            reps = args.reps if timed else 2
             for direction, plan in (("fanin", in_plan), ("fanout", out_plan)):
                 sw = staged[("in" if direction == "fanin" else "out", sdt)]
+                w_buckets, w_hd = gs.stage_weight(plan, w_edge[direction], xs.dtype)
                 dp = plan.on(dev)
                 grp = sw.groups
-                for b, cols, wge in zip(plan.buckets, dp.cols, sw.buckets):
-                    what = f"{direction} d={b.deg} R={b.num_rows} G={grp} F={feat} {tag}"
-                    got = gs.ld_grouped_apply(xs, cols, wge, b.deg)
-                    want = gs.ld_grouped_plain(xs, cols, wge, b.deg)
-                    compare("ld_grouped", what, got, want)
-                    del want
-                    ms = cuda_ms(lambda: gs.ld_grouped_apply(xs, cols, wge, b.deg, out=got), reps)
-                    plain_ms = cuda_ms(lambda: gs.ld_grouped_plain(xs, cols, wge, b.deg), 2)
-                    slots = cols.numel()
-                    bytes_ = (distinct_row_bytes(cols, xs) + wge.numel() * wge.element_size()
-                              + slots * 4 + got.numel() * 4)
-                    account("ld_grouped", what, ms, plain_ms, bytes_, 2.0 * slots * grp * feat, timed)
-                    del got
+                ws = w_stack if feat == 32 else w_stack0
+                hid = ws.shape[2]
+                for b, cols, wge, wb in zip(plan.buckets, dp.cols, sw.buckets, w_buckets):
+                    slots, rows = cols.numel(), b.num_rows
+                    what = f"{direction} d={b.deg} R={rows} G={grp} F={feat} {tag}"
+                    cols_rows = distinct_row_bytes(cols, xs)
+                    # K1
+                    check("ld_grouped", what,
+                          lambda o: gs.ld_grouped_apply(xs, cols, wge, b.deg, out=o),
+                          lambda: gs.ld_grouped_plain(xs, cols, wge, b.deg),
+                          lambda o: cols_rows + nbytes(wge, cols, o),
+                          2.0 * slots * grp * feat, timed, reps)
+                    # K4 (the MXU backend sends degree > 1 here)
+                    if b.deg > 1:
+                        check("ld_grouped_mxu", what,
+                              lambda o: gs.ld_grouped_mxu_apply(xs, cols, wge, b.deg, out=o),
+                              lambda: gs.ld_grouped_mxu_plain(xs, cols, wge, b.deg),
+                              lambda o: cols_rows + nbytes(wge, cols, o),
+                              2.0 * slots * grp * feat, timed, reps)
+                    # K5, both bodies, with and without a weight
+                    for w in (wb, None):
+                        for mxu in (False, True) if b.deg > 1 else (False,):
+                            body = "mxu" if mxu else "vpu"
+                            check("ld_bucket",
+                                  f"{direction} d={b.deg} R={rows} F={feat} {tag} "
+                                  f"{body}{'' if w is None else ' w'}",
+                                  lambda o: gs.ld_bucket_apply(xs, cols, b.deg, w, mxu=mxu, out=o),
+                                  lambda: gs.ld_bucket_plain(xs, cols, b.deg, w),
+                                  lambda o: cols_rows + nbytes(w, cols, o),
+                                  (2.0 if w is not None else 1.0) * slots * feat,
+                                  timed and w is not None and not mxu, reps)
                     if direction == "fanin":
-                        ws = w_stack if feat == 32 else w_stack0
-                        hid = ws.shape[2]
-                        got = fs.fused_ld_matmul_grouped(xs, cols, wge, ws, b.deg)
-                        want = fs.fused_ld_grouped_plain(xs, cols, wge, ws, b.deg)
-                        compare("fused_ld_grouped", what + f" H={hid}", got, want)
-                        del want
-                        ms = cuda_ms(lambda: fs.fused_ld_matmul_grouped(xs, cols, wge, ws, b.deg,
-                                                                         out=got), reps)
-                        plain_ms = cuda_ms(lambda: fs.fused_ld_grouped_plain(xs, cols, wge, ws,
-                                                                              b.deg), 2)
-                        rows = b.num_rows
-                        bytes_ = (distinct_row_bytes(cols, xs) + wge.numel() * wge.element_size()
-                                  + slots * 4 + ws.numel() * 4 + got.numel() * 4)
-                        flops = 2.0 * slots * grp * feat + 2.0 * rows * grp * feat * hid
-                        account("fused_ld_grouped", what + f" H={hid}", ms, plain_ms, bytes_,
-                                flops, timed)
-                        del got
+                        # K3 and K7: the fused paths fuse the fanin aggregation
+                        check("fused_ld_grouped", what + f" H={hid}",
+                              lambda o: fs.fused_ld_matmul_grouped(xs, cols, wge, ws, b.deg, out=o),
+                              lambda: fs.fused_ld_grouped_plain(xs, cols, wge, ws, b.deg),
+                              lambda o: cols_rows + nbytes(wge, cols, ws, o),
+                              2.0 * slots * grp * feat + 2.0 * rows * grp * feat * hid,
+                              timed, reps)
+                        w_mat = ws[0].contiguous()
+                        check("fused_ld", f"fanin d={b.deg} R={rows} F={feat} H={hid} {tag} w",
+                              lambda o: fs.fused_ld_matmul(xs, cols, w_mat, b.deg, wb, out=o),
+                              lambda: fs.fused_ld_plain(xs, cols, w_mat, b.deg, wb),
+                              lambda o: cols_rows + nbytes(wb, cols, w_mat, o),
+                              2.0 * slots * feat + 2.0 * rows * feat * hid, timed, reps)
                 if plan.hd is not None:
                     hd = plan.hd
-                    what = f"{direction} HD rows={hd.rows.shape[0]} chunks={hd.num_chunks} " \
-                           f"G={grp} F={feat} {tag}"
-                    args_hd = (xs, dp.hd_cols, sw.hd, dp.hd_meta, dp.hd_row_chunks, plan.e_t)
-                    got = gs.hd_grouped_apply(*args_hd)
-                    want = gs.hd_grouped_plain(xs, dp.hd_cols, sw.hd, dp.hd_meta,
-                                               hd.rows.shape[0], plan.e_t)
-                    compare("hd_grouped", what, got, want)
-                    ms = cuda_ms(lambda: gs.hd_grouped_apply(*args_hd, out=got), reps)
-                    plain_ms = cuda_ms(lambda: gs.hd_grouped_plain(
-                        xs, dp.hd_cols, sw.hd, dp.hd_meta, hd.rows.shape[0], plan.e_t), 2)
-                    slots = dp.hd_cols.numel()
-                    bytes_ = (distinct_row_bytes(dp.hd_cols, xs) + sw.hd.numel() * sw.hd.element_size()
-                              + slots * 4 + dp.hd_row_chunks.numel() * 4 + got.numel() * 4)
-                    account("hd_grouped", what, ms, plain_ms, bytes_, 2.0 * slots * grp * feat, timed)
-                    del got, want
+                    n_hd, slots = hd.rows.shape[0], dp.hd_cols.numel()
+                    what = f"{direction} HD rows={n_hd} chunks={hd.num_chunks} G={grp} F={feat} {tag}"
+                    cols_rows = distinct_row_bytes(dp.hd_cols, xs)
+                    check("hd_grouped", what,
+                          lambda o: gs.hd_grouped_apply(xs, dp.hd_cols, sw.hd, dp.hd_meta,
+                                                        dp.hd_row_chunks, plan.e_t, out=o),
+                          lambda: gs.hd_grouped_plain(xs, dp.hd_cols, sw.hd, dp.hd_meta, n_hd,
+                                                      plan.e_t),
+                          lambda o: cols_rows + nbytes(sw.hd, dp.hd_cols, dp.hd_row_chunks, o),
+                          2.0 * slots * grp * feat, timed, reps)
+                    for w in (w_hd, None):
+                        check("hd", f"{direction} HD rows={n_hd} chunks={hd.num_chunks} F={feat} "
+                                    f"{tag}{'' if w is None else ' w'}",
+                              lambda o: gs.hd_apply(xs, dp.hd_cols, dp.hd_meta, dp.hd_row_chunks,
+                                                    plan.e_t, w, out=o),
+                              lambda: gs.hd_plain(xs, dp.hd_cols, dp.hd_meta, plan.e_t, w),
+                              lambda o: cols_rows + nbytes(w, dp.hd_cols, dp.hd_row_chunks, o),
+                              (2.0 if w is not None else 1.0) * slots * feat,
+                              timed and w is not None, reps)
+                del w_buckets, w_hd
     torch.cuda.empty_cache()
 
     # library yardstick: one torch.sparse.mm over a (G*N, N) CSR computing
-    # the same grouped sums (cuSPARSE; the port never calls it)
+    # the same (grouped) sums (cuSPARSE; the port never calls it)
+    deg_in = torch.bincount(dst, minlength=n)
     deg_out = torch.bincount(src, minlength=n)
 
     def csr(rows_of, cols_of, wg, keep):
@@ -291,16 +351,25 @@ def main() -> int:
         return torch.sparse_coo_tensor(torch.stack([r, c]), v, (grp * n, n)).coalesce().to_sparse_csr()
 
     x32n = x32[:n]
+    every = torch.ones_like(dst, dtype=torch.bool)
+    ld_out, hd_out = deg_out[src] <= gs.E_T, deg_out[src] > gs.E_T
     lib = {}
     for label, rows_of, cols_of, wg, keep in (
-        ("fanin_all", dst, src, wg_in, torch.ones_like(dst, dtype=torch.bool)),
-        ("fanout_all", src, dst, wg_out, torch.ones_like(src, dtype=torch.bool)),
-        ("fanout_ld", src, dst, wg_out, deg_out[src] <= gs.E_T),
-        ("fanout_hd", src, dst, wg_out, deg_out[src] > gs.E_T),
+        ("fanin_all", dst, src, wg_in, every),
+        ("fanout_all", src, dst, wg_out, every),
+        ("fanout_ld", src, dst, wg_out, ld_out),
+        ("fanout_hd", src, dst, wg_out, hd_out),
+        # K4's rows: the LD buckets of degree > 1
+        ("fanin_deg2+", dst, src, wg_in, deg_in[dst] > 1),
+        ("fanout_ld_deg2+", src, dst, wg_out, ld_out & (deg_out[src] > 1)),
+        # K5, K6: one weight column, (N, N)
+        ("fanin_1", dst, src, w_edge["fanin"][:, None], every),
+        ("fanout_ld_1", src, dst, w_edge["fanout"][:, None], ld_out),
+        ("fanout_hd_1", src, dst, w_edge["fanout"][:, None], hd_out),
     ):
         a = csr(rows_of, cols_of, wg, keep)
         lib[label] = cuda_ms(lambda: torch.sparse.mm(a, x32n), args.reps)
-        log(f"library torch.sparse.mm {label:10s} nnz={a.values().numel()} {lib[label]:.4f} ms")
+        log(f"library torch.sparse.mm {label:15s} nnz={a.values().numel()} {lib[label]:.4f} ms")
         del a
     torch.cuda.empty_cache()
     # the port's whole grouped walk per direction (K1 + K2 + assembly)
@@ -310,8 +379,12 @@ def main() -> int:
                          args.reps),
         "fanout": cuda_ms(lambda: gs.apply_plan_grouped_staged(out_plan, x32p, staged[("out", None)]),
                           args.reps),
+        "fanin_mxu": cuda_ms(lambda: gs.apply_plan_grouped_staged(
+            in_plan, x32p, staged[("in", None)], mxu=True), args.reps),
+        "fanout_mxu": cuda_ms(lambda: gs.apply_plan_grouped_staged(
+            out_plan, x32p, staged[("out", None)], mxu=True), args.reps),
     }
-    log(f"walk (K1+K2+assembly, F=32 f32): {json.dumps(walk)}; "
+    log(f"walk (grouped kernels + assembly, F=32 f32): {json.dumps(walk)}; "
         f"torch.sparse.mm per direction: fanin {lib['fanin_all']:.4f} ms, "
         f"fanout {lib['fanout_all']:.4f} ms")
     report["walk_ms"] = walk
@@ -319,19 +392,77 @@ def main() -> int:
     kernels["ld_grouped"]["library_ms"] = lib["fanin_all"] + lib["fanout_ld"]
     kernels["hd_grouped"]["library_ms"] = lib["fanout_hd"]
     kernels["fused_ld_grouped"]["library_ms"] = None
-    del staged, x4, x32n
+    kernels["ld_grouped_mxu"]["library_ms"] = lib["fanin_deg2+"] + lib["fanout_ld_deg2+"]
+    kernels["ld_bucket"]["library_ms"] = lib["fanin_1"] + lib["fanout_ld_1"]
+    kernels["hd"]["library_ms"] = lib["fanout_hd_1"]
+    kernels["fused_ld"]["library_ms"] = None
+    del staged, x4
     torch.cuda.empty_cache()
 
-    # -- 4. forward, timed with synchronize around it ---------------------------
+    launches: dict = {}
+
+    def drive(path, fn):
+        """Run one path with every launch count set to 0 just before it;
+        record the counts just after."""
+        for k in kernels.values():
+            k["fn"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = {kn: k["fn"].launches for kn, k in kernels.items()}
+        return out, wall
+
+    # -- 4. the paper's single SpMM, both directions ----------------------------
+    w_rand = torch.rand(g.num_edges, generator=gen, device=dev)
+    x32n = x32[:n]
+    spmm = {}
+    for direction, a_src, a_dst in (("fanin", src, dst), ("fanout", dst, src)):
+        want = kref.spmm_ref(x32n, a_src, a_dst, n, w_rand)
+        a = torch.sparse_coo_tensor(torch.stack([a_dst, a_src]), w_rand,
+                                    (n, n)).coalesce().to_sparse_csr()
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(a, x32n), args.reps)
+        del a
+        for b in ("groot", "groot_mxu"):
+            path = f"groot_spmm {b} {direction}"
+            got, _ = drive(path, lambda: ops.groot_spmm(x32n, a_src, a_dst, n, w_rand, backend=b))
+            err = (got - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            ok = bool(torch.isfinite(got).all()) and err <= TOL * scale
+            # timed through the cached pair: the one-shot entry point also
+            # hashes the edge arrays on the host to find it
+            pair = ops.make_agg_pair(a_src.cpu().numpy(), a_dst.cpu().numpy(), n, b, device=dev)
+            ms = cuda_ms(lambda: pair.in_agg(x32n, w_rand), args.reps)
+            spmm[path] = dict(ms=ms, sparse_mm_ms=lib_ms, max_abs_err=err,
+                              launches=launches[path])
+            log(f"{path:30s} {ms:.4f} ms vs torch.sparse.mm {lib_ms:.4f} ms; max_abs_err "
+                f"{err:.3e} vs spmm_ref (tol {TOL * scale:.3e}) {'ok' if ok else 'MISS'}; "
+                f"launches {json.dumps({k: v for k, v in launches[path].items() if v})}")
+            if not ok:
+                fail(f"{path}: max abs error {err:.3e} against spmm_ref")
+            del got
+        del want
+    report["groot_spmm"] = spmm
+    torch.cuda.empty_cache()
+
+    # -- 5. forward, timed with synchronize around it ---------------------------
     x0 = torch.as_tensor(prep.feats).to(dev)
+    aggs = {
+        "groot": pairs["groot"], "groot_mxu": pairs["groot_mxu"],
+        "groot_fused": pairs["groot_fused"],
+        "ungrouped groot": ops.ungrouped(pairs["groot"]),
+        "ungrouped groot_mxu": ops.ungrouped(pairs["groot_mxu"]),
+        "ungrouped groot_fused": ops.ungrouped(pairs["groot_fused"]),
+        "ref": None,
+    }
     logits, fwd = {}, {}
-    for b in ("groot", "groot_fused", "ref"):
-        agg = None if b == "ref" else pairs[b]
+    for b, agg in aggs.items():
 
         def run():
             return gnn.forward(model, x0, src, dst, inv, slot, num_nodes=n, agg=agg)
 
-        run()
+        out, _ = drive(f"forward {b}", run)
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -343,7 +474,13 @@ def main() -> int:
             fail(f"forward {b}: logits not finite or of shape {tuple(out.shape)}")
         logits[b] = out
         fwd[b] = statistics.median(times) * 1e3
-        log(f"forward {b:11s} {fwd[b]:.2f} ms (median of 3, synchronize around it)")
+        used = {k: v for k, v in launches[f"forward {b}"].items() if v}
+        log(f"forward {b:22s} {fwd[b]:.2f} ms (median of 3, synchronize around it) "
+            f"launches {json.dumps(used)}")
+    if launches["forward ungrouped groot_fused"]["fused_ld"] <= 0:
+        fail("the per-group groot_fused forward did not launch K7")
+    if any(launches["forward ref"].values()):
+        fail(f"the ref forward launched kernels: {launches['forward ref']}")
     # where one groot forward's device time goes (kernel names by self time)
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -367,38 +504,56 @@ def main() -> int:
         log(f"  {ms:9.3f} ms  x{cnt:<4d} {name[:90]}")
     report["forward_ms"] = fwd
     max_logit_diff = {b: (logits[b] - logits["ref"]).abs().max().item()
-                      for b in ("groot", "groot_fused")}
+                      for b in aggs if b != "ref"}
     report["max_logit_diff_vs_ref"] = max_logit_diff
     log(f"max |logit - ref logit|: {json.dumps(max_logit_diff)}")
+    for b, d in max_logit_diff.items():
+        if d > LOGIT_TOL * max(1.0, logits["ref"].abs().max().item()):
+            fail(f"forward {b}: logits differ from ref by {d:.3e}")
     del logits
     torch.cuda.empty_cache()
+    # onehot materialises an (E, N) one-hot: at csa-<bits> that is
+    # E x N floats, so it runs on a small design against ref instead
+    small = {}
+    log(f"onehot: its (E, N) one-hot at csa-{args.bits} would hold {g.num_edges} x {n} "
+        f"floats ({4.0 * g.num_edges * n / 1e12:.0f} TB); run at csa-{ONEHOT_BITS} instead")
+    for b in ("onehot", "ref"):
+        r, wall = drive(f"session.verify {b} csa-{ONEHOT_BITS}", lambda: Session(
+            params=params_path, backend=b).verify(dataset="csa", bits=ONEHOT_BITS,
+                                                  return_predictions=True))
+        small[b] = r
+        log(f"session.verify backend={b} csa-{ONEHOT_BITS}: status {r.status} accuracy "
+            f"{r.accuracy:.6f} wall {wall:.1f} s")
+    mism = int((small["onehot"].predictions != small["ref"].predictions).sum())
+    if small["onehot"].status != small["ref"].status or mism > MAX_PRED_MISMATCH * len(
+            small["ref"].predictions):
+        fail(f"onehot at csa-{ONEHOT_BITS}: verdict {small['onehot'].status} vs "
+             f"{small['ref'].status}, {mism} predictions differ")
+    report["onehot_small"] = dict(bits=ONEHOT_BITS, status=small["onehot"].status,
+                                  pred_mismatch_vs_ref=mism)
 
-    # -- 5. main path ------------------------------------------------------------
-    for k in kernels.values():
-        k["fn"].launches = 0
-    results, launches = {}, {}
-    for b in ("groot", "groot_fused", "ref"):
-        before = {kn: k["fn"].launches for kn, k in kernels.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = Session(params=params_path, backend=b).verify(
-            dataset="csa", bits=args.bits, return_predictions=True)
-        wall = time.perf_counter() - t0
-        launches[b] = {kn: k["fn"].launches - before[kn] for kn, k in kernels.items()}
+    # -- 6. main path ------------------------------------------------------------
+    results = {}
+    for b in ("groot", "groot_mxu", "groot_fused", "ref"):
+        path = f"session.verify {b}"
+        r, wall = drive(path, lambda: Session(params=params_path, backend=b).verify(
+            dataset="csa", bits=args.bits, return_predictions=True))
         results[b] = r
+        used = {k: v for k, v in launches[path].items() if v}
         log(f"session.verify backend={b}: status {r.status} accuracy {r.accuracy:.6f} "
             f"wall {wall:.1f} s timings {json.dumps({k: round(v, 3) for k, v in r.timings.items()})} "
-            f"launches {json.dumps(launches[b])}")
-    total = {kn: k["fn"].launches for kn, k in kernels.items()}
+            f"launches {json.dumps(used)}")
     report["sessions"] = {b: dict(status=r.status, accuracy=r.accuracy, timings=r.timings,
-                                  launches=launches[b]) for b, r in results.items()}
-    if any(launches["ref"].values()):
-        fail(f"the ref backend launched kernels: {launches['ref']}")
-    for kn, cnt in total.items():
-        if cnt <= 0:
-            fail(f"kernel {kn} was not launched on the main path")
+                                  launches=launches[f"session.verify {b}"])
+                          for b, r in results.items()}
+    if any(launches["session.verify ref"].values()):
+        fail(f"the ref backend launched kernels: {launches['session.verify ref']}")
+    mxu_launches = launches["session.verify groot_mxu"]
+    for kn in ("ld_grouped_mxu", "ld_grouped", "hd_grouped"):
+        if mxu_launches[kn] <= 0:
+            fail(f"Session.verify on groot_mxu did not launch {kn}")
     ref = results["ref"]
-    for b in ("groot", "groot_fused"):
+    for b in ("groot", "groot_mxu", "groot_fused"):
         r = results[b]
         if r.predictions.shape != (n,):
             fail(f"{b}: predictions of shape {r.predictions.shape}")
@@ -410,6 +565,11 @@ def main() -> int:
             fail(f"{b}: {mism} predictions differ from ref")
         report["sessions"][b]["pred_mismatch_vs_ref"] = mism
 
+    total = {kn: sum(counts[kn] for counts in launches.values()) for kn in kernels}
+    report["launches"] = launches
+    for kn, cnt in total.items():
+        if cnt <= 0:
+            fail(f"kernel {kn} was not launched on any driven path")
     line = []
     for kn, k in kernels.items():
         by = "bytes" if k["bytes_ms"] >= k["ops_ms"] else "operations"

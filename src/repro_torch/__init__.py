@@ -2,10 +2,13 @@
 
 Mirrors ``repro``'s layout module for module (``repro_torch/core/gnn.py`` <->
 ``repro/core/gnn.py``) and imports nothing of it.  The full-graph
-``Session.verify`` route runs on an NVIDIA H100 through three hand-written
-CUDA kernels (``csrc/``): the grouped LD and HD SpMM walks and the grouped
-fused LD aggregate+matmul.  Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
+``Session.verify`` route runs on an NVIDIA H100 on all five aggregation
+backends of the reference (``ref``, ``onehot``, ``groot``, ``groot_mxu``,
+``groot_fused``) through seven hand-written CUDA kernels (``csrc/``): K1
+grouped LD, K2 grouped HD, K3 grouped fused LD + matmul, K4 grouped LD on
+the tensor cores, K5 ungrouped LD, K6 ungrouped HD, K7 ungrouped fused LD +
+matmul.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
 PyTorch version instead.
 """
 from __future__ import annotations

@@ -18,7 +18,8 @@ class SessionConfig:
     bits: int = 32
     seed: int = 0
     batch: int = 1
-    #: aggregation backend: "ref" | "groot" | "groot_fused"
+    #: aggregation backend: "ref" | "onehot" | "groot" | "groot_mxu" |
+    #: "groot_fused" (onehot materialises an (E, N) one-hot: small designs)
     backend: str = "ref"
     #: staged edge-stream dtype for the hoisted groot* forward (None/f32 or
     #: "bfloat16"; kernels accumulate in f32)

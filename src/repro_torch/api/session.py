@@ -4,7 +4,10 @@
     session.verify(design)      route + run + verify
     session.explain(design)     the routing decision, without running
 
-Only mode ``"full"`` is ported.  A partition count or a device budget asks
+Only mode ``"full"`` is ported, on each of the reference's five backends
+(``ref``, ``onehot``, ``groot``, ``groot_mxu``, ``groot_fused``; ``onehot``
+materialises an (E, N) one-hot, so it suits small designs only).  A
+partition count or a device budget asks
 for the partitioned / streamed / sharded routes and raises
 ``NotImplementedError`` (ROADMAP Queue 1); so does an AIGER file or bytes
 as the design (ROADMAP Queue 1, item 3).

@@ -190,7 +190,11 @@ def forward(
       * **grouped** (``in_agg_grouped`` present): one grouped aggregation
         per direction per layer, mean norms folded into the (E, 4) / (E, 2)
         weights, the per-group ``@ W`` as one ``einsum`` (or fused).
-      * **per-group loop** (ref / None): aggregate per group, then
+      * **fused per-group** (``in_agg_mm`` present — ``ops.ungrouped`` of
+        a ``groot_fused`` pair): per-group ``agg @ W`` inside the kernel
+        (K7), the fanin norm folded into the edge weights (post-scaling
+        would be wrong: the aggregated row is never materialised).
+      * **per-group loop** (ref / onehot / None): aggregate per group, then
         post-scale by the per-destination norm.
 
     Inference only: there is no backward through the CUDA kernels.
@@ -216,14 +220,21 @@ def forward(
 
         def out_agg(h, w):
             return kref.spmm_ref(h, edge_dst, edge_src, num_nodes, w)
+        in_agg_mm = None
     else:
-        in_agg, out_agg = agg.in_agg, agg.out_agg
+        in_agg, out_agg, in_agg_mm = agg.in_agg, agg.out_agg, agg.in_agg_mm
+
+    if in_agg_mm is not None:  # fused path: fold the norms into the edge weights
+        group_w = {nm: w * norm_in[nm][:, 0][edge_dst] for nm, w in group_w.items()}
 
     h = x
     for layer in params.layers:
         acc = h @ layer.w_self + layer.b
         for nm in IN_GROUPS:
-            acc = acc + (in_agg(h, group_w[nm]) * norm_in[nm]) @ getattr(layer, nm)
+            if in_agg_mm is not None:
+                acc = acc + in_agg_mm(h, group_w[nm], getattr(layer, nm))
+            else:
+                acc = acc + (in_agg(h, group_w[nm]) * norm_in[nm]) @ getattr(layer, nm)
         for nm in OUT_GROUPS:
             acc = acc + (out_agg(h, out_w[nm]) * norm_out[nm]) @ getattr(layer, nm)
         h = torch.relu(acc)

@@ -35,7 +35,8 @@ class PipelineConfig:
     batch: int = 1
     num_partitions: int = 1
     gnn: gnn.GNNConfig = dataclasses.field(default_factory=gnn.GNNConfig)
-    # aggregation backend: "ref" | "groot" | "groot_fused"
+    # aggregation backend: "ref" | "onehot" | "groot" | "groot_mxu" |
+    # "groot_fused"
     backend: str = "ref"
     seed: int = 0
     # a device budget makes the reference derive a partition count

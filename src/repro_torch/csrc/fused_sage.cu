@@ -1,11 +1,16 @@
-// Grouped fused LD aggregate + weight matmul for Hopper (sm_90a), plain C
-// interface.
+// Fused LD aggregate + weight matmul for Hopper (sm_90a), plain C interface.
 //
 // K3 fused_ld_grouped replaces the Pallas kernel
 //    src/repro/kernels/fused_sage.py:_fused_kernel_grouped (launched by
 //    fused_ld_matmul_grouped).  For one ELL bucket of degree d:
 //        out[r, :] = sum_g ( sum_{k<d} wg[r*d+k, g] * x[cols[r*d+k], :] ) @ W[g]
 //    with W the (G, F, H) f32 weight stack of one SAGE layer.
+// K7 fused_ld replaces src/repro/kernels/fused_sage.py:_fused_kernel (launched
+//    by fused_ld_matmul): the ungrouped form, one (F, H) matrix and an
+//    optional per-slot weight whose product with x is rounded to the stream
+//    dtype before the sum (the reference pre-weights its messages in x.dtype):
+//        out[r, :] = ( sum_{k<d} x[cols[r*d+k], :] (* w[r*d+k]) ) @ W
+//    It is K3's code at one group.
 //
 // Bound on the H100: memory.  Per destination row it reads d rows of x, d*G
 // weights and d indices and writes H f32 outputs, for d*G*F + G*F*H
@@ -20,31 +25,28 @@
 //  * The G aggregated rows never reach device memory: a warp parks its
 //    (G, F) aggregate in shared memory and immediately contracts it with the
 //    weight stack, which every block loads once into shared memory
-//    (G*F*H*4 = 16 KB at the model's width) and reuses across the rows it
-//    strides over.  The unfused walk would write and re-read G*F floats per
-//    row; here only H floats per row are written.
+//    (G*F*H*4 = 16 KB at the model's width, 4 KB for K7) and reuses across the
+//    rows it strides over.  The unfused walk would write and re-read G*F
+//    floats per row; here only H floats per row are written.
 //  * The contraction is a plain f32 FMA loop (lanes on output columns,
 //    conflict-free shared-memory reads).  Tensor cores (wgmma) are a later
 //    optimisation: at this arithmetic intensity memory, not FLOPs, binds.
 // Accumulation is f32 for f32 and bf16 streams alike.  All offsets are int64.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
+using groot::kWarp;
+
 constexpr int kFusedWarps = 8;      // rows in flight per block (one per warp)
 constexpr int kBlocksPerSm = 8;     // grid = SMs * this, rows strided over it
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T, int G>
+// K3 (kWeighted, !kRound) and K7 (G = 1, kRound).
+template <typename T, int G, bool kWeighted, bool kRound>
 __global__ void __launch_bounds__(kFusedWarps * kWarp)
-fused_ld_grouped_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
-                        const T* __restrict__ wg, const float* __restrict__ w_stack,
-                        float* __restrict__ out, int64_t rows, int deg, int feat, int hid) {
+fused_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
+             const T* __restrict__ wg, const float* __restrict__ w_stack,
+             float* __restrict__ out, int64_t rows, int deg, int feat, int hid) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
@@ -65,9 +67,11 @@ fused_ld_grouped_kernel(const T* __restrict__ x, const int32_t* __restrict__ col
       for (int k = 0; k < deg; ++k) {
         const int64_t s = base + k;
         const int64_t c = cols[s];
-        const float xv = to_f32(x[c * feat + f]);
+        const T xv = x[c * feat + f];
 #pragma unroll
-        for (int g = 0; g < G; ++g) acc[g] = fmaf(to_f32(wg[s * G + g]), xv, acc[g]);
+        for (int g = 0; g < G; ++g)
+          acc[g] = groot::accumulate<kWeighted, kRound>(
+              acc[g], xv, groot::slot_weight<kWeighted, G>(wg, s, g));
       }
 #pragma unroll
       for (int g = 0; g < G; ++g) agg[g * feat + f] = acc[g];
@@ -82,12 +86,12 @@ fused_ld_grouped_kernel(const T* __restrict__ x, const int32_t* __restrict__ col
   }
 }
 
-template <typename T, int G>
+template <typename T, int G, bool kWeighted, bool kRound>
 int launch(const void* x, const void* cols, const void* wg, const void* w_stack, void* out,
            int64_t rows, int deg, int feat, int hid, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(G) * feat * hid +
                                        static_cast<size_t>(kFusedWarps) * G * feat);
-  auto kernel = fused_ld_grouped_kernel<T, G>;
+  auto kernel = fused_kernel<T, G, kWeighted, kRound>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -111,12 +115,19 @@ template <typename T>
 int dispatch(int groups, const void* x, const void* cols, const void* wg, const void* w_stack,
              void* out, int64_t rows, int deg, int feat, int hid, cudaStream_t stream) {
   switch (groups) {
-    case 1: return launch<T, 1>(x, cols, wg, w_stack, out, rows, deg, feat, hid, stream);
-    case 2: return launch<T, 2>(x, cols, wg, w_stack, out, rows, deg, feat, hid, stream);
-    case 3: return launch<T, 3>(x, cols, wg, w_stack, out, rows, deg, feat, hid, stream);
-    case 4: return launch<T, 4>(x, cols, wg, w_stack, out, rows, deg, feat, hid, stream);
+    case 1: return launch<T, 1, true, false>(x, cols, wg, w_stack, out, rows, deg, feat, hid, stream);
+    case 2: return launch<T, 2, true, false>(x, cols, wg, w_stack, out, rows, deg, feat, hid, stream);
+    case 3: return launch<T, 3, true, false>(x, cols, wg, w_stack, out, rows, deg, feat, hid, stream);
+    case 4: return launch<T, 4, true, false>(x, cols, wg, w_stack, out, rows, deg, feat, hid, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int dispatch_ungrouped(const void* x, const void* cols, const void* w, const void* w_mat,
+                       void* out, int64_t rows, int deg, int feat, int hid, cudaStream_t stream) {
+  return w ? launch<T, 1, true, true>(x, cols, w, w_mat, out, rows, deg, feat, hid, stream)
+           : launch<T, 1, false, true>(x, cols, w, w_mat, out, rows, deg, feat, hid, stream);
 }
 
 }  // namespace
@@ -128,4 +139,14 @@ extern "C" int fused_ld_grouped(const void* x, const void* cols, const void* wg,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? dispatch<__nv_bfloat16>(groups, x, cols, wg, w_stack, out, rows, deg, feat, hid, st)
               : dispatch<float>(groups, x, cols, wg, w_stack, out, rows, deg, feat, hid, st);
+}
+
+// w may be null (no weights)
+extern "C" int fused_ld(const void* x, const void* cols, const void* w, const void* w_mat,
+                        void* out, int64_t rows, int deg, int feat, int hid, int bf16,
+                        void* stream) {
+  if (rows <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? dispatch_ungrouped<__nv_bfloat16>(x, cols, w, w_mat, out, rows, deg, feat, hid, st)
+              : dispatch_ungrouped<float>(x, cols, w, w_mat, out, rows, deg, feat, hid, st);
 }

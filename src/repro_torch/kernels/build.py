@@ -1,12 +1,14 @@
 """Build and bind the port's CUDA kernels (``src/repro_torch/csrc/*.cu``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with :mod:`ctypes`.  Every pointer and
+with a plain C interface and loaded with :mod:`ctypes` (the sources share
+device helpers through ``csrc/*.cuh``).  Every pointer and
 the stream travel as ``c_void_p``; each C entry point returns
 ``cudaGetLastError()`` after its launch and the caller raises on non-zero.
 Libraries are built at first use from the checkout's own sources into
-``build/`` at the repository root, named by the hash of their source, so an
-edited kernel is always rebuilt and an unchanged one never is.  Nothing is
+``build/`` at the repository root, named by the hash of their source and the
+shared headers, so an edited kernel is always rebuilt and an unchanged one
+never is.  Nothing is
 built or loaded at import time: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -36,10 +38,18 @@ SIGNATURES = {
         # x, cols, wg, row_chunks, out, n_hd, e_t, groups, feat, out_gstride,
         # bf16, stream
         "groot_hd_grouped": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I32, _P),
+        # x, cols, wg, out, rows, deg, groups, feat, out_gstride, bf16, stream
+        "groot_ld_grouped_mxu": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I32, _P),
+        # x, cols, w (or null), out, rows, deg, feat, mxu, bf16, stream
+        "groot_ld_bucket": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P),
+        # x, cols, w (or null), row_chunks, out, n_hd, e_t, feat, bf16, stream
+        "groot_hd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
     },
     "fused_sage": {
         # x, cols, wg, w_stack, out, rows, deg, groups, feat, hid, bf16, stream
         "fused_ld_grouped": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P),
+        # x, cols, w (or null), w_mat, out, rows, deg, feat, hid, bf16, stream
+        "fused_ld": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P),
     },
 }
 
@@ -59,7 +69,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,24 +1,103 @@
-"""Grouped fused LD-aggregate + weight-matmul (port of ``repro/kernels/fused_sage.py``).
+"""Fused LD-aggregate + weight-matmul (port of ``repro/kernels/fused_sage.py``).
 
 In GraphSAGE every aggregation is immediately followed by a dense
-``(N, F) @ (F, H)`` matmul.  The fused kernel K3 (``csrc/fused_sage.cu``,
-replacing ``_fused_kernel_grouped``) computes, per LD bucket,
+``(N, F) @ (F, H)`` matmul.  Two CUDA kernels (``csrc/fused_sage.cu``) fuse
+the two per LD bucket, the aggregated rows kept in registers and shared
+memory, never written to device memory:
 
-    out (R, H) = sum_g rowsum(wg[:, g] * x_p[cols]) @ W_g
+  K7 ``fused_ld_matmul``          out (R, H) = rowsum(x_p[cols] * w) @ W
+     (the per-group fused path; replaces ``_fused_kernel``)
+  K3 ``fused_ld_matmul_grouped``  out (R, H) = sum_g rowsum(wg[:, g] * x_p[cols]) @ W_g
+     (the grouped fused path; replaces ``_fused_kernel_grouped``)
 
-with the G aggregated rows kept in registers and shared memory: the
-(G, R, F) aggregate of the unfused walk is never written to device memory.
-The wrapper runs the plain PyTorch version on a CPU tensor and the kernel on
+Each wrapper runs its plain PyTorch version on a CPU tensor and its kernel on
 a CUDA tensor, and counts its kernel launches.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.groot_spmm import check_out, check_stream, grouped_rowsum
+from repro_torch.kernels.groot_spmm import (
+    check_deg,
+    check_out,
+    check_stream,
+    check_weight,
+    grouped_rowsum,
+    ld_bucket_plain,
+    on_cuda,
+    ptr,
+    stream,
+)
+
+#: shared memory a block may use (H100: 227 KB)
+MAX_SMEM = 227 * 1024
+
+
+def check_w_mat(name: str, label: str, w: torch.Tensor, shape: tuple, device) -> None:
+    """Reject a weight matrix/stack ``label`` that is not contiguous f32 of
+    ``shape`` (its last dim free) on ``device``, or too large for shared
+    memory."""
+    if (w.dtype != torch.float32 or w.dim() != len(shape) + 1 or tuple(w.shape[:-1]) != shape
+            or not w.is_contiguous() or w.device != device):
+        raise ValueError(f"{name}: {label} must be contiguous float32 "
+                         f"{shape + ('H',)} on {device}")
+    # the weights and one aggregate per warp (8 warps) live in shared memory
+    smem = 4 * (w.numel() + 8 * math.prod(shape))
+    if smem > MAX_SMEM:
+        raise ValueError(f"{name}: {tuple(w.shape)} weights need {smem} B of shared "
+                         f"memory, over the {MAX_SMEM} B a block may use")
+
+
+# ---------------------------------------------------------------------------
+# K7: ungrouped fused LD + matmul
+# ---------------------------------------------------------------------------
+
+def fused_ld_plain(x_p: torch.Tensor, cols: torch.Tensor, w_mat: torch.Tensor, deg: int,
+                   w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K7: the K5 plain version, then ``@ w_mat``."""
+    return ld_bucket_plain(x_p, cols, deg, w) @ w_mat.float()
+
+
+def fused_ld_matmul(x_p: torch.Tensor, cols: torch.Tensor, w_mat: torch.Tensor, deg: int,
+                    w: Optional[torch.Tensor] = None, *,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K7: ungrouped fused LD aggregate + matmul over one ELL bucket.
+
+    x_p (N + 1, F) f32/bf16, cols (R * deg,) int32, w_mat (F, H) f32, w
+    (R * deg,) of x_p's dtype or None -> ``out`` (R, H) f32 (contiguous
+    rows; may be a row slice of a larger buffer).  CPU tensors run
+    :func:`fused_ld_plain`; CUDA tensors launch the kernel.
+    """
+    rows = check_deg("fused_ld_matmul", cols.shape[0], deg)
+    check_weight("fused_ld_matmul", x_p, cols, w, cols.shape[0])
+    feat = x_p.shape[1]
+    check_w_mat("fused_ld_matmul", "w_mat", w_mat, (feat,), x_p.device)
+    hid = w_mat.shape[1]
+    if out is None:
+        out = torch.empty((rows, hid), dtype=torch.float32, device=x_p.device)
+    check_out("fused_ld_matmul", out, (rows, hid), x_p.device)
+    if not on_cuda("fused_ld_matmul", x_p):
+        out.copy_(fused_ld_plain(x_p, cols, w_mat, deg, w))
+        return out
+    rc = build.library("fused_sage").fused_ld(
+        x_p.data_ptr(), cols.data_ptr(), ptr(w), w_mat.data_ptr(), out.data_ptr(),
+        rows, deg, feat, hid, int(x_p.dtype == torch.bfloat16), stream(x_p),
+    )
+    build.check(rc, "fused_ld_matmul")
+    fused_ld_matmul.launches += 1
+    return out
+
+
+fused_ld_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: grouped fused LD + matmul
+# ---------------------------------------------------------------------------
 
 
 def fused_grouped_ref(msgs: torch.Tensor, wg: torch.Tensor, w_stack: torch.Tensor,
@@ -43,34 +122,20 @@ def fused_ld_matmul_grouped(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Ten
     x_p's dtype, w_stack (G, F, H) f32 -> ``out`` (R, H) f32 (contiguous
     rows; may be a row slice of a larger buffer).
     """
-    slots = cols.shape[0]
-    if deg < 1 or slots % deg:
-        raise ValueError(f"fused_ld_matmul_grouped: {slots} slots do not split into rows of {deg}")
-    check_stream("fused_ld_matmul_grouped", x_p, cols, wg, slots)
-    g, rows, feat = wg.shape[1], slots // deg, x_p.shape[1]
-    if (w_stack.dtype != torch.float32 or w_stack.dim() != 3 or w_stack.shape[:2] != (g, feat)
-            or not w_stack.is_contiguous() or w_stack.device != x_p.device):
-        raise ValueError(f"fused_ld_matmul_grouped: w_stack must be contiguous float32 "
-                         f"({g}, {feat}, H) on {x_p.device}")
+    rows = check_deg("fused_ld_matmul_grouped", cols.shape[0], deg)
+    check_stream("fused_ld_matmul_grouped", x_p, cols, wg, cols.shape[0])
+    g, feat = wg.shape[1], x_p.shape[1]
+    check_w_mat("fused_ld_matmul_grouped", "w_stack", w_stack, (g, feat), x_p.device)
     hid = w_stack.shape[2]
     if out is None:
         out = torch.empty((rows, hid), dtype=torch.float32, device=x_p.device)
     check_out("fused_ld_matmul_grouped", out, (rows, hid), x_p.device)
-    if x_p.device.type == "cpu":
+    if not on_cuda("fused_ld_matmul_grouped", x_p):
         out.copy_(fused_ld_grouped_plain(x_p, cols, wg, w_stack, deg))
         return out
-    if x_p.device.type != "cuda":
-        raise ValueError(f"fused_ld_matmul_grouped: no kernel for device {x_p.device}")
-    # the weight stack and one (G, F) aggregate per warp live in shared memory
-    smem = 4 * (g * feat * hid + 8 * g * feat)
-    if smem > 227 * 1024:
-        raise ValueError(f"fused_ld_matmul_grouped: ({g}, {feat}, {hid}) weight stack needs "
-                         f"{smem} B of shared memory, over the 227 KB a block may use")
-    lib = build.library("fused_sage")
-    rc = lib.fused_ld_grouped(
+    rc = build.library("fused_sage").fused_ld_grouped(
         x_p.data_ptr(), cols.data_ptr(), wg.data_ptr(), w_stack.data_ptr(), out.data_ptr(),
-        rows, deg, g, feat, hid, int(x_p.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x_p.device).cuda_stream,
+        rows, deg, g, feat, hid, int(x_p.dtype == torch.bfloat16), stream(x_p),
     )
     build.check(rc, "fused_ld_matmul_grouped")
     fused_ld_matmul_grouped.launches += 1

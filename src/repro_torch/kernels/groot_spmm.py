@@ -1,24 +1,40 @@
-"""GROOT degree-bucketed grouped SpMM: host plan, device walk, CUDA kernels.
+"""GROOT degree-bucketed SpMM: host plan, device walks, CUDA kernels.
 
 Port of ``repro/kernels/groot_spmm.py``.  The host plan (the count-sort /
 row assembly of paper Fig. 5) is a numpy copy whose arrays are identical to
-the reference's, ``rows_per_tile`` included.  The device walk runs the
-grouped multi-polarity SpMM
+the reference's, ``rows_per_tile`` included.  The device walks run the SpMM
+
+    out[r] = sum_{e: dst[e] = r} w[e] * x[src[e]]
+
+(ungrouped, :func:`apply_plan`) and its grouped multi-polarity form
 
     out[g, r] = sum_{e: dst[e] = r} wg[e, g] * x[src[e]]
 
-through two hand-written CUDA kernels (``csrc/groot_spmm.cu``):
+(:func:`apply_plan_grouped`) through hand-written CUDA kernels
+(``csrc/groot_spmm.cu``):
 
-  K1 ``ld_grouped_apply``  low-degree rows (degree <= e_t), one ELL bucket of
-     power-of-two degree d per launch; replaces ``_ld_kernel_grouped``.
-  K2 ``hd_grouped_apply``  high-degree rows (degree > e_t), split into e_t-edge
-     chunks; replaces ``_hd_kernel_grouped``.
+  K1 ``ld_grouped_apply``      grouped low-degree rows (degree <= e_t), one ELL
+     bucket of power-of-two degree d per launch; replaces ``_ld_kernel_grouped``.
+  K2 ``hd_grouped_apply``      grouped high-degree rows (degree > e_t), split
+     into e_t-edge chunks; replaces ``_hd_kernel_grouped``.
+  K4 ``ld_grouped_mxu_apply``  K1's sum as one-hot block-diagonal products on
+     the tensor cores (``ld_grouped_apply(mxu=True)`` for d > 1); replaces
+     ``_ld_kernel_grouped_mxu``.
+  K5 ``ld_bucket_apply``       ungrouped LD rows, optional weight, VPU body or
+     (``mxu=True``, d > 1) tensor-core body; replaces ``_ld_kernel`` and
+     ``_ld_kernel_mxu``.
+  K6 ``hd_apply``              ungrouped HD rows; replaces ``_hd_kernel``.
 
 Unlike the TPU walk, the kernels gather ``x_p[cols]`` themselves (no message
 slab in device memory) and the feature axis is not padded to a 128-lane
 quantum: ``x_p`` is ``(N + 1, F)`` with one zero row at index N, the target of
 every pad column.  Each wrapper runs its plain PyTorch version on a CPU tensor
 and its kernel on a CUDA tensor, and counts its kernel launches.
+
+Where the product of a message and its weight is rounded follows the
+reference: the grouped VPU kernels (K1, K2) widen both to f32 and multiply
+there; the MXU kernel (K4) and the ungrouped walk (K5, K6) take the product in
+the stream dtype (bf16 streams round it to bf16) and sum in f32.
 """
 from __future__ import annotations
 
@@ -29,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import ref as kref
 
 # Paper §IV thresholds: HD rows have degree > E_T; LD buckets are the
 # power-of-two degrees up to E_T.  LD_TILE_EDGES and SUBLANE keep
@@ -338,23 +355,62 @@ def pad_features(x: torch.Tensor) -> torch.Tensor:
 # K1: grouped LD kernel
 # ---------------------------------------------------------------------------
 
-def check_stream(name: str, x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
-                 slots: int) -> None:
-    """Reject kernel inputs of the wrong device, dtype, shape or layout."""
+def check_stream(name: str, x_p: torch.Tensor, cols: torch.Tensor,
+                 wg: Optional[torch.Tensor], slots: int) -> None:
+    """Reject kernel inputs of the wrong device, dtype, shape or layout
+    (``wg`` None: a stream without weights)."""
     if x_p.dim() != 2 or not x_p.is_contiguous():
         raise ValueError(f"{name}: x_p must be a contiguous (N + 1, F) tensor")
-    if x_p.dtype not in (torch.float32, torch.bfloat16) or wg.dtype != x_p.dtype:
+    if x_p.dtype not in (torch.float32, torch.bfloat16) or (
+            wg is not None and wg.dtype != x_p.dtype):
         raise ValueError(f"{name}: x_p and wg must share dtype float32 or bfloat16, "
-                         f"got {x_p.dtype} and {wg.dtype}")
+                         f"got {x_p.dtype} and {None if wg is None else wg.dtype}")
     if cols.dtype != torch.int32 or cols.shape != (slots,) or not cols.is_contiguous():
         raise ValueError(f"{name}: cols must be contiguous int32 of shape ({slots},)")
-    if wg.dim() != 2 or wg.shape[0] != slots or not wg.is_contiguous():
-        raise ValueError(f"{name}: wg must be contiguous of shape ({slots}, G)")
-    if not 1 <= wg.shape[1] <= 4:
-        raise ValueError(f"{name}: the kernels take 1 to 4 groups, got {wg.shape[1]}")
+    if wg is not None:
+        if wg.dim() != 2 or wg.shape[0] != slots or not wg.is_contiguous():
+            raise ValueError(f"{name}: wg must be contiguous of shape ({slots}, G)")
+        if not 1 <= wg.shape[1] <= 4:
+            raise ValueError(f"{name}: the kernels take 1 to 4 groups, got {wg.shape[1]}")
     for t in (cols, wg):
-        if t.device != x_p.device:
+        if t is not None and t.device != x_p.device:
             raise ValueError(f"{name}: every input must lie on {x_p.device}, got {t.device}")
+
+
+def check_weight(name: str, x_p: torch.Tensor, cols: torch.Tensor,
+                 w: Optional[torch.Tensor], slots: int) -> None:
+    """:func:`check_stream` for an ungrouped stream: ``w`` is None or a
+    contiguous ``(slots,)`` weight per slot."""
+    if w is not None and w.dim() != 1:
+        raise ValueError(f"{name}: w must be a ({slots},) weight stream, got {tuple(w.shape)}")
+    check_stream(name, x_p, cols, None if w is None else w[:, None], slots)
+
+
+def on_cuda(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the wrapper launches its kernel), False for a
+    CPU tensor (it runs the plain version); raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return True
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]):
+    """A tensor's device address for the C entry points (None: null)."""
+    return None if t is None else t.data_ptr()
+
+
+def check_deg(name: str, slots: int, deg: int) -> int:
+    """The row count of an ELL slab of ``slots`` slots of degree ``deg``."""
+    if deg < 1 or slots % deg:
+        raise ValueError(f"{name}: {slots} slots do not split into rows of {deg}")
+    return slots // deg
 
 
 def check_out(name: str, out: torch.Tensor, shape: tuple, device) -> None:
@@ -380,33 +436,37 @@ def ld_grouped_plain(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
     return grouped_rowsum(x_p.index_select(0, cols.long()), wg, deg)
 
 
+def _grouped_ld_io(name, x_p, cols, wg, deg, out):
+    """Check a grouped LD launch's inputs; (G, R, F, out), allocating out."""
+    rows = check_deg(name, cols.shape[0], deg)
+    check_stream(name, x_p, cols, wg, cols.shape[0])
+    g, feat = wg.shape[1], x_p.shape[1]
+    if out is None:
+        out = torch.empty((g, rows, feat), dtype=torch.float32, device=x_p.device)
+    check_out(name, out, (g, rows, feat), x_p.device)
+    return g, rows, feat, out
+
+
 def ld_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor, deg: int,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     out: Optional[torch.Tensor] = None, *, mxu: bool = False) -> torch.Tensor:
     """K1: grouped LD row sums of one ELL bucket, the gather fused in.
 
     x_p (N + 1, F) f32/bf16, cols (R * deg,) int32, wg (R * deg, G) of
     x_p's dtype -> ``out`` (G, R, F) f32, which may be a row slice of a
     larger buffer (rows contiguous, any group stride).  CPU tensors run
-    :func:`ld_grouped_plain`; CUDA tensors launch the kernel.
+    :func:`ld_grouped_plain`; CUDA tensors launch the kernel.  ``mxu`` sends
+    buckets of degree > 1 to K4 (:func:`ld_grouped_mxu_apply`), as the
+    reference's ``groot_mxu`` backend does.
     """
-    slots = cols.shape[0]
-    if deg < 1 or slots % deg:
-        raise ValueError(f"ld_grouped_apply: {slots} slots do not split into rows of {deg}")
-    check_stream("ld_grouped_apply", x_p, cols, wg, slots)
-    g, rows, feat = wg.shape[1], slots // deg, x_p.shape[1]
-    if out is None:
-        out = torch.empty((g, rows, feat), dtype=torch.float32, device=x_p.device)
-    check_out("ld_grouped_apply", out, (g, rows, feat), x_p.device)
-    if x_p.device.type == "cpu":
+    if mxu and deg > 1:
+        return ld_grouped_mxu_apply(x_p, cols, wg, deg, out)
+    g, rows, feat, out = _grouped_ld_io("ld_grouped_apply", x_p, cols, wg, deg, out)
+    if not on_cuda("ld_grouped_apply", x_p):
         out.copy_(ld_grouped_plain(x_p, cols, wg, deg))
         return out
-    if x_p.device.type != "cuda":
-        raise ValueError(f"ld_grouped_apply: no kernel for device {x_p.device}")
-    lib = build.library("groot_spmm")
-    rc = lib.groot_ld_grouped(
+    rc = build.library("groot_spmm").groot_ld_grouped(
         x_p.data_ptr(), cols.data_ptr(), wg.data_ptr(), out.data_ptr(),
-        rows, deg, g, feat, out.stride(0), int(x_p.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x_p.device).cuda_stream,
+        rows, deg, g, feat, out.stride(0), int(x_p.dtype == torch.bfloat16), stream(x_p),
     )
     build.check(rc, "ld_grouped_apply")
     ld_grouped_apply.launches += 1
@@ -417,8 +477,57 @@ ld_grouped_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K4: grouped MXU LD kernel (tensor cores)
+# ---------------------------------------------------------------------------
+
+def ld_grouped_mxu_plain(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
+                         deg: int) -> torch.Tensor:
+    """Plain PyTorch version of K4: gather, the products ``msgs * wg[:, g]``
+    taken in the stream dtype (bf16 streams round them to bf16, as the
+    reference's MXU kernel multiplies before its f32 matmul), then an f32
+    reshape-sum.  -> (G, R, F) f32.  Unlike K1, which widens to f32 before
+    it multiplies, this differs from :func:`ld_grouped_plain` in bf16."""
+    msgs = x_p.index_select(0, cols.long())
+    prod = (wg.t()[:, :, None] * msgs[None, :, :]).float()          # (G, R*d, F)
+    return prod.reshape(wg.shape[1], -1, deg, msgs.shape[1]).sum(dim=2)
+
+
+def ld_grouped_mxu_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor, deg: int,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4: K1's grouped LD row sums as one-hot block-diagonal matrix
+    products on the tensor cores.  Same shapes and layout as
+    :func:`ld_grouped_apply`.  CPU tensors run :func:`ld_grouped_mxu_plain`;
+    CUDA tensors launch the kernel."""
+    g, rows, feat, out = _grouped_ld_io("ld_grouped_mxu_apply", x_p, cols, wg, deg, out)
+    if not on_cuda("ld_grouped_mxu_apply", x_p):
+        out.copy_(ld_grouped_mxu_plain(x_p, cols, wg, deg))
+        return out
+    rc = build.library("groot_spmm").groot_ld_grouped_mxu(
+        x_p.data_ptr(), cols.data_ptr(), wg.data_ptr(), out.data_ptr(),
+        rows, deg, g, feat, out.stride(0), int(x_p.dtype == torch.bfloat16), stream(x_p),
+    )
+    build.check(rc, "ld_grouped_mxu_apply")
+    ld_grouped_mxu_apply.launches += 1
+    return out
+
+
+ld_grouped_mxu_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K2: grouped HD kernel
 # ---------------------------------------------------------------------------
+
+def check_hd(name: str, x_p: torch.Tensor, cols: torch.Tensor, chunk_meta: torch.Tensor,
+             row_chunks: torch.Tensor, e_t: int) -> None:
+    """Reject an HD launch whose chunk tables do not fit its slots."""
+    if cols.shape[0] != chunk_meta.shape[0] * e_t:
+        raise ValueError(f"{name}: {cols.shape[0]} slots != {chunk_meta.shape[0]} chunks x {e_t}")
+    for label, t in (("chunk_meta", chunk_meta), ("row_chunks", row_chunks)):
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != 2 or not t.is_contiguous() \
+                or t.device != x_p.device:
+            raise ValueError(f"{name}: {label} must be contiguous int32 (., 2) on {x_p.device}")
+
 
 def hd_grouped_plain(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
                      chunk_meta: torch.Tensor, n_hd: int, e_t: int) -> torch.Tensor:
@@ -443,30 +552,19 @@ def hd_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
     ``out`` (G, n_hd, F) f32 (rows contiguous, any group stride).  CPU
     tensors run :func:`hd_grouped_plain`; CUDA tensors launch the kernel.
     """
-    slots = cols.shape[0]
-    if slots != chunk_meta.shape[0] * e_t:
-        raise ValueError(f"hd_grouped_apply: {slots} slots != {chunk_meta.shape[0]} chunks x {e_t}")
-    check_stream("hd_grouped_apply", x_p, cols, wg, slots)
+    check_hd("hd_grouped_apply", x_p, cols, chunk_meta, row_chunks, e_t)
+    check_stream("hd_grouped_apply", x_p, cols, wg, cols.shape[0])
     n_hd = row_chunks.shape[0]
-    for name, t in (("chunk_meta", chunk_meta), ("row_chunks", row_chunks)):
-        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != 2 or not t.is_contiguous() \
-                or t.device != x_p.device:
-            raise ValueError(f"hd_grouped_apply: {name} must be contiguous int32 (., 2) "
-                             f"on {x_p.device}")
     g, feat = wg.shape[1], x_p.shape[1]
     if out is None:
         out = torch.empty((g, n_hd, feat), dtype=torch.float32, device=x_p.device)
     check_out("hd_grouped_apply", out, (g, n_hd, feat), x_p.device)
-    if x_p.device.type == "cpu":
+    if not on_cuda("hd_grouped_apply", x_p):
         out.copy_(hd_grouped_plain(x_p, cols, wg, chunk_meta, n_hd, e_t))
         return out
-    if x_p.device.type != "cuda":
-        raise ValueError(f"hd_grouped_apply: no kernel for device {x_p.device}")
-    lib = build.library("groot_spmm")
-    rc = lib.groot_hd_grouped(
+    rc = build.library("groot_spmm").groot_hd_grouped(
         x_p.data_ptr(), cols.data_ptr(), wg.data_ptr(), row_chunks.data_ptr(), out.data_ptr(),
-        n_hd, e_t, g, feat, out.stride(0), int(x_p.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x_p.device).cuda_stream,
+        n_hd, e_t, g, feat, out.stride(0), int(x_p.dtype == torch.bfloat16), stream(x_p),
     )
     build.check(rc, "hd_grouped_apply")
     hd_grouped_apply.launches += 1
@@ -477,26 +575,163 @@ hd_grouped_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The grouped walk: per-bucket kernels -> permutation assembly
+# K5: ungrouped LD kernel (VPU and MXU bodies)
 # ---------------------------------------------------------------------------
 
-def assemble_rows_grouped(plan: SpmmPlan, cat: torch.Tensor) -> torch.Tensor:
-    """Scatter-free output assembly: ``cat`` is the (G, asm_rows, F)
+def weighted_msgs(x_p: torch.Tensor, cols: torch.Tensor,
+                  w: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reference's gathered messages ``x_p[cols] * w[:, None]``, the
+    product taken in the stream dtype."""
+    msgs = x_p.index_select(0, cols.long())
+    return msgs if w is None else msgs * w[:, None]
+
+
+def ld_bucket_plain(x_p: torch.Tensor, cols: torch.Tensor, deg: int,
+                    w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K5 (both bodies): weighted messages, then
+    the f32 reshape-sum.  x_p (N + 1, F), cols (R * deg,), w (R * deg,) or
+    None -> (R, F) f32."""
+    return kref.ell_block_reduce_ref(weighted_msgs(x_p, cols, w).float(), None, deg)
+
+
+def ld_bucket_apply(x_p: torch.Tensor, cols: torch.Tensor, deg: int,
+                    w: Optional[torch.Tensor] = None, *, mxu: bool = False,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5: ungrouped LD row sums of one ELL bucket, the gather fused in.
+
+    x_p (N + 1, F) f32/bf16, cols (R * deg,) int32, w (R * deg,) of x_p's
+    dtype or None (no weight bytes read: the plain ``A @ x``) -> ``out``
+    (R, F) f32 (contiguous rows; may be a row slice of a larger buffer).
+    ``mxu`` and deg > 1 run the tensor-core body (K4's code at one group),
+    else the VPU body.  CPU tensors run :func:`ld_bucket_plain`; CUDA
+    tensors launch the kernel.
+    """
+    rows = check_deg("ld_bucket_apply", cols.shape[0], deg)
+    check_weight("ld_bucket_apply", x_p, cols, w, cols.shape[0])
+    feat = x_p.shape[1]
+    if out is None:
+        out = torch.empty((rows, feat), dtype=torch.float32, device=x_p.device)
+    check_out("ld_bucket_apply", out, (rows, feat), x_p.device)
+    if not on_cuda("ld_bucket_apply", x_p):
+        out.copy_(ld_bucket_plain(x_p, cols, deg, w))
+        return out
+    rc = build.library("groot_spmm").groot_ld_bucket(
+        x_p.data_ptr(), cols.data_ptr(), ptr(w), out.data_ptr(), rows, deg, feat,
+        int(mxu and deg > 1), int(x_p.dtype == torch.bfloat16), stream(x_p),
+    )
+    build.check(rc, "ld_bucket_apply")
+    ld_bucket_apply.launches += 1
+    return out
+
+
+ld_bucket_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: ungrouped HD kernel
+# ---------------------------------------------------------------------------
+
+def hd_plain(x_p: torch.Tensor, cols: torch.Tensor, chunk_meta: torch.Tensor, e_t: int,
+             w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K6: weighted messages, per-chunk f32 sums,
+    accumulated per row (``chunk_meta[:, 0]``).  -> (n_hd, F) f32."""
+    msgs = weighted_msgs(x_p, cols, w).float().reshape(-1, e_t, x_p.shape[1])
+    return kref.hd_chunk_reduce_ref(msgs, chunk_meta[:, 0].long())
+
+
+def hd_apply(x_p: torch.Tensor, cols: torch.Tensor, chunk_meta: torch.Tensor,
+             row_chunks: torch.Tensor, e_t: int, w: Optional[torch.Tensor] = None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6: ungrouped sums of the HD rows, one block per row over its chunks.
+
+    x_p (N + 1, F), cols (C * e_t,) int32, chunk_meta (C, 2) int32,
+    row_chunks (n_hd, 2) int32 ``[first chunk, count]``, w (C * e_t,) or
+    None -> ``out`` (n_hd, F) f32 (contiguous rows).  CPU tensors run
+    :func:`hd_plain`; CUDA tensors launch the kernel.
+    """
+    check_hd("hd_apply", x_p, cols, chunk_meta, row_chunks, e_t)
+    check_weight("hd_apply", x_p, cols, w, cols.shape[0])
+    n_hd, feat = row_chunks.shape[0], x_p.shape[1]
+    if out is None:
+        out = torch.empty((n_hd, feat), dtype=torch.float32, device=x_p.device)
+    check_out("hd_apply", out, (n_hd, feat), x_p.device)
+    if not on_cuda("hd_apply", x_p):
+        out.copy_(hd_plain(x_p, cols, chunk_meta, e_t, w))
+        return out
+    rc = build.library("groot_spmm").groot_hd(
+        x_p.data_ptr(), cols.data_ptr(), ptr(w), row_chunks.data_ptr(), out.data_ptr(),
+        n_hd, e_t, feat, int(x_p.dtype == torch.bfloat16), stream(x_p),
+    )
+    build.check(rc, "hd_apply")
+    hd_apply.launches += 1
+    return out
+
+
+hd_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The walks: per-bucket kernels -> permutation assembly
+# ---------------------------------------------------------------------------
+
+def assemble_rows(plan: SpmmPlan, cat: torch.Tensor) -> torch.Tensor:
+    """Scatter-free output assembly: ``cat`` is the (asm_rows, F)
     concatenation of every bucket's rows (then HD, then one zero row) that
-    the kernels wrote in place; one gather along axis 1 gives (G, N, F)."""
+    the kernels wrote in place; one gather gives (N, F)."""
+    return cat.index_select(0, plan.on(cat.device).asm_index)
+
+
+def assemble_rows_grouped(plan: SpmmPlan, cat: torch.Tensor) -> torch.Tensor:
+    """Grouped variant: ``cat`` is (G, asm_rows, F); one gather along
+    axis 1 gives (G, N, F)."""
     return cat.index_select(1, plan.on(cat.device).asm_index)
 
 
-def apply_plan_grouped_staged(plan: SpmmPlan, x_p: torch.Tensor,
-                              staged: StagedWeights) -> torch.Tensor:
+def stage_weight(plan: SpmmPlan, w: Optional[torch.Tensor], dtype) -> tuple:
+    """An ungrouped (E,) edge weight in every bucket's ELL layout and the HD
+    chunk layout, cast to the stream dtype first as the reference does:
+    ``(per-bucket (R_pad * deg,) streams, HD (C * e_t,) stream or None)``,
+    or all None for no weight."""
+    if w is None:
+        return (None,) * len(plan.buckets), None
+    staged = stage_group_weights(plan, w.to(dtype)[:, None], dtype=dtype)
+    hd = None if staged.hd is None else staged.hd.reshape(-1)
+    return tuple(b.reshape(-1) for b in staged.buckets), hd
+
+
+def apply_plan(plan: SpmmPlan, x: torch.Tensor, w: Optional[torch.Tensor] = None, *,
+               mxu: bool = False) -> torch.Tensor:
+    """``out[r] = sum_{e: dst[e]=r} w[e] * x[src[e]]`` through the
+    degree-bucketed kernels K5 (LD buckets; the tensor-core body for d > 1
+    when ``mxu``) and K6 (HD rows), assembled by one permutation gather.
+    ``x`` (N, F) f32/bf16, ``w`` (E,) or None; returns (N, F) in
+    ``x.dtype``.  Matches :func:`repro_torch.kernels.ref.spmm_ref`.
+    """
+    dp = plan.on(x.device)
+    x_p = pad_features(x)
+    w_buckets, w_hd = stage_weight(plan, w, x.dtype)
+    cat = torch.empty((plan.asm_rows, x.shape[1]), dtype=torch.float32, device=x.device)
+    cat[-1].zero_()
+    for b, cols, off, wb in zip(plan.buckets, dp.cols, dp.offsets, w_buckets):
+        ld_bucket_apply(x_p, cols, b.deg, wb, mxu=mxu, out=cat[off : off + b.num_rows])
+    if plan.hd is not None:
+        n_hd = plan.hd.rows.shape[0]
+        hd_apply(x_p, dp.hd_cols, dp.hd_meta, dp.hd_row_chunks, plan.e_t, w_hd,
+                 out=cat[dp.hd_offset : dp.hd_offset + n_hd])
+    return assemble_rows(plan, cat).to(x.dtype)
+
+
+def apply_plan_grouped_staged(plan: SpmmPlan, x_p: torch.Tensor, staged: StagedWeights, *,
+                              mxu: bool = False) -> torch.Tensor:
     """Hoisted grouped walk: pre-padded features (see :func:`pad_features`)
-    + pre-staged weight streams in, ``(G, N, F)`` f32 out."""
+    + pre-staged weight streams in, ``(G, N, F)`` f32 out.  ``mxu`` runs
+    the LD buckets of degree > 1 through K4."""
     dp = plan.on(x_p.device)
     g, feat = staged.groups, x_p.shape[1]
     cat = torch.empty((g, plan.asm_rows, feat), dtype=torch.float32, device=x_p.device)
     cat[:, -1].zero_()
     for b, cols, off, wge in zip(plan.buckets, dp.cols, dp.offsets, staged.buckets):
-        ld_grouped_apply(x_p, cols, wge, b.deg, out=cat[:, off : off + b.num_rows])
+        ld_grouped_apply(x_p, cols, wge, b.deg, out=cat[:, off : off + b.num_rows], mxu=mxu)
     if plan.hd is not None:
         n_hd = plan.hd.rows.shape[0]
         hd_grouped_apply(
@@ -506,12 +741,13 @@ def apply_plan_grouped_staged(plan: SpmmPlan, x_p: torch.Tensor,
     return assemble_rows_grouped(plan, cat)
 
 
-def apply_plan_grouped(plan: SpmmPlan, x: torch.Tensor, wg: torch.Tensor) -> torch.Tensor:
+def apply_plan_grouped(plan: SpmmPlan, x: torch.Tensor, wg: torch.Tensor, *,
+                       mxu: bool = False) -> torch.Tensor:
     """All-groups SpMM: ``out[g, r] = sum_{e: dst[e]=r} wg[e, g] * x[src[e]]``.
 
     ``wg`` is ``(E, G)``; returns ``(G, N, F)`` in ``x.dtype``.  Stages the
     weight streams per call; the hoisted forward stages once per forward.
     """
     staged = stage_group_weights(plan, wg)
-    out = apply_plan_grouped_staged(plan, pad_features(x.float()), staged)
+    out = apply_plan_grouped_staged(plan, pad_features(x.float()), staged, mxu=mxu)
     return out.to(x.dtype)

@@ -6,14 +6,19 @@ edges — plus the grouped, staged and fused entry points the GNN forward
 prefers when present.  Backends:
 
   ``ref``          gather + ``index_add_`` (row-parallel SpMM); calls no kernel
-  ``groot``        the degree-bucketed grouped walk: K1 (LD) + K2 (HD)
-  ``groot_fused``  ``groot`` whose fanin LD buckets run the fused
-                   aggregate+matmul kernel K3
+  ``onehot``       dense one-hot matmul ``onehot(dst)^T @ (x[src] * w)``
+                   (O(N*E) memory: small graphs only); calls no kernel of ours
+  ``groot``        the degree-bucketed walks: grouped K1 (LD) + K2 (HD),
+                   ungrouped K5 (LD) + K6 (HD)
+  ``groot_mxu``    ``groot`` whose LD buckets of degree > 1 reduce on the
+                   tensor cores: grouped K4, ungrouped K5's MXU body
+  ``groot_fused``  ``groot`` whose fanin LD buckets also fuse the following
+                   weight matmul: grouped K3, per-group K7
 
-Plans are built once per graph on the host and copied to the device once
-(``SpmmPlan.on``).  The ungrouped ``in_agg``/``out_agg`` of the groot pairs
-run the grouped walk with one group: the ungrouped TPU kernels (K5-K7) are
-not ported yet (ROADMAP Queue 2).
+The seven kernels (``csrc/``): K1 grouped LD, K2 grouped HD, K3 grouped fused
+LD + matmul, K4 grouped MXU LD, K5 ungrouped LD, K6 ungrouped HD, K7
+ungrouped fused LD + matmul.  Plans are built once per graph on the host and
+copied to the device once (``SpmmPlan.on``).
 """
 from __future__ import annotations
 
@@ -26,23 +31,36 @@ import torch
 from repro_torch.kernels import plan_cache as pc
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.forward_plan import ForwardPlan
-from repro_torch.kernels.fused_sage import fused_ld_matmul_grouped
+from repro_torch.kernels.fused_sage import fused_ld_matmul, fused_ld_matmul_grouped
 from repro_torch.kernels.groot_spmm import (
     SpmmPlan,
     StagedWeights,
+    apply_plan,
     apply_plan_grouped,
     apply_plan_grouped_staged,
+    assemble_rows,
+    hd_apply,
     hd_grouped_apply,
     pad_features,
     stage_group_weights,
+    stage_weight,
 )
 
-BACKENDS = ("ref", "groot", "groot_fused")
-#: backends of the reference that this port does not carry yet
-UNPORTED_BACKENDS = {
-    "onehot": "ROADMAP Queue 1, item 2 (the onehot backend)",
-    "groot_mxu": "ROADMAP Queue 2, K4 (the MXU LD kernel)",
-}
+BACKENDS = ("ref", "onehot", "groot", "groot_mxu", "groot_fused")
+
+
+def onehot_spmm(x: torch.Tensor, edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                num_nodes: int, w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense formulation: ``onehot(dst)^T @ (x[src] * w)``.
+
+    What a "just use dense matmul" SpMM looks like without the GROOT
+    insight — the baseline the degree-bucketed kernels beat on memory (it
+    materialises an (E, N) one-hot)."""
+    msgs = x.index_select(0, edge_src)
+    if w is not None:
+        msgs = msgs * w[:, None].to(msgs.dtype)
+    oh = torch.nn.functional.one_hot(edge_dst, num_nodes).to(x.dtype)     # (E, N)
+    return oh.t() @ msgs
 
 
 @dataclasses.dataclass
@@ -52,12 +70,15 @@ class AggPair:
     The grouped entry points take a ``(E, G)`` weight matrix — one column
     per slot x polarity group — and compute every group's aggregation in
     one plan walk, returning group-major ``(G, N, F)``.  They are ``None``
-    for ``ref``, where the model layer keeps its per-group loop.
+    for ``ref`` and ``onehot``, where the model layer keeps its per-group
+    loop.
     """
 
     in_agg: Callable      # (x, w) -> (N, F) over fanin edges
     out_agg: Callable     # (x, w) -> (N, F) over fanout edges
     backend: str
+    # fused aggregate+matmul over fanin edges: (x, w, w_mat (F, H)) -> (N, H)
+    in_agg_mm: Optional[Callable] = None
     in_plan: Optional[SpmmPlan] = None
     out_plan: Optional[SpmmPlan] = None
     # grouped paths: (x, wg (E, G)) -> (G, N, F) in one plan walk
@@ -82,7 +103,8 @@ class AggPair:
 
 def ungrouped(pair: AggPair) -> AggPair:
     """A copy of ``pair`` with the grouped entry points stripped — forces
-    the model layer back onto the per-group loop."""
+    the model layer back onto the per-group loop (which runs the ungrouped
+    kernels K5-K7)."""
     return dataclasses.replace(
         pair,
         in_agg_grouped=None,
@@ -107,9 +129,13 @@ def unhoisted(pair: AggPair) -> AggPair:
     )
 
 
+def _edge_tensors(edge_src, edge_dst, device) -> tuple:
+    return tuple(torch.as_tensor(np.asarray(a, dtype=np.int64)).to(device)
+                 for a in (edge_src, edge_dst))
+
+
 def _segment_pair(edge_src, edge_dst, num_nodes, device) -> AggPair:
-    s = torch.as_tensor(np.asarray(edge_src, dtype=np.int64)).to(device)
-    d = torch.as_tensor(np.asarray(edge_dst, dtype=np.int64)).to(device)
+    s, d = _edge_tensors(edge_src, edge_dst, device)
     return AggPair(
         in_agg=lambda x, w=None: kref.spmm_ref(x, s, d, num_nodes, w),
         out_agg=lambda x, w=None: kref.spmm_ref(x, d, s, num_nodes, w),
@@ -117,14 +143,17 @@ def _segment_pair(edge_src, edge_dst, num_nodes, device) -> AggPair:
     )
 
 
-def _one_group(plan: SpmmPlan) -> Callable:
-    def agg(x, w=None):
-        w = torch.ones(plan.num_edges, dtype=x.dtype, device=x.device) if w is None else w
-        return apply_plan_grouped(plan, x, w[:, None])[0]
-    return agg
+def _onehot_pair(edge_src, edge_dst, num_nodes, device) -> AggPair:
+    s, d = _edge_tensors(edge_src, edge_dst, device)
+    return AggPair(
+        in_agg=lambda x, w=None: onehot_spmm(x, s, d, num_nodes, w),
+        out_agg=lambda x, w=None: onehot_spmm(x, d, s, num_nodes, w),
+        backend="onehot",
+    )
 
 
-def _groot_pair(edge_src, edge_dst, num_nodes, *, fused: bool, device) -> AggPair:
+def _groot_pair(edge_src, edge_dst, num_nodes, *, mxu: bool, fused: bool,
+                device) -> AggPair:
     src = np.asarray(edge_src)
     dst = np.asarray(edge_dst)
     in_plan = pc.cached_plan(src, dst, num_nodes)
@@ -134,21 +163,31 @@ def _groot_pair(edge_src, edge_dst, num_nodes, *, fused: bool, device) -> AggPai
     in_plan.on(device)
     out_plan.on(device)
 
+    def in_agg(x, w=None):
+        return apply_plan(in_plan, x, w, mxu=mxu)
+
+    def out_agg(x, w=None):
+        return apply_plan(out_plan, x, w, mxu=mxu)
+
     def in_agg_grouped(x, wg):
-        return apply_plan_grouped(in_plan, x, wg)
+        return apply_plan_grouped(in_plan, x, wg, mxu=mxu)
 
     def out_agg_grouped(x, wg):
-        return apply_plan_grouped(out_plan, x, wg)
+        return apply_plan_grouped(out_plan, x, wg, mxu=mxu)
 
     def in_agg_staged(x_p, staged):
-        return apply_plan_grouped_staged(in_plan, x_p, staged)
+        return apply_plan_grouped_staged(in_plan, x_p, staged, mxu=mxu)
 
     def out_agg_staged(x_p, staged):
-        return apply_plan_grouped_staged(out_plan, x_p, staged)
+        return apply_plan_grouped_staged(out_plan, x_p, staged, mxu=mxu)
 
+    in_agg_mm = None
     in_agg_mm_grouped = None
     in_agg_mm_staged = None
     if fused:
+
+        def in_agg_mm(x, w, w_mat):
+            return _apply_plan_fused(in_plan, x, w, w_mat)
 
         def in_agg_mm_grouped(x, wg, w_stack):
             return _apply_plan_fused_grouped(in_plan, x, wg, w_stack)
@@ -157,9 +196,10 @@ def _groot_pair(edge_src, edge_dst, num_nodes, *, fused: bool, device) -> AggPai
             return _apply_plan_fused_grouped_staged(in_plan, x_p, staged, w_stack)
 
     return AggPair(
-        in_agg=_one_group(in_plan),
-        out_agg=_one_group(out_plan),
-        backend="groot_fused" if fused else "groot",
+        in_agg=in_agg,
+        out_agg=out_agg,
+        backend="groot_fused" if fused else ("groot_mxu" if mxu else "groot"),
+        in_agg_mm=in_agg_mm,
         in_plan=in_plan,
         out_plan=out_plan,
         in_agg_grouped=in_agg_grouped,
@@ -170,6 +210,30 @@ def _groot_pair(edge_src, edge_dst, num_nodes, *, fused: bool, device) -> AggPai
         out_agg_staged=out_agg_staged,
         in_agg_mm_staged=in_agg_mm_staged,
     )
+
+
+def _apply_plan_fused(plan: SpmmPlan, x: torch.Tensor, w: Optional[torch.Tensor],
+                      w_mat: torch.Tensor) -> torch.Tensor:
+    """:func:`apply_plan` with the LD reductions fused with ``@ w_mat``.
+
+    Output is (N, H) = (sum_e w_e x[src_e] into rows) @ w_mat: per LD
+    bucket K7 writes its (R, H) rows straight into the concatenation
+    buffer, the aggregated (N, F) intermediate never materialised; HD rows
+    reduce through K6 and contract outside (HD rows are few).  Assembly is
+    one permutation gather — no scatters.
+    """
+    dp = plan.on(x.device)
+    x_p = pad_features(x)
+    w_mat = w_mat.float().contiguous()
+    w_buckets, w_hd = stage_weight(plan, w, x.dtype)
+    cat = torch.empty((plan.asm_rows, w_mat.shape[1]), dtype=torch.float32, device=x.device)
+    cat[-1].zero_()
+    for b, cols, off, wb in zip(plan.buckets, dp.cols, dp.offsets, w_buckets):
+        fused_ld_matmul(x_p, cols, w_mat, b.deg, wb, out=cat[off : off + b.num_rows])
+    if plan.hd is not None:
+        red = hd_apply(x_p, dp.hd_cols, dp.hd_meta, dp.hd_row_chunks, plan.e_t, w_hd)
+        cat[dp.hd_offset : dp.hd_offset + red.shape[0]] = red @ w_mat
+    return assemble_rows(plan, cat).to(x.dtype)
 
 
 def _apply_plan_fused_grouped_staged(plan: SpmmPlan, x_p: torch.Tensor,
@@ -269,13 +333,11 @@ def pad_graph_arrays(
 def _build_pair(edge_src, edge_dst, num_nodes: int, backend: str, device) -> AggPair:
     if backend == "ref":
         return _segment_pair(edge_src, edge_dst, num_nodes, device)
-    if backend in ("groot", "groot_fused"):
-        return _groot_pair(edge_src, edge_dst, num_nodes, fused=backend == "groot_fused",
-                           device=device)
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet: {UNPORTED_BACKENDS[backend]}"
-        )
+    if backend == "onehot":
+        return _onehot_pair(edge_src, edge_dst, num_nodes, device)
+    if backend in ("groot", "groot_mxu", "groot_fused"):
+        return _groot_pair(edge_src, edge_dst, num_nodes, mxu=backend == "groot_mxu",
+                           fused=backend == "groot_fused", device=device)
     raise ValueError(f"unknown backend {backend!r} (want one of {BACKENDS})")
 
 
@@ -288,3 +350,18 @@ def make_agg_pair(edge_src, edge_dst, num_nodes: int, backend: str = "ref", *,
     return pc.PLAN_CACHE.get_or_build(
         key, lambda: _build_pair(edge_src, edge_dst, num_nodes, backend, device)
     )
+
+
+def groot_spmm(x: torch.Tensor, edge_src, edge_dst, num_nodes: int,
+               w: Optional[torch.Tensor] = None, *, backend: str = "groot") -> torch.Tensor:
+    """One-shot SpMM ``out[r] = sum_{e: dst[e]=r} w[e] * x[src[e]]`` through
+    a backend's ungrouped walk (the paper's single SpMM; persistent users
+    should hold an :class:`AggPair`), on the device ``x`` lies on.  The plan
+    comes from the structural plan cache: a recurring structure builds
+    nothing.
+    """
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    pair = make_agg_pair(host(edge_src), host(edge_dst), num_nodes, backend, device=x.device)
+    return pair.in_agg(x, w)

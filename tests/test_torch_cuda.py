@@ -5,9 +5,12 @@ without one.  The file imports nothing of JAX, so it runs where the card is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernels and their plain versions both widen bf16 inputs to f32 exactly
-and accumulate in f32, so only the order of the sums differs: a tolerance of
-1e-5 relative to max(1, max|plain|) holds for f32 and bf16 streams alike.
+The kernels and their plain versions round each message-weight product the
+same way (K1-K3 widen bf16 inputs to f32 exactly; K4-K7 round the product to
+the stream dtype) and accumulate in f32, so only the order of the sums
+differs, plus, for K4 on f32 streams, what the two-term TF32 split loses
+(under 2^-22 of each product): a tolerance of 1e-5 relative to
+max(1, max|plain|) holds for f32 and bf16 streams alike.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from repro_torch.api import Session  # noqa: E402
 from repro_torch.core import gnn  # noqa: E402
 from repro_torch.kernels import fused_sage as fs  # noqa: E402
 from repro_torch.kernels import groot_spmm as gs  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -75,6 +79,7 @@ def test_kernels_match_plain_versions(cuda, case, groups, dtype):
     staged = gs.stage_group_weights(plan, wg, dtype=dtype)
     w_stack = torch.as_tensor(rng.standard_normal((groups, 32, 24)), dtype=torch.float32,
                               device=cuda)
+    w_mat = w_stack[0].contiguous()
     dp = plan.on(cuda)
     for b, cols, wge in zip(plan.buckets, dp.cols, staged.buckets):
         before = gs.ld_grouped_apply.launches
@@ -83,25 +88,45 @@ def test_kernels_match_plain_versions(cuda, case, groups, dtype):
         assert gs.ld_grouped_apply.launches == before + 1
         _close(fs.fused_ld_matmul_grouped(x_p, cols, wge, w_stack, b.deg),
                fs.fused_ld_grouped_plain(x_p, cols, wge, w_stack, b.deg))
+        before = gs.ld_grouped_mxu_apply.launches
+        _close(gs.ld_grouped_mxu_apply(x_p, cols, wge, b.deg),
+               gs.ld_grouped_mxu_plain(x_p, cols, wge, b.deg))
+        assert gs.ld_grouped_mxu_apply.launches == before + 1
+        for w in (None, wge[:, 0].contiguous()):
+            for mxu in (False, True):
+                _close(gs.ld_bucket_apply(x_p, cols, b.deg, w, mxu=mxu),
+                       gs.ld_bucket_plain(x_p, cols, b.deg, w))
+            _close(fs.fused_ld_matmul(x_p, cols, w_mat, b.deg, w),
+                   fs.fused_ld_plain(x_p, cols, w_mat, b.deg, w))
     if plan.hd is not None:
         n_hd = plan.hd.rows.shape[0]
         _close(gs.hd_grouped_apply(x_p, dp.hd_cols, staged.hd, dp.hd_meta, dp.hd_row_chunks, e_t),
                gs.hd_grouped_plain(x_p, dp.hd_cols, staged.hd, dp.hd_meta, n_hd, e_t))
+        for w in (None, staged.hd[:, 0].contiguous()):
+            _close(gs.hd_apply(x_p, dp.hd_cols, dp.hd_meta, dp.hd_row_chunks, e_t, w),
+                   gs.hd_plain(x_p, dp.hd_cols, dp.hd_meta, e_t, w))
 
 
 def test_cuda_wrappers_never_run_the_plain_versions(cuda, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
 
-    monkeypatch.setattr(gs, "ld_grouped_plain", boom)
-    monkeypatch.setattr(gs, "hd_grouped_plain", boom)
-    monkeypatch.setattr(fs, "fused_ld_grouped_plain", boom)
+    for mod, name in ((gs, "ld_grouped_plain"), (gs, "hd_grouped_plain"),
+                      (gs, "ld_grouped_mxu_plain"), (gs, "ld_bucket_plain"), (gs, "hd_plain"),
+                      (fs, "fused_ld_grouped_plain"), (fs, "fused_ld_plain")):
+        monkeypatch.setattr(mod, name, boom)
     src, dst, n, e_t = _graph(MIXTURES[2])
     plan = gs.build_plan(src, dst, n, e_t=e_t)
     x = torch.randn((n, 8), device=cuda)
     wg = torch.rand((len(src), 4), device=cuda)
-    out = gs.apply_plan_grouped(plan, x, wg)
-    assert out.shape == (4, n, 8) and torch.isfinite(out).all()
+    for mxu in (False, True):
+        out = gs.apply_plan_grouped(plan, x, wg, mxu=mxu)
+        assert out.shape == (4, n, 8) and torch.isfinite(out).all()
+        for w in (None, wg[:, 0]):
+            out = gs.apply_plan(plan, x, w, mxu=mxu)
+            assert out.shape == (n, 8) and torch.isfinite(out).all()
+    out = ops._apply_plan_fused(plan, x, wg[:, 0], torch.randn((8, 16), device=cuda))
+    assert out.shape == (n, 16) and torch.isfinite(out).all()
     # "cuda" and the tensors' "cuda:<n>" share one device copy of the plan
     assert plan.on("cuda") is plan.on(x.device)
     assert len(plan._device) == 1
@@ -109,7 +134,7 @@ def test_cuda_wrappers_never_run_the_plain_versions(cuda, monkeypatch):
 
 def test_session_on_card_matches_cpu(cuda):
     params = gnn.load_params(Path(gs.__file__).resolve().parents[1] / "data" / "groot_csa8.npz")
-    for backend in ("groot", "groot_fused"):
+    for backend in ("onehot", "groot", "groot_mxu", "groot_fused"):
         on_card = Session(params, backend=backend).verify(
             dataset="csa", bits=16, return_predictions=True)
         on_cpu = Session(params, backend=backend, device="cpu").verify(

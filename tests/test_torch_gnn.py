@@ -88,8 +88,10 @@ def _mixture_inputs():
 _ref_forward_jit = jax.jit(RG.forward, static_argnames=("num_nodes", "agg"))
 
 
-def _ref_forward(tree, src, dst, n, x, inv, slot, backend):
+def _ref_forward(tree, src, dst, n, x, inv, slot, backend, transform=None):
     agg = None if backend is None else ROPS.make_agg_pair(src, dst, n, backend)
+    if transform is not None:
+        agg = transform(agg)
     return np.asarray(_ref_forward_jit(
         _jax_tree(tree), jnp.asarray(x), jnp.asarray(src), jnp.asarray(dst),
         jnp.asarray(inv), jnp.asarray(slot), num_nodes=n, agg=agg))
@@ -121,6 +123,27 @@ def test_logits_match_reference(num_layers):
         assert np.max(np.abs(bf16 - want) / scale) < 0.05 * num_layers, backend
 
 
+@pytest.mark.parametrize("backend", ["onehot", "groot", "groot_mxu", "groot_fused"])
+def test_per_group_and_mxu_forwards_match_reference(backend):
+    """The per-group forward of ``ops.ungrouped(pair)`` (K5 + K6 on groot,
+    K5's MXU body on groot_mxu, K7 on groot_fused), the onehot forward and
+    the hoisted groot_mxu forward (K4) against the reference's."""
+    src, dst, n, x, inv, slot = _mixture_inputs()
+    tree = _random_tree(2)
+    model = TG.params_from_numpy(tree)
+    pair = TOPS.make_agg_pair(src, dst, n, backend, device="cpu")
+    want = _ref_forward(tree, src, dst, n, x, inv, slot, backend, ROPS.ungrouped)
+    got = _port_forward(model, src, dst, n, x, inv, slot, TOPS.ungrouped(pair))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    if backend == "groot_mxu":
+        want = _ref_forward(tree, src, dst, n, x, inv, slot, backend)
+        got = _port_forward(model, src, dst, n, x, inv, slot, pair)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        scale = np.maximum(np.abs(want), 1.0)
+        bf16 = _port_forward(model, src, dst, n, x, inv, slot, pair, stream_dtype="bfloat16")
+        assert np.max(np.abs(bf16 - want) / scale) < 0.05 * 2
+
+
 def test_predict_identical_on_csa16():
     tree = TG.load_params(NPZ)
     design = RA.make_design("csa", 16)
@@ -130,7 +153,7 @@ def test_predict_identical_on_csa16():
     np.testing.assert_array_equal(RG.predict(_jax_tree(tree), design, feats, backend="ref"), want)
     model = TG.params_from_numpy(tree)
     port_design = TA.make_design("csa", 16)
-    for backend in ("ref", "groot", "groot_fused"):
+    for backend in TOPS.BACKENDS:
         got = TG.predict(model, port_design, feats, backend=backend, device="cpu")
         assert got.dtype == np.int32
         np.testing.assert_array_equal(got, want, err_msg=backend)
