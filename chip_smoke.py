@@ -30,8 +30,25 @@ Phases (any failure raises and the script exits non-zero):
               ``groot_mxu`` and ``groot_fused``, then ``ref`` (no kernel).
               Verdicts must equal ``ref``'s and predictions may differ on at
               most 1e-5 of the nodes.
+ 7. serve     K8 (flash attention) against its plain version, f32 and bf16,
+              at (a) qwen3-8b prefill (B=4, 32 query heads over 8 KV heads,
+              S=T=4096, hd=128, causal), (b) a gemma2-9b local layer (hd=256,
+              S=T=8192, window 4096, softcap 50), (c) bidirectional hd=64
+              S=T=4096, (d) ragged causal S=T=4000; kernel, plain and (a, c)
+              ``scaled_dot_product_attention`` times by CUDA events, and K8
+              alone beside SDPA at prefill_32k's length (B=1, S=T=32768,
+              bf16).  Then the main path: ``BatchServer(qwen3-8b, batch=4,
+              max_seq=4129)`` at full width and depth (36 layers, weights
+              from a seeded generator on the card, fan-in scaled, bf16)
+              serves 8 numpy-seeded 4,096-token prompts, 32 new tokens each:
+              36 K8 launches per prefill, every token < vocab, every logit
+              finite; prefill and per-token decode times, tokens/s, peak
+              memory.  The first batch's prefill runs again on the model's
+              plain schedule (``FLASH_THRESHOLD`` raised: no K8 launch), and
+              the f32 model's prefill of it on the plain schedule too is the
+              yardstick for that bf16 comparison.
 
-Every driven path of phases 4-6 runs with each kernel's launch count set to
+Every driven path of phases 4-7 runs with each kernel's launch count set to
 0 just before it and read just after; a kernel's ``launches`` in the summary
 is the sum over those paths, and every kernel must have been launched.  The
 line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -42,6 +59,7 @@ directory that lacks the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -69,6 +87,35 @@ MAX_PRED_MISMATCH = 1e-5
 LOGIT_TOL = 1e-3
 # the design onehot runs on: its (E, N) one-hot grows with E * N
 ONEHOT_BITS = 32
+# K8 runs on the tensor cores: bf16 streams at the dense bf16 rate, f32
+# streams as three TF32 MMAs per product (high x high, high x residual,
+# residual x high), so at a third of the dense TF32 rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+F32_MMAS = 3
+# K8 against its plain version, which rounds at the same points and walks the
+# same 64-key tiles: |kernel - plain| <= FLASH_TOL * max(1, max|plain|).
+# f32: the kernel's three-TF32 products (split error under 2^-21 of each),
+# exp/tanh ulps and sums over up to 8192 keys in other orders.  bf16: the two
+# sides' f32 scores differ in their last bits, so now and then they round a
+# p to neighbouring bf16 values, which moves that row's outputs by up to
+# 2^-8 * p * |v| / l, two output ulps and more where outputs are small
+# (PERF.md): no single output can be held much tighter than one bf16 ulp at
+# the largest output.  A rounding fault shows in how many outputs move: at
+# most FLASH_OFF_SHARE of them may differ from plain's, which rounds the same
+# f32 output (acc / l) once; p or the output truncated moves far more.
+FLASH_TOL = {"f32": 5e-5, "bf16": 2**-7}
+FLASH_OFF_SHARE = 2**-4
+# K8 parity shapes: (label, batch, query heads, KV heads, S = T, hd, causal,
+# window, softcap)
+FLASH_SHAPES = (
+    ("a qwen3-8b prefill", 4, 32, 8, 4096, 128, True, 0, 0.0),
+    ("b gemma2-9b local", 1, 16, 8, 8192, 256, True, 4096, 50.0),
+    ("c bidirectional", 1, 32, 32, 4096, 64, False, 0, 0.0),
+    ("d ragged causal", 1, 32, 8, 4000, 128, True, 0, 0.0),
+)
+# the serve phase: qwen3-8b, 8 requests of 4,096 prompt tokens, 32 new each
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 4096, 32
 
 
 def log(msg: str) -> None:
@@ -104,6 +151,307 @@ def bound(bytes_: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_profile(what: str, fn):
+    """Run ``fn`` once under torch.profiler with synchronize around it;
+    log and return its device time by kernel (self time, device-side events
+    only: the aten ops that launched them carry the same time again) beside
+    the wall time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows)
+    log(f"profile {what}: device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall "
+        f"(idle share {1 - dev_ms / wall_ms:.3f}, profiler on)")
+    for name, ms, cnt in rows[:10]:
+        log(f"  {ms:9.3f} ms  x{cnt:<4d} {name[:90]}")
+    return out, dict(wall_ms=wall_ms, device_ms=dev_ms, top=rows[:15])
+
+
+def flash_parity(got, want, tag: str) -> dict:
+    """K8's output against its plain version's, both in the stream dtype:
+    the readings and whether they are within the limits above."""
+    err = (got.float() - want.float()).abs().max().item()
+    limit = FLASH_TOL[tag] * max(1.0, want.float().abs().max().item())
+    par = dict(max_abs_err=err, limit=limit, ok=err <= limit)
+    if tag == "bf16":
+        par["off_share"] = off = (got != want).float().mean().item()
+        par["ok"] = par["ok"] and off <= FLASH_OFF_SHARE
+    return par
+
+
+def bf16_truncated(x32):
+    """``x32`` rounded to bf16 toward zero: a planted one-ulp rounding fault."""
+    import torch
+
+    return (x32.view(torch.int32) & -65536).view(torch.float32).to(torch.bfloat16)
+
+
+@contextlib.contextmanager
+def plain_schedule(what: str):
+    """Run attention on the model's plain schedule (``FLASH_THRESHOLD``
+    raised) inside the block; fail if K8 launched there."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.zoo.models import attention as A
+
+    saved, before = A.FLASH_THRESHOLD, fa.flash_attention.launches
+    A.FLASH_THRESHOLD = 1 << 62
+    try:
+        yield
+    finally:
+        A.FLASH_THRESHOLD = saved
+    if fa.flash_attention.launches != before:
+        fail(f"{what} launched K8")
+
+
+def attended_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that K8's mask keeps: the work the data needs."""
+    import numpy as np
+
+    q = np.arange(s)
+    hi = np.minimum(q, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_phase(args, dev, k8: dict) -> dict:
+    """K8 against its plain version at the FLASH_SHAPES, f32 and bf16; times
+    beside the bound and SDPA; K8 alone at prefill_32k's length."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    rows = []
+    for label, b, h, kvh, s, hd, causal, window, cap in FLASH_SHAPES:
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q = torch.randn((b * h, s, hd), generator=gen, device=dev).to(dtype)
+            k = torch.randn((b * kvh, s, hd), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b * kvh, s, hd), generator=gen, device=dev).to(dtype)
+            kw = dict(causal=causal, window=window, softcap=cap)
+
+            def run():
+                return fa.flash_attention(q, k, v, kv_block=s, **kw)
+
+            def plain():
+                return fa.flash_plain(q, k, v, **kw)
+
+            got = run()
+            want32 = fa.flash_plain(q, k, v, out_dtype=torch.float32, **kw)
+            want = want32.to(dtype)
+            torch.cuda.synchronize()
+            par = flash_parity(got, want, tag)
+            ok = bool(torch.isfinite(got).all()) and par["ok"]
+            what = f"{label} BH={b * h}/{b * kvh} S=T={s} hd={hd} {tag}"
+            reading = f"tol {par['limit']:.3e}"
+            if tag == "bf16":  # the check must see a planted rounding fault
+                planted = flash_parity(bf16_truncated(want32), want, tag)
+                par["planted_truncation"] = planted
+                ok = ok and not planted["ok"]
+                reading += (f", off {par['off_share']:.3e} (limit {FLASH_OFF_SHARE:.3e}); "
+                            f"plain truncated: off {planted['off_share']:.3e}")
+            log(f"parity flash_attention {what:50s} max_abs_err {par['max_abs_err']:.3e} "
+                f"{reading} {'ok' if ok else 'MISS'}")
+            k8["max_abs_err"] = max(k8["max_abs_err"], par["max_abs_err"])
+            if not ok:
+                fail(f"flash_attention {what}: {json.dumps(par)}")
+            del got, want, want32
+            ms = cuda_ms(run, args.reps)
+            plain_ms = cuda_ms(plain, 2)
+            lib_ms = None
+            if label[0] in "ac":  # no window, no softcap: one SDPA call computes it
+                g = h // kvh
+                qs = q.view(b, h, s, hd)
+                ks = k.view(b, kvh, s, hd).repeat_interleave(g, 1)
+                vs = v.view(b, kvh, s, hd).repeat_interleave(g, 1)
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=causal), args.reps)
+                del qs, ks, vs
+            flops = 4.0 * b * h * hd * attended_pairs(s, s, causal, window)
+            bytes_ = 2 * (q.numel() + k.numel()) * q.element_size()  # q, o; k, v
+            t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+            t_ops = flops / (PEAK_BF16_FLOPS if tag == "bf16" else PEAK_TF32_FLOPS / F32_MMAS) * 1e3
+            row = dict(what=what, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, parity=par,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=bytes_, flops=flops, tflops=flops / ms / 1e9)
+            rows.append(row)
+            log(f"time   flash_attention {what:50s} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"sdpa {'-' if lib_ms is None else f'{lib_ms:.4f} ms'} bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tflops']:.1f} TFLOP/s")
+            if label[0] == "a" and tag == "bf16":  # the main path's shape and dtype
+                k8.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=row["bound_ms"],
+                          bytes_ms=t_bytes, ops_ms=t_ops)
+            del q, k, v
+        torch.cuda.empty_cache()
+    # prefill_32k's length: no plain version (its scores would take 137 GB)
+    b, h, kvh, s, hd = 1, 32, 8, 32768, 128
+    q = torch.randn((b * h, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b * kvh, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b * kvh, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        fail("flash_attention at S=T=32768: non-finite output")
+    del out
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 3)
+    ks = k.view(b, kvh, s, hd).repeat_interleave(h // kvh, 1)
+    vs = v.view(b, kvh, s, hd).repeat_interleave(h // kvh, 1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.view(b, h, s, hd), ks, vs, is_causal=True), 3)
+    flops = 4.0 * b * h * hd * attended_pairs(s, s, True, 0)
+    long = dict(what=f"prefill_32k BH={b * h}/{b * kvh} S=T={s} hd={hd} bf16", ms=ms,
+                library_ms=lib_ms, bound_ms=flops / PEAK_BF16_FLOPS * 1e3, bound_by="operations",
+                tflops=flops / ms / 1e9)
+    log(f"time   flash_attention {long['what']:50s} kernel {ms:.3f} ms sdpa {lib_ms:.3f} ms "
+        f"bound {long['bound_ms']:.3f} ms (operations), {long['tflops']:.1f} TFLOP/s")
+    del q, k, v, ks, vs
+    torch.cuda.empty_cache()
+    return dict(shapes=rows, prefill_32k=long)
+
+
+def serve_phase(args, dev, drive, launches: dict) -> dict:
+    """The main path: qwen3-8b served through BatchServer at full width and
+    depth, K8 on every prefill layer; then the first batch's prefill on the
+    plain schedule and in f32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.zoo.configs import get_config
+    from repro_torch.zoo.configs.base import materialize, param_tree
+    from repro_torch.zoo.models.transformer import params_from_numpy
+    from repro_torch.zoo.serving.decode import make_prefill_step
+
+    cfg = get_config("qwen3-8b")
+    max_seq = SERVE_PROMPT + SERVE_NEW + 1
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    toks0 = torch.as_tensor(np.stack(prompts[:SERVE_BATCH]), device=dev)
+    # f32 weights drawn on the card (per-depth tree: fan-in scaled), first the
+    # f32 model's prefill of the first batch on the plain schedule (the
+    # yardstick, independent of K8), then the bf16 weights
+    t0 = time.perf_counter()
+    tree = materialize(param_tree(cfg), torch.Generator(device=dev).manual_seed(args.seed))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with plain_schedule("the f32 yardstick prefill"):
+        logits32, _ = make_prefill_step(cfg32, max_seq)(params_from_numpy(tree, cfg32, dev),
+                                                        toks0)
+    params = params_from_numpy(tree, cfg, dev)
+    del tree
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"serve qwen3-8b: {n_params} parameters (bf16), f32 yardstick prefill and weights "
+        f"in {setup_s:.1f} s")
+
+    server = BatchServer(cfg, params, batch=SERVE_BATCH, max_seq=max_seq)
+    times: dict = {"prefill": [], "decode": []}
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    first: dict = {}
+
+    def timed(name, fn, at):
+        def run(*a):
+            nonlocal finite
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            finite = finite & torch.isfinite(out[at]).all()
+            if name not in first:
+                first[name] = out[at].float().clone()
+            return out
+        return run
+
+    server.prefill = timed("prefill", server.prefill, 0)
+    server.decode = timed("decode", server.decode, 1)
+
+    def serve_all():
+        queue = [Request(rid=i, prompt=p, max_new=SERVE_NEW, t_submit=time.perf_counter())
+                 for i, p in enumerate(prompts)]
+        done = []
+        while queue:
+            batch, queue = queue[:SERVE_BATCH], queue[SERVE_BATCH:]
+            done += server.serve_batch(batch)
+        return done
+
+    torch.cuda.reset_peak_memory_stats()
+    done, wall = drive("serve qwen3-8b", serve_all)
+    peak = torch.cuda.max_memory_allocated()
+    used = {k: v for k, v in launches["serve qwen3-8b"].items() if v}
+    n_prefill = len(times["prefill"])
+    out = np.stack([r.out for r in done])
+    n_tok = out.size
+    rep = dict(
+        requests=len(done), batch=SERVE_BATCH, prompt_tokens=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        wall_s=wall, tokens_per_s=n_tok / wall, prompt_tokens_per_s=
+        SERVE_REQUESTS * SERVE_PROMPT / sum(times["prefill"]),
+        prefill_ms=[t * 1e3 for t in times["prefill"]],
+        decode_ms_per_token=statistics.median(times["decode"]) * 1e3,
+        decode_ms_p90=float(np.percentile(times["decode"], 90)) * 1e3,
+        peak_bytes=peak, launches=used, setup_s=setup_s, parameters=n_params)
+    log(f"serve qwen3-8b: {len(done)} requests, {n_tok} tokens in {wall:.2f} s "
+        f"({rep['tokens_per_s']:.1f} tok/s); prefill (B={SERVE_BATCH}, S={SERVE_PROMPT}) "
+        f"{', '.join(f'{t:.1f}' for t in rep['prefill_ms'])} ms; decode "
+        f"{rep['decode_ms_per_token']:.2f} ms/token (p90 {rep['decode_ms_p90']:.2f}); peak "
+        f"{peak / 1e9:.2f} GB; launches {json.dumps(used)}")
+    if used.get("flash_attention", 0) != cfg.num_layers * n_prefill or len(used) != 1:
+        fail(f"serve: launches {used}, expected flash_attention {cfg.num_layers} per prefill "
+             f"x {n_prefill} prefills and no other kernel")
+    if out.shape != (SERVE_REQUESTS, SERVE_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        fail(f"serve: tokens of shape {out.shape} in [{out.min()}, {out.max()}]")
+    if not bool(finite):
+        fail("serve: non-finite logits")
+
+    # the first batch again on the model's plain schedule (no K8 launch)
+    with plain_schedule("the plain-schedule prefill"):
+        t0 = time.perf_counter()
+        plain, _ = make_prefill_step(cfg, max_seq)(params, toks0)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    k8, plain, f32 = first["prefill"], plain.float(), logits32.float()
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    d_k8, d_bf16, d_k8_f32 = rel(k8, plain), rel(plain, f32), rel(k8, f32)
+    agree = (k8.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    rep.update(plain_prefill_s=plain_s, rel_k8_vs_plain=d_k8, rel_plain_vs_f32=d_bf16,
+               rel_k8_vs_f32=d_k8_f32, argmax_agreement=agree)
+    # both bf16 prefills sit about d_bf16 from the f32 model's logits, so they
+    # may sit up to twice that apart; the two round scores at other points
+    # by design (the plain schedule to bf16, K8 keeps f32)
+    ok = d_k8 <= 2 * d_bf16 and torch.isfinite(plain).all()
+    log(f"serve qwen3-8b: last-position logits, relative L2: K8 vs plain schedule {d_k8:.4e} "
+        f"(limit 2 x plain vs f32 = {2 * d_bf16:.4e}), K8 vs f32 {d_k8_f32:.4e}; argmax "
+        f"agreement {agree:.2f}; plain prefill {plain_s:.2f} s {'ok' if ok else 'MISS'}")
+    if not ok:
+        fail(f"serve: K8 prefill logits {d_k8:.4e} from the plain schedule's, over {2 * d_bf16:.4e}")
+    del plain, logits32
+    # where a K8 prefill's and a decode step's device time goes
+    (last, cache), rep["profile_prefill"] = device_profile(
+        f"qwen3-8b prefill B={SERVE_BATCH} S={SERVE_PROMPT}",
+        lambda: make_prefill_step(cfg, max_seq)(params, toks0))
+    tok = last.argmax(-1)[:, None].to(torch.int32)
+    tok, _, cache = server.decode(params, cache, tok)  # warm
+    _, rep["profile_decode"] = device_profile(
+        f"qwen3-8b decode step B={SERVE_BATCH}", lambda: server.decode(params, cache, tok))
+    del server, params, cache
+    torch.cuda.empty_cache()
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bits", type=int, default=1024,
@@ -129,6 +477,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import groot_spmm as gs
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_sage as fs
 
     t_all = time.perf_counter()
@@ -208,6 +557,8 @@ def main() -> int:
         kernel("hd", "groot_spmm.cu", f"{spmm_py}:368", gs.hd_apply),
         kernel("fused_ld", "fused_sage.cu", "src/repro/kernels/fused_sage.py:29",
                fs.fused_ld_matmul),
+        kernel("flash_attention", "flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:36", fa.flash_attention),
     )}
 
     def compare(kname, what, got, want):
@@ -483,25 +834,10 @@ def main() -> int:
         fail(f"the ref forward launched kernels: {launches['forward ref']}")
     # where one groot forward's device time goes (kernel names by self time)
     torch.cuda.reset_peak_memory_stats()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        gnn.forward(model, x0, src, dst, inv, slot, num_nodes=n, agg=pairs["groot"])
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    _, report["forward_profile_groot"] = device_profile(
+        "groot forward",
+        lambda: gnn.forward(model, x0, src, dst, inv, slot, num_nodes=n, agg=pairs["groot"]))
     report["forward_peak_bytes_groot"] = torch.cuda.max_memory_allocated()
-    # device-side events only: the aten ops that launched them carry the
-    # same time again
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    dev_ms = sum(r[1] for r in rows)
-    report["forward_profile_groot"] = dict(wall_ms=prof_wall_ms, device_ms=dev_ms, top=rows[:15])
-    log(f"profile groot forward: device {dev_ms:.2f} ms of {prof_wall_ms:.2f} ms wall "
-        f"(idle share {1 - dev_ms / prof_wall_ms:.3f}, profiler on)")
-    for name, ms, cnt in rows[:10]:
-        log(f"  {ms:9.3f} ms  x{cnt:<4d} {name[:90]}")
     report["forward_ms"] = fwd
     max_logit_diff = {b: (logits[b] - logits["ref"]).abs().max().item()
                       for b in aggs if b != "ref"}
@@ -564,6 +900,12 @@ def main() -> int:
         if mism > MAX_PRED_MISMATCH * n:
             fail(f"{b}: {mism} predictions differ from ref")
         report["sessions"][b]["pred_mismatch_vs_ref"] = mism
+
+    # -- 7. serve: K8, then qwen3-8b through BatchServer -------------------------
+    del pairs, x32, x32p, x0, src, dst, inv, slot, wg_in, wg_out, w_rand
+    torch.cuda.empty_cache()
+    report["flash"] = flash_phase(args, dev, kernels["flash_attention"])
+    report["serve"] = serve_phase(args, dev, drive, launches)
 
     total = {kn: sum(counts[kn] for counts in launches.values()) for kn in kernels}
     report["launches"] = launches

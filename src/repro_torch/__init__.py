@@ -7,7 +7,10 @@ backends of the reference (``ref``, ``onehot``, ``groot``, ``groot_mxu``,
 ``groot_fused``) through seven hand-written CUDA kernels (``csrc/``): K1
 grouped LD, K2 grouped HD, K3 grouped fused LD + matmul, K4 grouped LD on
 the tensor cores, K5 ungrouped LD, K6 ungrouped HD, K7 ungrouped fused LD +
-matmul.  Entry points run on ``cuda`` unless the caller passes
+matmul.  ``repro_torch.zoo`` and ``repro_torch.launch.serve`` carry the
+reference's dense LLM serving path (prefill + decode through
+``BatchServer``), whose prefills run attention through K8, a flash-attention
+kernel.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
 PyTorch version instead.
 """

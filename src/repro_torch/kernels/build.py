@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 #: C entry points per source, with their argument types (see the sources).
 SIGNATURES = {
@@ -50,6 +50,12 @@ SIGNATURES = {
         "fused_ld_grouped": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P),
         # x, cols, w (or null), w_mat, out, rows, deg, feat, hid, bf16, stream
         "fused_ld": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P),
+    },
+    "flash_attention": {
+        # q, k, v, o, bh, s, t, hd, group, causal, window, scale, softcap,
+        # bf16, stream
+        "flash_attention": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _F32,
+                            _F32, _I32, _P),
     },
 }
 

@@ -1,0 +1,121 @@
+"""Flash attention (port of ``repro/kernels/flash_attention.py``).
+
+K8 ``flash_attention`` replaces the Pallas kernel ``_flash_kernel``: online
+softmax attention, causal, sliding-window or bidirectional, with an optional
+logit softcap.  One CUDA block (``csrc/flash_attention.cu``) owns one
+(batch-head, query tile) and loops over the key tiles, its running max,
+denominator and f32 accumulator in registers.  Positions come from tile
+indices, so no mask tensor exists.
+
+The wrapper keeps the reference's contract: q (BH, S, hd), k/v (BH, T, hd),
+f32 or bf16, output (BH, S, hd) in q's dtype, the ``ValueError`` for a
+bidirectional call with ``T % kv_block != 0``.  GQA callers may also pass k/v
+once per KV head, (BH / G, T, hd): query row ``bh`` then reads KV row
+``bh // G``.  ``q_block``/``kv_block`` keep the reference's signature and
+its check; the kernel tiles by 64 query rows x ``KV_TILE`` keys.  Key positions past
+T are masked, where the reference pads them with zeros that stay visible to
+query rows past T (S > T, causal); the two agree for S <= T.
+
+On a CPU tensor the wrapper runs :func:`flash_plain`, which follows the
+kernel's rounding points and walks the keys in the kernel's tile width; on a
+CUDA tensor it launches the kernel or raises.  ``flash_attention.launches``
+counts the launches.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.groot_spmm import on_cuda, stream
+
+NEG_INF = -1e30
+#: keys per step of one CUDA block (csrc/flash_attention.cu kBN)
+KV_TILE = 64
+HEAD_DIMS = (64, 128, 256)
+
+
+def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                window: int = 0, scale: Optional[float] = None, softcap: float = 0.0,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch version of K8 with the Pallas kernel's rounding points:
+    scores in f32 from the stream-dtype inputs, the finite ``NEG_INF``
+    sentinel, p rounded to v's dtype before the PV product, an f32
+    accumulator, ``acc / max(l, 1e-30)`` at the end.  Walks the keys
+    ``KV_TILE`` at a time (the kernel's tile), all query rows at once.
+    ``out_dtype`` (q's by default) set to f32 returns the output before its
+    last rounding, which the card checks hold a bf16 kernel output to."""
+    bh, s, hd = q.shape
+    t = k.shape[1]
+    group = bh // k.shape[0]
+    if group > 1:
+        k = k.repeat_interleave(group, 0)
+        v = v.repeat_interleave(group, 0)
+    scale = hd**-0.5 if scale is None else scale
+    qf = q.float()
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    acc = torch.zeros((bh, s, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((bh, s, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((bh, s, 1), dtype=torch.float32, device=q.device)
+    for k0 in range(0, t, KV_TILE):
+        kb, vb = k[:, k0:k0 + KV_TILE], v[:, k0:k0 + KV_TILE]
+        sc = torch.bmm(qf, kb.float().transpose(1, 2)) * scale
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
+        k_pos = torch.arange(k0, k0 + kb.shape[1], device=q.device)[None, :]
+        ok = k_pos <= q_pos if causal else torch.ones_like(k_pos, dtype=torch.bool)
+        if window:
+            ok = ok & (k_pos > q_pos - window)
+        sc = torch.where(ok, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+        acc = acc * alpha + torch.bmm(p.to(v.dtype).float(), vb.float())
+    return (acc / l.clamp_min(1e-30)).to(out_dtype or q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int = 0, scale: Optional[float] = None, softcap: float = 0.0,
+                    q_block: int = 256, kv_block: int = 256) -> torch.Tensor:
+    """K8: q (BH, S, hd), k/v (BH or BH / G, T, hd) -> (BH, S, hd) in q's
+    dtype.  CPU tensors run :func:`flash_plain`; CUDA tensors launch the
+    kernel."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention: q (BH, S, hd) and k/v (BH, T, hd), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    bh, s, hd = q.shape
+    t = k.shape[1]
+    if k.shape[0] == 0 or bh % k.shape[0]:
+        raise ValueError(f"flash_attention: {bh} query rows over {k.shape[0]} KV rows")
+    scale = hd**-0.5 if scale is None else scale
+    kc = min(kv_block, t)
+    if not causal and t % kc:
+        raise ValueError("bidirectional flash requires T % kv_block == 0")
+    if not on_cuda("flash_attention", q):
+        return flash_plain(q, k, v, causal=causal, window=window, scale=scale, softcap=softcap)
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q, k, v must all be float32 or all bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous() or x.device != q.device or x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be contiguous, 16-byte aligned "
+                             f"and on {q.device}")
+    if bh > 65535 or s <= 0 or t <= 0:
+        raise ValueError(f"flash_attention: BH={bh} (at most 65535), S={s}, T={t}")
+    out = torch.empty_like(q)
+    rc = build.library("flash_attention").flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, t, hd,
+        bh // k.shape[0], int(causal), int(window), scale, softcap,
+        int(q.dtype == torch.bfloat16), stream(q),
+    )
+    build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,208 @@
+"""Attention (port of ``repro/zoo/models/attention.py``): GQA + RoPE +
+qk-norm + QKV-bias + sliding window + softcap, with a KV cache for decode.
+
+One function serves prefill (causal + cache write-out), decode (single
+query against the cache) and full-sequence calls.  Masks are position-based,
+so ring-buffer caches fall out of the same code path.
+
+Whenever S*T score elements exceed ``FLASH_THRESHOLD`` the reference
+switches to its flash schedule in ``lax``; the port runs the K8 flash kernel
+(``repro_torch.kernels.flash_attention``) there instead, which the
+reference's docstring names as that schedule's deployment form.  K8 takes
+positions from tile indices and its masks depend only on the difference of
+a query's and a key's position, so it serves every call whose queries and
+keys share their positions: prefill (at any cache offset) and full-sequence
+calls.  The other flash case, one decode token against more than
+``FLASH_THRESHOLD`` cache slots, raises ``NotImplementedError``.  In bf16 the two differ by design: the reference's
+schedule rounds its scores to bf16 (its einsum runs in the stream dtype),
+K8 keeps them in f32, as the reference's Pallas kernel does.
+
+Departures from the reference, none of which changes a value:
+  * ``KVCache.pos`` is a Python int (the port runs eagerly, so branching on
+    it costs no device sync), and the cache is written in place: the
+    returned ``KVCache`` holds the same tensors as the one passed in;
+  * the plain schedule scales and masks its f32 scores in place;
+  * the reference's ``shard()`` calls are no-ops without a sharding context
+    and are dropped.  ``cross_attention``/``encode_cross_kv`` wait for the
+    whisper and vision architectures.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.zoo.configs.base import ModelConfig
+from repro_torch.zoo.models.layers import rms_norm, rope, softcap
+
+FLASH_THRESHOLD = 4 * 1024 * 1024  # S*T elements above which K8 runs
+Q_CHUNK = 1024
+KV_CHUNK = 1024  # the reference's lax tile; K8 masks a ragged T itself
+PAD_POS = 1 << 30  # key-position sentinel: fails every mask test
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Per-layer KV cache. ``k/v``: (B, S_max, KV, hd); ``pos``: tokens
+    written so far.  For sliding-window layers S_max == window and writes
+    wrap (ring buffer)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: int = 0
+    window: int = 0  # 0 = full cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, window: int = 0,
+               dtype=torch.bfloat16, device=None) -> KVCache:
+    s = window or max_seq
+    kv, hd = cfg.num_kv_heads, cfg.head_dim_
+    return KVCache(
+        k=torch.zeros((batch, s, kv, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, s, kv, hd), dtype=dtype, device=device),
+        pos=0,
+        window=window,
+    )
+
+
+def _project_qkv(x, p, cfg: ModelConfig):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if "q_norm" in p:  # qwen3 qk-norm (per-head RMS over head_dim)
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _mask(q_pos, k_pos, *, causal: bool, window: int):
+    """(S, T) boolean validity from global positions."""
+    if causal:
+        ok = k_pos[None, :] <= q_pos[:, None]
+    else:
+        ok = (k_pos[None, :] < PAD_POS).expand(q_pos.shape[0], k_pos.shape[0])
+    if window:
+        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+    return ok
+
+
+def _scores(q, k, cfg: ModelConfig, scale: float):
+    """q: (B,S,KV,G,hd), k: (B,T,KV,hd) -> (B,KV,G,S,T) f32 (capped)."""
+    s = torch.einsum("bskgd,btkd->bkgst", q, k).float().mul_(scale)
+    if cfg.attn_softcap:
+        s = softcap(s, cfg.attn_softcap)
+    return s
+
+
+def _sdpa_plain(q, k, v, q_pos, k_pos, cfg, scale, *, causal, window):
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    sc = _scores(q.reshape(b, s, kvh, h // kvh, hd), k, cfg, scale)
+    sc.masked_fill_(~_mask(q_pos, k_pos, causal=causal, window=window), NEG_INF)
+    probs = torch.softmax(sc, dim=-1).to(v.dtype)
+    del sc
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, hd)
+
+
+def _sdpa_flash(q, k, v, q_pos, k_pos, cfg, scale, *, causal, window):
+    """The flash path: K8 over (B*H, S, hd) queries and (B*KV, T, hd) keys,
+    query head h reading KV head h // G.  K8 runs where queries and keys
+    share their positions (``q_pos is k_pos``)."""
+    if q_pos is not k_pos:
+        raise NotImplementedError(
+            "flash attention of queries against keys at other positions (decode against "
+            f"more than FLASH_THRESHOLD={FLASH_THRESHOLD} cache slots) is not ported: "
+            "ROADMAP Queue 1, item 9")
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    qf = q.transpose(1, 2).contiguous().view(b * h, s, hd)
+    kf = k.transpose(1, 2).contiguous().view(b * kvh, t, hd)
+    vf = v.transpose(1, 2).contiguous().view(b * kvh, t, hd)
+    # K8 masks a ragged T itself, as the lax schedule masks its padded keys,
+    # so no kv_block divides T here
+    out = flash_attention(qf, kf, vf, causal=causal, window=window, scale=scale,
+                          softcap=cfg.attn_softcap or 0.0, q_block=Q_CHUNK, kv_block=t)
+    return out.reshape(b, h, s, hd).transpose(1, 2).to(v.dtype)
+
+
+def _sdpa(q, k, v, q_pos, k_pos, cfg, scale, *, causal=True, window=0):
+    if q.shape[1] * k.shape[1] > FLASH_THRESHOLD:
+        return _sdpa_flash(q, k, v, q_pos, k_pos, cfg, scale, causal=causal, window=window)
+    return _sdpa_plain(q, k, v, q_pos, k_pos, cfg, scale, causal=causal, window=window)
+
+
+def _write(cache: KVCache, slots: torch.Tensor, k, v) -> None:
+    cache.k.index_copy_(1, slots.long(), k.to(cache.k.dtype))
+    cache.v.index_copy_(1, slots.long(), v.to(cache.v.dtype))
+
+
+def attention(
+    x: torch.Tensor,
+    p,
+    cfg: ModelConfig,
+    *,
+    window: int = 0,
+    cache: Optional[KVCache] = None,
+    bidirectional: bool = False,
+) -> tuple[torch.Tensor, Optional[KVCache]]:
+    """Self-attention.  Returns (out, updated_cache).
+
+    Full sequence: ``cache=None``.  Prefill: pass a zeroed cache of S_max
+    (or a ring); keys land at positions [pos, pos + S).  Decode: S == 1,
+    cache holds history; the new token is written at ``cache.pos`` (mod
+    window).
+    """
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg)
+    offset = cache.pos if cache is not None else 0
+    positions = torch.arange(offset, offset + s, dtype=torch.int32, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    scale = cfg.head_dim_**-0.5
+
+    new_cache = None
+    if cache is not None:
+        s_max = cache.k.shape[1]
+        if s > 1:
+            # Prefill (the reference assumes an empty cache): attend over
+            # THIS call's k/v; for ring caches the early queries need keys
+            # that the ring will overwrite, so the cache is write-only here.
+            if s >= s_max:  # ring smaller than the prompt: keep the tail
+                kw, vw = k[:, -s_max:], v[:, -s_max:]
+                slots = positions[-s_max:] % s_max if cache.window else positions[-s_max:]
+            else:
+                kw, vw = k, v
+                slots = positions % s_max if cache.window else positions
+            _write(cache, slots, kw, vw)
+            new_cache = KVCache(cache.k, cache.v, offset + s, cache.window)
+            out = _sdpa(q, k, v, positions, positions, cfg, scale, causal=True, window=window)
+        else:
+            # Decode: write one token, attend against the cache.
+            slots = positions % s_max if cache.window else positions
+            _write(cache, slots, k, v)
+            new_cache = KVCache(cache.k, cache.v, offset + s, cache.window)
+            j = torch.arange(s_max, dtype=torch.int32, device=x.device)
+            if cache.window:
+                # global position held by ring slot j after this write
+                total = offset + s
+                wraps = torch.where(total > j, (total - 1 - j) // s_max, 0)
+                k_pos = j + wraps * s_max
+                # slots never written yet hold zeros: mask them out
+                k_pos = torch.where(k_pos < total, k_pos, PAD_POS)
+                win = window or s_max
+            else:
+                k_pos, win = j, window
+            out = _sdpa(q, cache.k.to(q.dtype), cache.v.to(q.dtype), positions, k_pos, cfg,
+                        scale, causal=True, window=win)
+    else:
+        out = _sdpa(q, k, v, positions, positions, cfg, scale, causal=not bidirectional,
+                    window=window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache

@@ -1,0 +1,171 @@
+"""The LM stack (port of ``repro/zoo/models/transformer.py``) for the dense
+attention architectures: ``global`` and ``local`` layers with a dense FFN.
+
+Entry points
+------------
+``model_forward(params, cfg, tokens, ...)``
+    (B, S) tokens -> (B, S, V) logits; optionally threads a per-layer cache
+    list (prefill/decode: decode is S == 1 against the cache).
+
+``init_cache_tree(cfg, batch, max_seq)``
+    the per-layer cache list.
+
+``params_from_numpy(tree, cfg, device)``
+    the weights bridge: the reference's materialised tree (or the port's own
+    :func:`~repro_torch.zoo.configs.base.materialize` output) -> an
+    :class:`nn.Module` of per-layer weights.
+
+Departures from the reference, none of which changes a value:
+  * the layers run in a Python loop: no scan, no remat (the port serves;
+    it does not train), so params and caches are per layer, not stacked;
+  * f32 weights are cast to ``cfg.dtype`` once, when loaded, where the
+    reference casts them per block at every call: the cast values are the
+    same;
+  * the reference's ``shard()`` calls are no-ops without a sharding context
+    and are dropped;
+  * MoE, RWKV6, RG-LRU and cross-attention layers raise
+    ``NotImplementedError`` until their architectures are ported.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.zoo.configs.base import ModelConfig, leaves, tree_map
+from repro_torch.zoo.models.attention import attention, init_cache
+from repro_torch.zoo.models.layers import mlp, rms_norm, softcap
+
+
+class ParamDict(nn.Module):
+    """A nested dict of weights held as an ``nn.Module``: ``p["wq"]``,
+    ``"bq" in p``; a list value becomes an ``nn.ModuleList``
+    of ``ParamDict``s.  Weights are frozen (inference only)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key in sorted(tree):
+            val = tree[key]
+            if isinstance(val, dict):
+                self.add_module(key, ParamDict(val))
+            elif isinstance(val, list):
+                self.add_module(key, nn.ModuleList(ParamDict(x) for x in val))
+            else:
+                self.register_parameter(key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> ParamDict:
+    """The port's weights from a materialised param tree: numpy arrays (the
+    reference's ``materialize`` output through ``np.asarray``) or tensors.
+
+    Takes the stacked layout (``blocks``: per position of the layer pattern,
+    leaves with a leading super-block axis, plus ``tail``) or a per-depth
+    ``layers`` list.  Returns a :class:`ParamDict` with ``embed``,
+    ``final_norm``, ``lm_head`` (untied models) and ``layers``, one
+    :class:`ParamDict` per depth; f32 leaves are cast to ``cfg.dtype`` once.
+    """
+    device = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+
+    def load(a):
+        t = torch.as_tensor(a).to(device)
+        return t.to(dtype) if t.dtype == torch.float32 else t
+
+    if "layers" in tree:
+        layers = [tree_map(load, lp) for lp in tree["layers"]]
+    else:
+        layers = []
+        blocks = tree.get("blocks")
+        if blocks is not None:
+            blocks = [tree_map(load, b) for b in blocks]
+            n_super = leaves(blocks[0])[0].shape[0]
+            # super-block j holds layers [j * period + t for t in range(period)]
+            layers = [tree_map(lambda a, j=j: a[j], blocks[t])
+                      for j in range(n_super) for t in range(len(blocks))]
+        layers += [tree_map(load, lp) for lp in tree.get("tail") or []]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: {len(layers)} layers in the tree, config has "
+                         f"{cfg.num_layers}")
+    top = {k: load(tree[k]) for k in ("embed", "final_norm", "lm_head") if tree.get(k) is not None}
+    return ParamDict({**top, "layers": layers})
+
+
+# ---------------------------------------------------------------------------
+# Per-layer application
+# ---------------------------------------------------------------------------
+
+def apply_layer(x: torch.Tensor, lp, cfg: ModelConfig, kind: str, is_moe: bool,
+                cache: Optional[dict]):
+    """One residual layer.  Returns (x, new_cache_entry)."""
+    if kind not in ("global", "local") or is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: {kind}{' MoE' if is_moe else ''} layers are not ported yet "
+            "(ROADMAP Queue 1, item 9)")
+    new_cache: dict = {}
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    window = cfg.sliding_window if kind == "local" else 0
+    kv_cache = cache.get("kv") if cache else None
+    out, nc = attention(h, lp["attn"], cfg, window=window, cache=kv_cache)
+    if nc is not None:
+        new_cache["kv"] = nc
+    x = x + out.to(x.dtype)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    x = x + mlp(h, lp["ffn"], cfg.act).to(x.dtype)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cache construction
+# ---------------------------------------------------------------------------
+
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype, device):
+    c: dict[str, Any] = {}
+    if kind in ("global", "local"):
+        window = cfg.sliding_window if kind == "local" else 0
+        window = min(window, max_seq) if window else 0
+        c["kv"] = init_cache(cfg, batch, max_seq, window=window, dtype=dtype, device=device)
+    return c
+
+
+def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
+                    device=None) -> list:
+    """One cache dict per layer (the reference stacks them per super-block
+    for its scan)."""
+    return [_layer_cache(cfg, kind, batch, max_seq, dtype, device) for kind in cfg.layer_kinds()]
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+def model_forward(params: ParamDict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  cache: Optional[list] = None, last_only: bool = False):
+    """tokens (B, S) -> logits (B, S, V).  Returns (logits, new_cache)."""
+    kinds = cfg.layer_kinds()
+    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    new_cache = None if cache is None else []
+    for i, lp in enumerate(params["layers"]):
+        x, nc = apply_layer(x, lp, cfg, kinds[i], cfg.is_moe_layer(i),
+                            None if cache is None else cache[i])
+        if cache is not None:
+            new_cache.append(nc)
+    if last_only:
+        x = x[:, -1:]  # prefill: only the last position feeds the LM head
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].to(x.dtype).T
+    else:
+        logits = x @ params["lm_head"]
+    if cfg.final_softcap:
+        logits = softcap(logits.float(), cfg.final_softcap)
+    return logits, new_cache

@@ -11,6 +11,17 @@ the stream dtype) and accumulate in f32, so only the order of the sums
 differs, plus, for K4 on f32 streams, what the two-term TF32 split loses
 (under 2^-22 of each product): a tolerance of 1e-5 relative to
 max(1, max|plain|) holds for f32 and bf16 streams alike.
+
+K8 (flash attention) and its plain version round at the same points (f32
+scores, p rounded to the stream dtype, f32 accumulator) and walk the same
+64-key tiles; the kernel's f32 products run as three TF32 MMAs (what the
+split drops is below 2^-21 of each product), and exp, tanh and the sums run
+in other orders.  f32: within 5e-5 of max(1, max|plain|).  bf16: within
+2^-7 of max(1, max|plain|), since the f32 scores differ in their last bits
+and now and then the two round a p to neighbouring bf16 values, which moves
+that row's outputs by up to 2^-8 * p * |v| / l; and at most 2^-4 of the
+outputs may differ from the plain version's (both round the same f32 output
+once), which a rounding fault such as a truncated p or output exceeds.
 """
 from __future__ import annotations
 
@@ -23,12 +34,26 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.api import Session  # noqa: E402
 from repro_torch.core import gnn  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_sage as fs  # noqa: E402
 from repro_torch.kernels import groot_spmm as gs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
+FLASH_TOL = {torch.float32: 5e-5, torch.bfloat16: 2**-7}
+FLASH_OFF_SHARE = 2**-4
+
+# (query rows BH, KV rows, S, T, hd, causal, window, softcap)
+FLASH_CASES = [
+    (4, 4, 256, 256, 64, True, 0, 0.0),
+    (8, 2, 300, 300, 128, True, 100, 0.0),     # ragged S/T, window, GQA
+    (4, 4, 128, 512, 128, True, 0, 0.0),       # cross-length (q short)
+    (4, 2, 1000, 1000, 128, True, 0, 0.0),     # ragged causal
+    (2, 1, 384, 384, 256, True, 128, 50.0),    # gemma2 local: hd 256, window, softcap
+    (2, 2, 256, 256, 64, False, 0, 0.0),       # bidirectional
+    (2, 1, 200, 200, 256, False, 0, 20.0),     # bidirectional, ragged T, softcap
+]
 
 # degree mixtures (n, e_t, hd_frac, scale, seed): LD only, HD past a small
 # threshold, deep LD buckets + HD rows at the real threshold, HD-heavy
@@ -107,14 +132,60 @@ def test_kernels_match_plain_versions(cuda, case, groups, dtype):
                    gs.hd_plain(x_p, dp.hd_cols, dp.hd_meta, e_t, w))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_matches_plain_version(cuda, case, dtype):
+    bh, bh_kv, s, t, hd, causal, window, cap = case
+    rng = np.random.default_rng(bh * s + hd)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32).to(cuda, dtype)
+               for shape in ((bh, s, hd), (bh_kv, t, hd), (bh_kv, t, hd)))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, softcap=cap, kv_block=t)
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_plain(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape and torch.isfinite(got).all()
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= FLASH_TOL[dtype] * scale
+    if dtype == torch.bfloat16:
+        assert (got != want).float().mean().item() <= FLASH_OFF_SHARE
+
+
+def test_attention_at_qwen3_width_through_k8(cuda, monkeypatch):
+    """One qwen3-8b layer's attention (32 query heads over 8 KV heads, hd
+    128, qk-norm), f32, past FLASH_THRESHOLD: K8 against the model's plain
+    schedule (threshold raised), within 1e-4 of max(1, max|plain|)."""
+    from repro_torch.zoo.configs import get_config
+    from repro_torch.zoo.configs import base
+    from repro_torch.zoo.models import attention as A
+
+    cfg = get_config("qwen3-8b")
+    gen = torch.Generator(cuda).manual_seed(0)
+    p = base.materialize(base.param_tree(cfg)["layers"][0]["attn"], gen)
+    s = 2100  # s * s just past FLASH_THRESHOLD; 33 query tiles, the last ragged
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device=cuda)
+    before = fa.flash_attention.launches
+    got, _ = A.attention(x, p, cfg)
+    assert fa.flash_attention.launches == before + 1
+    monkeypatch.setattr(A, "FLASH_THRESHOLD", s * s)
+    want, _ = A.attention(x, p, cfg)
+    assert fa.flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
 def test_cuda_wrappers_never_run_the_plain_versions(cuda, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
 
     for mod, name in ((gs, "ld_grouped_plain"), (gs, "hd_grouped_plain"),
                       (gs, "ld_grouped_mxu_plain"), (gs, "ld_bucket_plain"), (gs, "hd_plain"),
-                      (fs, "fused_ld_grouped_plain"), (fs, "fused_ld_plain")):
+                      (fs, "fused_ld_grouped_plain"), (fs, "fused_ld_plain"),
+                      (fa, "flash_plain")):
         monkeypatch.setattr(mod, name, boom)
+    q = torch.randn((4, 80, 64), device=cuda)
+    assert torch.isfinite(fa.flash_attention(q, q[:2], q[:2], window=16)).all()
     src, dst, n, e_t = _graph(MIXTURES[2])
     plan = gs.build_plan(src, dst, n, e_t=e_t)
     x = torch.randn((n, 8), device=cuda)

@@ -1,0 +1,98 @@
+"""K8's plain version against the reference's Pallas flash-attention kernel.
+
+The port's ``flash_attention`` runs its plain version on CPU tensors; the
+reference's runs its Pallas kernel with ``interpret=True``.  The same
+numpy-seeded inputs go through both, over the cases of
+``tests/test_kernels_flash.py``.
+
+Tolerances: f32 within rtol = atol = 2e-5 (the reference's own kernel-vs-
+oracle tolerance; the port walks the keys 64 at a time, the reference
+``kv_block`` at a time, so the running maxima and the sums differ in order).
+bf16, against the reference's kernel in bf16: both round p to bf16 and the
+output to bf16, p against the running max of the tiles seen so far, so with
+other tile widths an output may move by a few bf16 ulps: within 2^-6 of
+max(1, max|ref|).  At the kernel's own tile width (``kv_block=64``) the two
+round at the same points and only f32 summation order differs: within one
+bf16 ulp of the output, 2^-8 of max(1, max|ref|).  The kernel itself is held
+against this plain version on the card in ``tests/test_torch_cuda.py``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import flash_attention as RF  # noqa: E402
+from repro_torch.kernels import flash_attention as TF  # noqa: E402
+
+F32_TOL = 2e-5
+
+
+def _mk(bh, s, t, hd, seed=0, bh_kv=None):
+    rng = np.random.default_rng(seed)
+    bh_kv = bh_kv or bh
+    return (rng.standard_normal((bh, s, hd)).astype(np.float32),
+            rng.standard_normal((bh_kv, t, hd)).astype(np.float32),
+            rng.standard_normal((bh_kv, t, hd)).astype(np.float32))
+
+
+def _both(arrs, bf16=False, **kw):
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32, torch.float32)
+    ref = RF.flash_attention(*(jnp.asarray(a, jdt) for a in arrs), interpret=True, **kw)
+    got = TF.flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrs), **kw)
+    assert got.dtype == tdt and tuple(got.shape) == ref.shape
+    return got.float().numpy(), np.asarray(ref, np.float32)
+
+
+@pytest.mark.parametrize("s,t,qb,kb", [
+    (256, 256, 128, 128),
+    (300, 300, 128, 128),   # padding path
+    (128, 512, 64, 128),    # cross-length (q short)
+])
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_causal_matches_reference(s, t, qb, kb, window):
+    got, want = _both(_mk(4, s, t, 64), causal=True, window=window, q_block=qb, kv_block=kb)
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_flash_bidirectional_matches_reference():
+    got, want = _both(_mk(2, 256, 256, 64), causal=False, q_block=128, kv_block=128)
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_flash_softcap_matches_reference():
+    got, want = _both(_mk(2, 128, 128, 32, seed=3), softcap=20.0, q_block=64, kv_block=64)
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("kv_block,tol", [(128, 2**-6), (64, 2**-8)])
+def test_flash_bf16_matches_reference(kv_block, tol):
+    got, want = _both(_mk(2, 256, 256, 64, seed=5), bf16=True, q_block=128, kv_block=kv_block)
+    assert np.abs(got - want).max() <= tol * max(1.0, np.abs(want).max())
+
+
+def test_flash_bidirectional_ragged_raises_as_reference():
+    q, k, v = _mk(2, 64, 100, 64)
+    with pytest.raises(ValueError, match="T % kv_block"):
+        RF.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+                           kv_block=64)
+    with pytest.raises(ValueError, match="T % kv_block"):
+        TF.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                           causal=False, kv_block=64)
+
+
+def test_flash_gqa_kv_rows_equal_broadcast():
+    """k/v passed once per KV head give the broadcast k/v's result; the CPU
+    path launches nothing."""
+    q, k, v = (torch.from_numpy(a) for a in _mk(8, 96, 96, 64, seed=2, bh_kv=2))
+    before = TF.flash_attention.launches
+    got = TF.flash_attention(q, k, v, window=40, softcap=30.0)
+    want = TF.flash_attention(q, k.repeat_interleave(4, 0), v.repeat_interleave(4, 0),
+                              window=40, softcap=30.0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert TF.flash_attention.launches == before
+    with pytest.raises(ValueError, match="KV rows"):
+        TF.flash_attention(q, torch.cat([k, k[:1]]), torch.cat([v, v[:1]]))
