@@ -30,7 +30,12 @@ Phases (any failure raises and the script exits non-zero):
               ``groot_mxu`` and ``groot_fused``, then ``ref`` (no kernel).
               Verdicts must equal ``ref``'s and predictions may differ on at
               most 1e-5 of the nodes.
- 7. serve     K8 (flash attention) against its plain version, f32 and bf16,
+ 7. serve     K8 (flash attention): the compiler's report for the wgmma
+              body (registers, shared memory, spills from ``-Xptxas=-v``)
+              and, where ``cuobjdump`` exists, the counts of its HGMMA and
+              UTMALDG opcodes (none fails).  K8 against its plain version at
+              the key tile of the body each (dtype, hd) takes (``wgmma`` for
+              bf16, ``mma_sync`` for f32), f32 and bf16,
               at (a) qwen3-8b prefill (B=4, 32 query heads over 8 KV heads,
               S=T=4096, hd=128, causal), (b) a gemma2-9b local layer (hd=256,
               S=T=8192, window 4096, softcap 50), (c) bidirectional hd=64
@@ -41,7 +46,8 @@ Phases (any failure raises and the script exits non-zero):
               max_seq=4129)`` at full width and depth (36 layers, weights
               from a seeded generator on the card, fan-in scaled, bf16)
               serves 8 numpy-seeded 4,096-token prompts, 32 new tokens each:
-              36 K8 launches per prefill, every token < vocab, every logit
+              36 K8 launches per prefill, all on the wgmma body, every
+              token < vocab, every logit
               finite; prefill and per-token decode times, tokens/s, peak
               memory.  The first batch's prefill runs again on the model's
               plain schedule (``FLASH_THRESHOLD`` raised: no K8 launch), and
@@ -94,7 +100,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 F32_MMAS = 3
 # K8 against its plain version, which rounds at the same points and walks the
-# same 64-key tiles: |kernel - plain| <= FLASH_TOL * max(1, max|plain|).
+# same key tiles (``key_tile``: 128 keys on the bf16 wgmma body, 64 at hd 256
+# and on the f32 mma_sync body): |kernel - plain| <= FLASH_TOL * max(1,
+# max|plain|).
 # f32: the kernel's three-TF32 products (split error under 2^-21 of each),
 # exp/tanh ulps and sums over up to 8192 keys in other orders.  bf16: the two
 # sides' f32 scores differ in their last bits, so now and then they round a
@@ -222,6 +230,47 @@ def attended_pairs(s: int, t: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def k8_build_report() -> dict:
+    """What the compiler made of K8's wgmma body: each instantiation's
+    registers, spills and shared memory (``-Xptxas=-v``), and the counts of
+    the HGMMA (wgmma) and UTMALDG (TMA load) opcodes in the library's SASS
+    where ``cuobjdump`` exists; fails if either count is 0."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+
+    report: dict = {"ptxas": {}}
+    entry = None
+    for line in build.build_log("flash_attention").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else None
+        elif entry and "flash_wgmma_kernel" in entry and (
+                "registers" in line or "spill" in line or "smem" in line):
+            hd = re.search(r"flash_wgmma_kernelILi(\d+)E", entry)
+            report["ptxas"].setdefault(f"hd{hd.group(1) if hd else '?'}", []).append(
+                " ".join(line.replace("ptxas info    :", "").split()))
+    for hd, lines in sorted(report["ptxas"].items()):
+        log(f"k8 wgmma body {hd}: {'; '.join(lines)}")
+    for hd in (64, 128, 256):
+        smem = build.library("flash_attention").flash_wgmma_smem(hd)
+        report.setdefault("dynamic_smem_bytes", {})[f"hd{hd}"] = smem
+    log(f"k8 wgmma body dynamic shared memory (bytes): {json.dumps(report['dynamic_smem_bytes'])}")
+    nvcc_dir = Path(build.nvcc()).parent
+    cuobjdump = shutil.which("cuobjdump") or str(nvcc_dir / "cuobjdump")
+    if Path(cuobjdump).exists():
+        sass = subprocess.run([cuobjdump, "-sass", str(build.library_path("flash_attention"))],
+                              capture_output=True, text=True, check=True).stdout
+        report["sass_counts"] = {op: len(re.findall(rf"\b{op}\b", sass))
+                                 for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        log(f"k8 SASS opcodes (cuobjdump): {json.dumps(report['sass_counts'])}")
+        if not report["sass_counts"]["HGMMA"] or not report["sass_counts"]["UTMALDG"]:
+            fail(f"K8's library holds no wgmma or no TMA load: {report['sass_counts']}")
+    else:
+        log("k8 SASS opcodes: no cuobjdump beside nvcc, not counted")
+    return report
+
+
 def flash_phase(args, dev, k8: dict) -> dict:
     """K8 against its plain version at the FLASH_SHAPES, f32 and bf16; times
     beside the bound and SDPA; K8 alone at prefill_32k's length."""
@@ -230,6 +279,7 @@ def flash_phase(args, dev, k8: dict) -> dict:
 
     from repro_torch.kernels import flash_attention as fa
 
+    build_report = k8_build_report()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows = []
     for label, b, h, kvh, s, hd, causal, window, cap in FLASH_SHAPES:
@@ -238,20 +288,24 @@ def flash_phase(args, dev, k8: dict) -> dict:
             k = torch.randn((b * kvh, s, hd), generator=gen, device=dev).to(dtype)
             v = torch.randn((b * kvh, s, hd), generator=gen, device=dev).to(dtype)
             kw = dict(causal=causal, window=window, softcap=cap)
+            body, tile = fa.BODIES[(dtype, hd)], fa.key_tile(dtype, hd)
 
             def run():
                 return fa.flash_attention(q, k, v, kv_block=s, **kw)
 
             def plain():
-                return fa.flash_plain(q, k, v, **kw)
+                return fa.flash_plain(q, k, v, kv_tile=tile, **kw)
 
+            before = dict(fa.flash_attention.body_launches)
             got = run()
-            want32 = fa.flash_plain(q, k, v, out_dtype=torch.float32, **kw)
+            if fa.flash_attention.body_launches[body] != before[body] + 1:
+                fail(f"flash_attention {label} {tag}: not launched on its {body} body")
+            want32 = fa.flash_plain(q, k, v, out_dtype=torch.float32, kv_tile=tile, **kw)
             want = want32.to(dtype)
             torch.cuda.synchronize()
             par = flash_parity(got, want, tag)
             ok = bool(torch.isfinite(got).all()) and par["ok"]
-            what = f"{label} BH={b * h}/{b * kvh} S=T={s} hd={hd} {tag}"
+            what = f"{label} BH={b * h}/{b * kvh} S=T={s} hd={hd} {tag} {body}/{tile}"
             reading = f"tol {par['limit']:.3e}"
             if tag == "bf16":  # the check must see a planted rounding fault
                 planted = flash_parity(bf16_truncated(want32), want, tag)
@@ -298,10 +352,13 @@ def flash_phase(args, dev, k8: dict) -> dict:
     q = torch.randn((b * h, s, hd), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((b * kvh, s, hd), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((b * kvh, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+    before = fa.flash_attention.body_launches["wgmma"]
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         fail("flash_attention at S=T=32768: non-finite output")
+    if fa.flash_attention.body_launches["wgmma"] != before + 1:
+        fail("flash_attention at S=T=32768: not launched on the wgmma body")
     del out
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 3)
     ks = k.view(b, kvh, s, hd).repeat_interleave(h // kvh, 1)
@@ -316,10 +373,10 @@ def flash_phase(args, dev, k8: dict) -> dict:
         f"bound {long['bound_ms']:.3f} ms (operations), {long['tflops']:.1f} TFLOP/s")
     del q, k, v, ks, vs
     torch.cuda.empty_cache()
-    return dict(shapes=rows, prefill_32k=long)
+    return dict(build=build_report, shapes=rows, prefill_32k=long)
 
 
-def serve_phase(args, dev, drive, launches: dict) -> dict:
+def serve_phase(args, dev, drive, launches: dict, bodies: dict) -> dict:
     """The main path: qwen3-8b served through BatchServer at full width and
     depth, K8 on every prefill layer; then the first batch's prefill on the
     plain schedule and in f32."""
@@ -412,6 +469,11 @@ def serve_phase(args, dev, drive, launches: dict) -> dict:
     if used.get("flash_attention", 0) != cfg.num_layers * n_prefill or len(used) != 1:
         fail(f"serve: launches {used}, expected flash_attention {cfg.num_layers} per prefill "
              f"x {n_prefill} prefills and no other kernel")
+    rep["k8_body_launches"] = body = bodies["serve qwen3-8b"]
+    log(f"serve qwen3-8b: K8 launches by body {json.dumps(body)}")
+    if body != {"wgmma": cfg.num_layers * n_prefill, "mma_sync": 0}:
+        fail(f"serve: K8 launches by body {body}, expected all {cfg.num_layers * n_prefill} "
+             f"on the wgmma body")
     if out.shape != (SERVE_REQUESTS, SERVE_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
         fail(f"serve: tokens of shape {out.shape} in [{out.min()}, {out.max()}]")
     if not bool(finite):
@@ -751,18 +813,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches: dict = {}
+    bodies: dict = {}
 
     def drive(path, fn):
-        """Run one path with every launch count set to 0 just before it;
-        record the counts just after."""
+        """Run one path with every launch count (and K8's per body) set to 0
+        just before it; record the counts just after."""
         for k in kernels.values():
             k["fn"].launches = 0
+        fa.flash_attention.body_launches = dict.fromkeys(fa.flash_attention.body_launches, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[path] = {kn: k["fn"].launches for kn, k in kernels.items()}
+        bodies[path] = dict(fa.flash_attention.body_launches)
         return out, wall
 
     # -- 4. the paper's single SpMM, both directions ----------------------------
@@ -905,7 +970,7 @@ def main() -> int:
     del pairs, x32, x32p, x0, src, dst, inv, slot, wg_in, wg_out, w_rand
     torch.cuda.empty_cache()
     report["flash"] = flash_phase(args, dev, kernels["flash_attention"])
-    report["serve"] = serve_phase(args, dev, drive, launches)
+    report["serve"] = serve_phase(args, dev, drive, launches, bodies)
 
     total = {kn: sum(counts[kn] for counts in launches.values()) for kn in kernels}
     report["launches"] = launches

@@ -8,8 +8,10 @@ the stream travel as ``c_void_p``; each C entry point returns
 Libraries are built at first use from the checkout's own sources into
 ``build/`` at the repository root, named by the hash of their source and the
 shared headers, so an edited kernel is always rebuilt and an unchanged one
-never is.  Nothing is
-built or loaded at import time: the CPU tests import every module.
+never is.  The compiler's report (``-Xptxas=-v``: registers, shared memory
+and spills of each kernel) is kept beside each library (:func:`build_log`).
+Nothing is built or loaded at import time: the CPU tests import every
+module.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -53,9 +55,11 @@ SIGNATURES = {
     },
     "flash_attention": {
         # q, k, v, o, bh, s, t, hd, group, causal, window, scale, softcap,
-        # bf16, stream
+        # bf16, body, stream
         "flash_attention": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _F32,
-                            _F32, _I32, _P),
+                            _F32, _I32, _I32, _P),
+        # hd -> dynamic shared memory of one wgmma-body block
+        "flash_wgmma_smem": (_I32,),
     },
 }
 
@@ -100,10 +104,18 @@ def build(names=tuple(SIGNATURES)) -> dict[str, Path]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {n}.cu (exit {proc.returncode}):\n{out}")
         else:
+            paths[n].with_suffix(".log").write_text(out)
             os.replace(tmp, paths[n])  # atomic: a concurrent loader never sees half a file
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def build_log(name: str) -> str:
+    """The compiler's output from building one source's library ("" when the
+    library was built elsewhere)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -12,14 +12,18 @@ f32 or bf16, output (BH, S, hd) in q's dtype, the ``ValueError`` for a
 bidirectional call with ``T % kv_block != 0``.  GQA callers may also pass k/v
 once per KV head, (BH / G, T, hd): query row ``bh`` then reads KV row
 ``bh // G``.  ``q_block``/``kv_block`` keep the reference's signature and
-its check; the kernel tiles by 64 query rows x ``KV_TILE`` keys.  Key positions past
+its check; the kernel tiles the keys by :func:`key_tile`.  Key positions past
 T are masked, where the reference pads them with zeros that stay visible to
 query rows past T (S > T, causal); the two agree for S <= T.
 
-On a CPU tensor the wrapper runs :func:`flash_plain`, which follows the
-kernel's rounding points and walks the keys in the kernel's tile width; on a
-CUDA tensor it launches the kernel or raises.  ``flash_attention.launches``
-counts the launches.
+Two bodies (``BODIES``): bf16 streams run the ``wgmma`` body (warpgroup
+MMAs fed by a TMA ring, 128 query rows by 128 keys, 64 keys at hd = 256),
+f32 streams the ``mma_sync`` body (three TF32 MMAs per product, 64 query
+rows by 64 keys).  On a CPU tensor the wrapper runs :func:`flash_plain`,
+which follows the kernel's rounding points and walks the keys in the tile
+of the body that (dtype, hd) takes; on a CUDA tensor it launches the kernel
+or raises.  ``flash_attention.launches`` counts the launches,
+``flash_attention.body_launches`` the launches of each body.
 """
 from __future__ import annotations
 
@@ -31,23 +35,40 @@ from repro_torch.kernels import build
 from repro_torch.kernels.groot_spmm import on_cuda, stream
 
 NEG_INF = -1e30
-#: keys per step of one CUDA block (csrc/flash_attention.cu kBN)
-KV_TILE = 64
 HEAD_DIMS = (64, 128, 256)
+#: the kernel body each (dtype, head dim) runs (csrc/flash_attention.cu)
+BODIES = {
+    **{(torch.bfloat16, hd): "wgmma" for hd in HEAD_DIMS},
+    **{(torch.float32, hd): "mma_sync" for hd in HEAD_DIMS},
+}
+#: its C id (the entry point's ``body`` argument)
+BODY_IDS = {"mma_sync": 0, "wgmma": 1}
+
+
+def key_tile(dtype: torch.dtype, hd: int) -> int:
+    """Keys per step of the body that (dtype, hd) takes: the wgmma body's
+    ``Cfg<HD>::kBN`` (128, or 64 at hd = 256), the mma_sync body's ``kBN``
+    (64).  Other dtypes and head dims, which no body takes, walk 64."""
+    if BODIES.get((dtype, hd)) == "wgmma":
+        return 64 if hd == 256 else 128
+    return 64
 
 
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                 window: int = 0, scale: Optional[float] = None, softcap: float = 0.0,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                kv_tile: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of K8 with the Pallas kernel's rounding points:
     scores in f32 from the stream-dtype inputs, the finite ``NEG_INF``
     sentinel, p rounded to v's dtype before the PV product, an f32
     accumulator, ``acc / max(l, 1e-30)`` at the end.  Walks the keys
-    ``KV_TILE`` at a time (the kernel's tile), all query rows at once.
-    ``out_dtype`` (q's by default) set to f32 returns the output before its
-    last rounding, which the card checks hold a bf16 kernel output to."""
+    ``kv_tile`` at a time (by default the tile of the body q's dtype and
+    head dim take), all query rows at once.  ``out_dtype`` (q's by default)
+    set to f32 returns the output before its last rounding, which the card
+    checks hold a bf16 kernel output to."""
     bh, s, hd = q.shape
     t = k.shape[1]
+    tile = kv_tile or key_tile(q.dtype, hd)
     group = bh // k.shape[0]
     if group > 1:
         k = k.repeat_interleave(group, 0)
@@ -58,8 +79,8 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bo
     acc = torch.zeros((bh, s, hd), dtype=torch.float32, device=q.device)
     m = torch.full((bh, s, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((bh, s, 1), dtype=torch.float32, device=q.device)
-    for k0 in range(0, t, KV_TILE):
-        kb, vb = k[:, k0:k0 + KV_TILE], v[:, k0:k0 + KV_TILE]
+    for k0 in range(0, t, tile):
+        kb, vb = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
         sc = torch.bmm(qf, kb.float().transpose(1, 2)) * scale
         if softcap:
             sc = softcap * torch.tanh(sc / softcap)
@@ -107,15 +128,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                              f"and on {q.device}")
     if bh > 65535 or s <= 0 or t <= 0:
         raise ValueError(f"flash_attention: BH={bh} (at most 65535), S={s}, T={t}")
+    # TMA (the wgmma body) needs a 16-byte aligned base: the check above
+    body = BODIES[(q.dtype, hd)]
     out = torch.empty_like(q)
     rc = build.library("flash_attention").flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, t, hd,
         bh // k.shape[0], int(causal), int(window), scale, softcap,
-        int(q.dtype == torch.bfloat16), stream(q),
+        int(q.dtype == torch.bfloat16), BODY_IDS[body], stream(q),
     )
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.body_launches[body] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.body_launches = dict.fromkeys(BODY_IDS, 0)

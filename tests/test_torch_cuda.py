@@ -14,9 +14,10 @@ max(1, max|plain|) holds for f32 and bf16 streams alike.
 
 K8 (flash attention) and its plain version round at the same points (f32
 scores, p rounded to the stream dtype, f32 accumulator) and walk the same
-64-key tiles; the kernel's f32 products run as three TF32 MMAs (what the
-split drops is below 2^-21 of each product), and exp, tanh and the sums run
-in other orders.  f32: within 5e-5 of max(1, max|plain|).  bf16: within
+key tiles (``fa.key_tile``: 64 keys on the f32 mma_sync body, 128 on the
+bf16 wgmma body, 64 there at hd 256); the kernel's f32 products run as
+three TF32 MMAs (what the split drops is below 2^-21 of each product), and
+exp, tanh and the sums run in other orders.  f32: within 5e-5 of max(1, max|plain|).  bf16: within
 2^-7 of max(1, max|plain|), since the f32 scores differ in their last bits
 and now and then the two round a p to neighbouring bf16 values, which moves
 that row's outputs by up to 2^-8 * p * |v| / l; and at most 2^-4 of the
@@ -53,6 +54,20 @@ FLASH_CASES = [
     (2, 1, 384, 384, 256, True, 128, 50.0),    # gemma2 local: hd 256, window, softcap
     (2, 2, 256, 256, 64, False, 0, 0.0),       # bidirectional
     (2, 1, 200, 200, 256, False, 0, 20.0),     # bidirectional, ragged T, softcap
+]
+
+# the bf16 wgmma body's edges: (query rows BH, KV rows, S, T, hd, causal,
+# window, softcap)
+WGMMA_CASES = [
+    (8, 2, 4000, 200, 128, True, 0, 0.0),      # ragged S and T, GQA G=4, S > T
+    (8, 2, 1000, 1000, 128, True, 300, 0.0),   # a window that ends inside a tile
+    (4, 1, 512, 512, 64, True, 0, 30.0),       # softcap, GQA G=4, hd 64
+    (4, 4, 512, 512, 64, False, 0, 0.0),       # bidirectional, hd 64
+    (4, 1, 300, 1000, 128, False, 0, 0.0),     # bidirectional, ragged T, S != T
+    (4, 2, 80, 80, 128, True, 0, 0.0),         # S < 128
+    (2, 1, 100, 100, 256, True, 0, 0.0),       # S < 128, hd 256
+    (2, 2, 640, 640, 256, False, 0, 20.0),     # bidirectional, softcap, hd 256
+    (2, 1, 1000, 1000, 256, True, 200, 50.0),  # gemma2 local, ragged
 ]
 
 # degree mixtures (n, e_t, hd_frac, scale, seed): LD only, HD past a small
@@ -149,6 +164,41 @@ def test_flash_matches_plain_version(cuda, case, dtype):
     assert (got.float() - want.float()).abs().max().item() <= FLASH_TOL[dtype] * scale
     if dtype == torch.bfloat16:
         assert (got != want).float().mean().item() <= FLASH_OFF_SHARE
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_flash_wgmma_body_matches_plain_version(cuda, case):
+    """bf16 runs the wgmma body, held against flash_plain at that body's key
+    tile with the limits of test_flash_matches_plain_version."""
+    bh, bh_kv, s, t, hd, causal, window, cap = case
+    assert fa.BODIES[(torch.bfloat16, hd)] == "wgmma"
+    rng = np.random.default_rng(bh * s + t + hd)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+               .to(cuda, torch.bfloat16)
+               for shape in ((bh, s, hd), (bh_kv, t, hd), (bh_kv, t, hd)))
+    before = dict(fa.flash_attention.body_launches)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, softcap=cap, kv_block=t)
+    assert fa.flash_attention.body_launches == {**before, "wgmma": before["wgmma"] + 1}
+    want = fa.flash_plain(q, k, v, causal=causal, window=window, softcap=cap,
+                          kv_tile=fa.key_tile(torch.bfloat16, hd))
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= FLASH_TOL[torch.bfloat16] * scale
+    assert (got != want).float().mean().item() <= FLASH_OFF_SHARE
+
+
+def test_flash_bodies_by_dtype(cuda):
+    """Every bf16 call at hd 64 and 128 launches the wgmma body, every f32
+    call the mma_sync body."""
+    before = dict(fa.flash_attention.body_launches)
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in (64, 128):
+            q = torch.randn((2, 200, hd), device=cuda).to(dtype)
+            fa.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.body_launches == {
+        "wgmma": before["wgmma"] + 2, "mma_sync": before["mma_sync"] + 2}
 
 
 def test_attention_at_qwen3_width_through_k8(cuda, monkeypatch):

@@ -13,8 +13,10 @@ output to bf16, p against the running max of the tiles seen so far, so with
 other tile widths an output may move by a few bf16 ulps: within 2^-6 of
 max(1, max|ref|).  At the kernel's own tile width (``kv_block=64``) the two
 round at the same points and only f32 summation order differs: within one
-bf16 ulp of the output, 2^-8 of max(1, max|ref|).  The kernel itself is held
-against this plain version on the card in ``tests/test_torch_cuda.py``.
+bf16 ulp of the output, 2^-8 of max(1, max|ref|).  The same holds for
+``flash_plain(kv_tile=128)``, the tile of the bf16 wgmma body at hd 64 and
+128, against the Pallas kernel at ``kv_block=128``.  The kernel itself is
+held against this plain version on the card in ``tests/test_torch_cuda.py``.
 """
 from __future__ import annotations
 
@@ -96,3 +98,40 @@ def test_flash_gqa_kv_rows_equal_broadcast():
     assert TF.flash_attention.launches == before
     with pytest.raises(ValueError, match="KV rows"):
         TF.flash_attention(q, torch.cat([k, k[:1]]), torch.cat([v, v[:1]]))
+
+
+@pytest.mark.parametrize("hd,causal,window", [(64, True, 0), (128, True, 100), (64, False, 0)])
+def test_flash_plain_tile_128_matches_reference_bf16(hd, causal, window):
+    """The wgmma body's 128-key tile: flash_plain walking 128 keys at a time
+    rounds p against the same running maxima as the Pallas kernel at
+    ``kv_block=128``, so only f32 summation order differs."""
+    arrs = _mk(2, 256, 256, hd, seed=7)
+    ref = RF.flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in arrs), causal=causal,
+                             window=window, q_block=128, kv_block=128, interpret=True)
+    want = np.asarray(ref, np.float32)
+    got = TF.flash_plain(*(torch.from_numpy(a).to(torch.bfloat16) for a in arrs), causal=causal,
+                         window=window, kv_tile=128).float().numpy()
+    assert np.abs(got - want).max() <= 2**-8 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("hd", TF.HEAD_DIMS)
+def test_key_tile_follows_the_body(hd):
+    """f32 takes the mma_sync body's 64-key tile at every head dim; bf16 the
+    wgmma body's, 128 keys (64 at hd = 256, where O alone fills 128
+    registers a thread)."""
+    assert TF.BODIES[(torch.float32, hd)] == "mma_sync"
+    assert TF.key_tile(torch.float32, hd) == 64
+    assert TF.BODIES[(torch.bfloat16, hd)] == "wgmma"
+    assert TF.key_tile(torch.bfloat16, hd) == (64 if hd == 256 else 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_path_walks_the_body_tile(dtype):
+    """On the CPU the wrapper is flash_plain at key_tile(dtype, hd), and the
+    tile changes the bf16 result (so the default is not a no-op)."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _mk(2, 200, 200, 128, seed=9))
+    got = TF.flash_attention(q, k, v, window=150)
+    want = TF.flash_plain(q, k, v, window=150, kv_tile=TF.key_tile(dtype, 128))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if dtype == torch.bfloat16:
+        assert not torch.equal(got, TF.flash_plain(q, k, v, window=150, kv_tile=64))
