@@ -6,7 +6,12 @@
 Phases (any failure raises and the script exits non-zero):
 
  1. device    the card's name and power limit (``nvidia-smi``)
- 2. build     the CUDA kernels, compiled from ``src/repro_torch/csrc`` (timed)
+ 2. build     the CUDA kernels, compiled from ``src/repro_torch/csrc`` (timed);
+              the compiler's report for K3's and K4's staged bodies
+              (registers, spills and warnings of each instantiation) and
+              their HGMMA (K3) or HMMA (K4) and LDGSTS counts by
+              ``cuobjdump`` (none fails, as does a grouped instantiation of
+              the bodies they replaced)
  3. parity    every kernel against its plain PyTorch version at the
               csa-<bits> shapes, f32 and bf16 streams, hidden width 32 and
               the 4-wide first layer: K1 grouped LD, K2 grouped HD, K3
@@ -15,7 +20,8 @@ Phases (any failure raises and the script exits non-zero):
               > 1); K5 ungrouped LD (every bucket, with and without a
               weight, VPU and MXU bodies), K6 ungrouped HD, K7 ungrouped
               fused LD (the fanin buckets).  Kernel, plain and library
-              (``torch.sparse.mm``) times by CUDA events.
+              (``torch.sparse.mm``) times by CUDA events; K3's and K4's bf16
+              times at F=32 beside their f32 times.
  4. spmm      the paper's single SpMM, ``ops.groot_spmm(x, src, dst, n, w)``
               and its transpose, F=32 f32, on ``groot`` and ``groot_mxu``,
               against ``spmm_ref`` and timed beside ``torch.sparse.mm``.
@@ -23,8 +29,13 @@ Phases (any failure raises and the script exits non-zero):
               ``groot_fused``, the per-group forwards ``ops.ungrouped(pair)``
               on ``groot``, ``groot_mxu`` and ``groot_fused``, and ``ref``,
               timed with ``torch.cuda.synchronize()`` around it; logits
-              finite, compared with ``ref``.  ``onehot`` against ``ref`` at
-              csa-32 (its (E, N) one-hot cannot exist at csa-1024).
+              finite, compared with ``ref``.  Every K3 launch of the
+              ``groot_fused`` forward and every K4 launch of the
+              ``groot_mxu`` forward counted (one a bucket a layer); the
+              ``groot``, ``groot_fused`` and ``groot_mxu`` forwards
+              profiled (device time by kernel, idle share).  ``onehot``
+              against ``ref`` at csa-32 (its (E, N) one-hot cannot exist at
+              csa-1024).
  6. main path ``repro_torch.api.Session(params=<groot_csa8.npz>, backend=b)
               .verify(dataset="csa", bits=<bits>)`` for ``groot``,
               ``groot_mxu`` and ``groot_fused``, then ``ref`` (no kernel).
@@ -83,8 +94,10 @@ PEAK_F32_FLOPS = 67e12
 # message-weight product the same way (K1-K3 widen bf16 to f32 exactly, K4-K7
 # round the product to the stream dtype) and accumulate in f32, so only the
 # order of the sums differs (a few f32 ulps over at most 1024 terms of
-# mean-normalised weights), plus what K4's two-term TF32 split of an f32
-# product loses (under 2^-22 of it).
+# mean-normalised weights), plus what the TF32 splits drop: K4's two-term
+# split of an f32 product at most 2^-22 of it, K3's three-term contraction
+# at most 2 * 2^-21 of each aggregate-weight product, which at the model's
+# magnitudes stays far under TOL (tests/test_torch_numerics.py).
 TOL = 1e-5
 MAX_PRED_MISMATCH = 1e-5
 # |logits - ref logits| <= LOGIT_TOL * max(1, max|ref logits|) for every
@@ -99,11 +112,13 @@ ONEHOT_BITS = 32
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 F32_MMAS = 3
+# K3 contracts on the tensor cores as the same three TF32 products, and
+# aggregates with f32 FMAs: its operations are counted at those two rates
 # K8 against its plain version, which rounds at the same points and walks the
 # same key tiles (``key_tile``: 128 keys on the bf16 wgmma body, 64 at hd 256
 # and on the f32 mma_sync body): |kernel - plain| <= FLASH_TOL * max(1,
 # max|plain|).
-# f32: the kernel's three-TF32 products (split error under 2^-21 of each),
+# f32: the kernel's three-TF32 products (split error under 2 * 2^-21 of each),
 # exp/tanh ulps and sums over up to 8192 keys in other orders.  bf16: the two
 # sides' f32 scores differ in their last bits, so now and then they round a
 # p to neighbouring bf16 values, which moves that row's outputs by up to
@@ -236,7 +251,6 @@ def k8_build_report() -> dict:
     the HGMMA (wgmma) and UTMALDG (TMA load) opcodes in the library's SASS
     where ``cuobjdump`` exists; fails if either count is 0."""
     import re
-    import shutil
 
     from repro_torch.kernels import build
 
@@ -256,11 +270,9 @@ def k8_build_report() -> dict:
         smem = build.library("flash_attention").flash_wgmma_smem(hd)
         report.setdefault("dynamic_smem_bytes", {})[f"hd{hd}"] = smem
     log(f"k8 wgmma body dynamic shared memory (bytes): {json.dumps(report['dynamic_smem_bytes'])}")
-    nvcc_dir = Path(build.nvcc()).parent
-    cuobjdump = shutil.which("cuobjdump") or str(nvcc_dir / "cuobjdump")
-    if Path(cuobjdump).exists():
-        sass = subprocess.run([cuobjdump, "-sass", str(build.library_path("flash_attention"))],
-                              capture_output=True, text=True, check=True).stdout
+    funcs = sass_by_function("flash_attention")
+    if funcs:
+        sass = "\n".join(funcs.values())
         report["sass_counts"] = {op: len(re.findall(rf"\b{op}\b", sass))
                                  for op in ("HGMMA", "UTMALDG", "UTMASTG")}
         log(f"k8 SASS opcodes (cuobjdump): {json.dumps(report['sass_counts'])}")
@@ -268,6 +280,91 @@ def k8_build_report() -> dict:
             fail(f"K8's library holds no wgmma or no TMA load: {report['sass_counts']}")
     else:
         log("k8 SASS opcodes: no cuobjdump beside nvcc, not counted")
+    return report
+
+
+# K3's and K4's staged bodies: (library, kernel, its tensor-core opcode)
+STAGED_BODIES = {"fused_ld_grouped": ("fused_sage", "fused_staged_kernel", "HGMMA"),
+                 "ld_grouped_mxu": ("groot_spmm", "ld_onehot_staged_kernel", "HMMA")}
+
+
+def sass_by_function(lib: str) -> dict:
+    """{mangled function name: its SASS text} of one built library, by
+    ``cuobjdump -sass`` (empty where the toolkit has no cuobjdump)."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    cuobjdump = shutil.which("cuobjdump") or str(Path(build.nvcc()).parent / "cuobjdump")
+    if not Path(cuobjdump).exists():
+        return {}
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(lib))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name:
+            funcs[name].append(line)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def staged_build_report() -> dict:
+    """What the compiler made of K3's and K4's staged bodies: each
+    instantiation's registers and spills (``-Xptxas=-v``), the compiler's
+    warnings, and its tensor-core (K3 HGMMA: wgmma; K4 HMMA: mma.sync) and
+    LDGSTS (cp.async) counts in the SASS; fails if an instantiation lacks
+    either, or if a library still holds a grouped instantiation of the bodies
+    they replaced (K7's fused_kernel and K5's ld_mma_kernel remain, at one
+    group)."""
+    import re
+
+    from repro_torch.kernels import build
+
+    pat = re.compile(r"(fused_staged_kernel|ld_onehot_staged_kernel)I(f|13__nv_bfloat16)"
+                     r"Li(\d)ELi(\d+)E(?:Li(\d+)E)?")
+
+    def label(mangled):
+        m = pat.search(mangled)
+        return None if m is None else (
+            f"{'f32' if m.group(2) == 'f' else 'bf16'} G={m.group(3)} F={m.group(4)}"
+            + ("" if m.group(5) is None else f" H%32={m.group(5)}"))
+
+    report: dict = {}
+    for kname, (lib, body, mma) in STAGED_BODIES.items():
+        rep = report[kname] = {"body": body, "ptxas": {}, "sass": {}, "warnings": [
+            line.strip() for line in build.build_log(lib).splitlines() if "warning" in line]}
+        entry = None
+        for line in build.build_log(lib).splitlines():
+            if "Compiling entry function" in line:
+                entry = label(line.split("'")[1]) if "'" in line else None
+            elif entry and ("registers" in line or "spill" in line):
+                rep["ptxas"].setdefault(entry, []).append(
+                    " ".join(line.replace("ptxas info    :", "").split()))
+        funcs = sass_by_function(lib)
+        for name, text in funcs.items():
+            if label(name):
+                rep["sass"][label(name)] = {op: len(re.findall(rf"\b{op}\b", text))
+                                            for op in (mma, "LDGSTS")}
+            old = re.search(r"(fused_kernel|ld_mma_kernel)I(?:f|13__nv_bfloat16)Li(\d)E", name)
+            if old and old.group(2) != "1":
+                fail(f"{lib}: a grouped instantiation of the replaced body remains: {name}")
+        tail = " H%32=0" if mma == "HGMMA" else ""  # the path's H = 32
+        for key in ("f32 G=4 F=32", "f32 G=2 F=32", "f32 G=4 F=4", "bf16 G=4 F=32"):
+            key += tail
+            log(f"{kname} {body} {key}: {'; '.join(rep['ptxas'].get(key, ['no report']))}; "
+                f"SASS {json.dumps(rep['sass'].get(key, 'not counted'))}")
+        log(f"{kname}: compiler warnings for {lib}.cu: {rep['warnings'] or 'none'}")
+        rep["spilled"] = sorted(
+            k for k, lines in rep["ptxas"].items() for x in lines
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", x)))
+        log(f"{kname}: {len(rep['ptxas'])} instantiations, spilling: {rep['spilled'] or 'none'}")
+        if funcs and (not rep["sass"] or any(not c[mma] or not c["LDGSTS"]
+                                             for c in rep["sass"].values())):
+            fail(f"{kname}: an instantiation without {mma} or LDGSTS: {rep['sass']}")
+        if not funcs:
+            log(f"{kname}: no cuobjdump beside nvcc, SASS not counted")
     return report
 
 
@@ -562,6 +659,7 @@ def main() -> int:
         build.library(name)
     report["build_s"] = time.perf_counter() - t0
     log(f"build: {', '.join(p.name for p in paths.values())} in {report['build_s']:.1f} s")
+    report["staged_build"] = staged_build_report()
 
     # -- host stages for the design the main path runs -------------------------
     params_path = ROOT / "src" / "repro_torch" / "data" / "groot_csa8.npz"
@@ -636,8 +734,13 @@ def main() -> int:
         if not ok:
             fail(f"{kname} {what}: max abs error {err:.3e} over {TOL * scale:.3e}")
 
-    def account(kname, what, ms, plain_ms, bytes_, flops, timed):
-        b_ms, by = bound(bytes_, flops)
+    def account(kname, what, ms, plain_ms, bytes_, flops, timed, ops_ms=None):
+        """Log and sum one launch's time beside its bound: the bytes at
+        3.35 TB/s or the operations (``flops`` at the f32 rate, or ``ops_ms``
+        where they run at other rates), whichever takes longer."""
+        t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3 if ops_ms is None else ops_ms
+        b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         kernels[kname]["shapes"].append(dict(
             what=what, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
             bytes=bytes_, flops=flops))
@@ -645,20 +748,22 @@ def main() -> int:
             kernels[kname]["ms"] += ms
             kernels[kname]["plain_ms"] += plain_ms
             kernels[kname]["bound_ms"] += b_ms
-            kernels[kname]["bytes_ms"] += bytes_ / PEAK_BYTES_PER_S * 1e3
-            kernels[kname]["ops_ms"] += flops / PEAK_F32_FLOPS * 1e3
+            kernels[kname]["bytes_ms"] += t_bytes
+            kernels[kname]["ops_ms"] += t_ops
         log(f"time   {kname:17s} {what:44s} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"bound {b_ms:.4f} ms ({by})")
+        return t_bytes
 
-    def check(kname, what, run, plain, bytes_of, flops, timed, reps):
-        """Hold one kernel launch against its plain version, then time both."""
+    def check(kname, what, run, plain, bytes_of, flops, timed, reps, ops_ms=None):
+        """Hold one kernel launch against its plain version, then time both;
+        returns (kernel ms, ms the bytes alone would take)."""
         got = run(None)
         want = plain()
         compare(kname, what, got, want)
         del want
         ms = cuda_ms(lambda: run(got), reps)
         plain_ms = cuda_ms(plain, 2)
-        account(kname, what, ms, plain_ms, bytes_of(got), flops, timed)
+        return ms, account(kname, what, ms, plain_ms, bytes_of(got), flops, timed, ops_ms)
 
     def distinct_row_bytes(cols, x):
         return torch.unique(cols).numel() * x.shape[1] * x.element_size()
@@ -666,6 +771,8 @@ def main() -> int:
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
+    staged_ms = {k: {"f32": 0.0, "bf16": 0.0} for k in STAGED_BODIES}
+    k3_fma_bound_ms = 0.0
     # ungrouped weight streams per direction: one mean-normalised group column
     w_edge = {"fanin": wg_in[:, 0].contiguous(), "fanout": wg_out[:, 0].contiguous()}
     for sdt in (None, torch.bfloat16):
@@ -673,9 +780,11 @@ def main() -> int:
         for x in (x32, x4) if sdt is None else (x32,):
             xs = x if sdt is None else x.to(sdt)
             feat = x.shape[1]
-            # the summary reports hidden 32 with f32 streams
+            # the summary reports hidden 32 with f32 streams; K3's and K4's
+            # bf16 times at F=32 are kept beside them
             timed = sdt is None and feat == 32
             reps = args.reps if timed else 2
+            staged_reps = args.reps if feat == 32 else 2
             for direction, plan in (("fanin", in_plan), ("fanout", out_plan)):
                 sw = staged[("in" if direction == "fanin" else "out", sdt)]
                 w_buckets, w_hd = gs.stage_weight(plan, w_edge[direction], xs.dtype)
@@ -695,11 +804,13 @@ def main() -> int:
                           2.0 * slots * grp * feat, timed, reps)
                     # K4 (the MXU backend sends degree > 1 here)
                     if b.deg > 1:
-                        check("ld_grouped_mxu", what,
-                              lambda o: gs.ld_grouped_mxu_apply(xs, cols, wge, b.deg, out=o),
-                              lambda: gs.ld_grouped_mxu_plain(xs, cols, wge, b.deg),
-                              lambda o: cols_rows + nbytes(wge, cols, o),
-                              2.0 * slots * grp * feat, timed, reps)
+                        ms, _ = check("ld_grouped_mxu", what,
+                                      lambda o: gs.ld_grouped_mxu_apply(xs, cols, wge, b.deg, out=o),
+                                      lambda: gs.ld_grouped_mxu_plain(xs, cols, wge, b.deg),
+                                      lambda o: cols_rows + nbytes(wge, cols, o),
+                                      2.0 * slots * grp * feat, timed, staged_reps)
+                        if feat == 32:
+                            staged_ms["ld_grouped_mxu"][tag] += ms
                     # K5, both bodies, with and without a weight
                     for w in (wb, None):
                         for mxu in (False, True) if b.deg > 1 else (False,):
@@ -714,12 +825,21 @@ def main() -> int:
                                   timed and w is not None and not mxu, reps)
                     if direction == "fanin":
                         # K3 and K7: the fused paths fuse the fanin aggregation
-                        check("fused_ld_grouped", what + f" H={hid}",
-                              lambda o: fs.fused_ld_matmul_grouped(xs, cols, wge, ws, b.deg, out=o),
-                              lambda: fs.fused_ld_grouped_plain(xs, cols, wge, ws, b.deg),
-                              lambda o: cols_rows + nbytes(wge, cols, ws, o),
-                              2.0 * slots * grp * feat + 2.0 * rows * grp * feat * hid,
-                              timed, reps)
+                        agg_flops = 2.0 * slots * grp * feat
+                        mma_flops = 2.0 * rows * grp * feat * hid
+                        ms, t_bytes = check(
+                            "fused_ld_grouped", what + f" H={hid}",
+                            lambda o: fs.fused_ld_matmul_grouped(xs, cols, wge, ws, b.deg, out=o),
+                            lambda: fs.fused_ld_grouped_plain(xs, cols, wge, ws, b.deg),
+                            lambda o: cols_rows + nbytes(wge, cols, ws, o),
+                            agg_flops + mma_flops, timed, staged_reps,
+                            ops_ms=(agg_flops / PEAK_F32_FLOPS
+                                    + mma_flops / (PEAK_TF32_FLOPS / F32_MMAS)) * 1e3)
+                        if feat == 32:
+                            staged_ms["fused_ld_grouped"][tag] += ms
+                        if timed:  # the bound with every operation at the f32 FMA rate
+                            k3_fma_bound_ms += max(
+                                t_bytes, (agg_flops + mma_flops) / PEAK_F32_FLOPS * 1e3)
                         w_mat = ws[0].contiguous()
                         check("fused_ld", f"fanin d={b.deg} R={rows} F={feat} H={hid} {tag} w",
                               lambda o: fs.fused_ld_matmul(xs, cols, w_mat, b.deg, wb, out=o),
@@ -749,6 +869,14 @@ def main() -> int:
                               timed and w is not None, reps)
                 del w_buckets, w_hd
     torch.cuda.empty_cache()
+    report["staged_ms_f32_bf16"] = staged_ms
+    report["k3_f32_fma_bound_ms"] = k3_fma_bound_ms
+    for kn, t in staged_ms.items():
+        log(f"{kn} at F=32, summed over its buckets of one layer: f32 {t['f32']:.4f} ms, "
+            f"bf16 {t['bf16']:.4f} ms")
+    log(f"fused_ld_grouped bound: {kernels['fused_ld_grouped']['bound_ms']:.4f} ms "
+        f"(contraction at {PEAK_TF32_FLOPS / F32_MMAS / 1e12:.0f} TFLOP/s); with every "
+        f"operation at the f32 FMA rate, as before: {k3_fma_bound_ms:.4f} ms")
 
     # library yardstick: one torch.sparse.mm over a (G*N, N) CSR computing
     # the same (grouped) sums (cuSPARSE; the port never calls it)
@@ -895,6 +1023,23 @@ def main() -> int:
             f"launches {json.dumps(used)}")
     if launches["forward ungrouped groot_fused"]["fused_ld"] <= 0:
         fail("the per-group groot_fused forward did not launch K7")
+    # every K3 launch of the groot_fused forward and every K4 launch of the
+    # groot_mxu forward is one of the staged body (the only body each has):
+    # one per fanin bucket (K3), one per bucket of degree > 1 (K4), a layer
+    n_layers = len(model.layers)
+    expect = {
+        "fused_ld_grouped": ("forward groot_fused", n_layers * len(in_plan.buckets)),
+        "ld_grouped_mxu": ("forward groot_mxu", n_layers * sum(
+            b.deg > 1 for b in in_plan.buckets + out_plan.buckets)),
+    }
+    report["staged_launches"] = {}
+    for kn, (path, n_expect) in expect.items():
+        got = launches[path][kn]
+        body = STAGED_BODIES[kn][1]
+        report["staged_launches"][kn] = {"path": path, body: got, "expected": n_expect}
+        log(f"{path}: {kn} launches by body {{{body}: {got}}} (a bucket a layer: {n_expect})")
+        if got != n_expect:
+            fail(f"{path}: {got} launches of {kn}, expected {n_expect}")
     if any(launches["forward ref"].values()):
         fail(f"the ref forward launched kernels: {launches['forward ref']}")
     # where one groot forward's device time goes (kernel names by self time)
@@ -903,6 +1048,10 @@ def main() -> int:
         "groot forward",
         lambda: gnn.forward(model, x0, src, dst, inv, slot, num_nodes=n, agg=pairs["groot"]))
     report["forward_peak_bytes_groot"] = torch.cuda.max_memory_allocated()
+    for b in ("groot_fused", "groot_mxu"):  # where K3's and K4's forwards spend theirs
+        _, report[f"forward_profile_{b}"] = device_profile(
+            f"{b} forward",
+            lambda: gnn.forward(model, x0, src, dst, inv, slot, num_nodes=n, agg=pairs[b]))
     report["forward_ms"] = fwd
     max_logit_diff = {b: (logits[b] - logits["ref"]).abs().max().item()
                       for b in aggs if b != "ref"}

@@ -76,7 +76,7 @@
 // The mma.sync body (f32 streams) keeps f32 scores on the tensor cores: one
 // block of 4 warps per (bh, 64-row query tile) loops over 64-key tiles; each
 // product runs as three m16n8k8 TF32 MMAs (high x high, high x residual,
-// residual x high; what the split drops is below 2^-21 of each product).
+// residual x high; what the split drops is under 2 * 2^-21 of each product).
 // The tiles are staged by 16-byte loads, p goes through shared memory (row
 // strides padded by 16 bytes), and the query tiles run in reverse for causal
 // calls.  Shared memory: 217 KB at hd = 256.
@@ -84,6 +84,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -94,16 +96,8 @@ constexpr int kBM = kWarps * 16;  // query rows per block (16 per warp)
 constexpr int kBN = 64;           // keys per step
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ uint32_t tf32_bits(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// mma.sync fragments (PTX ISA, "Matrix fragments for mma.m16n8k8"):
-// lane = 4 * gid + tig; A rows gid and gid + 8; B column gid;
-// C c0, c1 at (gid, 2 tig + {0, 1}) and c2, c3 at (gid + 8, 2 tig + {0, 1}).
-// Every load reads shared memory at a tile's origin with row stride ld.
+// mma.sync fragments as in mma.cuh.  Every load reads shared memory at a
+// tile's origin with row stride ld.
 template <typename T>
 struct Mma;
 
@@ -116,8 +110,7 @@ struct Mma<float> {
   struct A { uint32_t hi[4], lo[4]; };
   struct B { uint32_t hi[2], lo[2]; };
   static __device__ __forceinline__ void split(uint32_t& hi, uint32_t& lo, float x) {
-    hi = tf32_bits(x);
-    lo = tf32_bits(x - __uint_as_float(hi));
+    groot::split_tf32(x, hi, lo);
   }
   // A (16 x 8), row-major: a0 (gid, tig) a1 (gid + 8, tig) a2 (gid, tig + 4) a3 (gid + 8, tig + 4)
   static __device__ __forceinline__ void load_a(A& a, const T* s, int ld, int gid, int tig) {
@@ -137,11 +130,7 @@ struct Mma<float> {
   }
   static __device__ __forceinline__ void mma1(float (&c)[4], const uint32_t (&a)[4],
                                               const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    groot::mma_tf32(c, a, b[0], b[1]);
   }
   static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
     mma1(c, a.lo, b.hi);  // small terms first
@@ -359,10 +348,6 @@ struct Cfg {
   static constexpr size_t kSmem = 1024 + kQBytes + kStages * kStageBytes + kBarrierBytes;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
@@ -408,31 +393,13 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
       : "memory");
 }
 
-// A wgmma shared-memory operand in the 128-byte swizzle.  K-major (Q, K):
-// rows 128 bytes apart, 8-row groups 1,024 apart (SBO), the leading offset
-// unused; a k16 step moves the start 32 bytes along the row.  MN-major (V):
-// 8-row groups along k 1,024 apart (SBO), 64-column panels along n LBO apart.
+// A wgmma shared-memory operand in the 128-byte swizzle (groot::smem_desc).
+// K-major (Q, K): rows 128 bytes apart, 8-row groups 1,024 apart (SBO), the
+// leading offset unused; a k16 step moves the start 32 bytes along the row.
+// MN-major (V): 8-row groups along k 1,024 apart (SBO), 64-column panels
+// along n LBO apart.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// Keep the compiler from moving reads or writes of an accumulator across the
-// asynchronous wgmma that owns it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-// The same for A fragments, which a register-sourced wgmma reads until it
-// completes.
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  return groot::smem_desc(addr, lbo, sbo, groot::kSwizzle128);
 }
 
 // Named barriers between the two consumer warpgroups (256 threads): one
@@ -444,20 +411,6 @@ __device__ __forceinline__ void turn_sync(int id) {
 __device__ __forceinline__ void turn_arrive(int id) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(2 * kWgThreads) : "memory");
 }
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-#define WG_D4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define WG_D16(d, i) WG_D4(d, i), WG_D4(d, i + 4), WG_D4(d, i + 8), WG_D4(d, i + 12)
-#define WG_D32(d) WG_D16(d, 0), WG_D16(d, 16)
-#define WG_D64(d) WG_D32(d), WG_D16(d, 32), WG_D16(d, 48)
-#define WG_D128(d) WG_D64(d), WG_D16(d, 64), WG_D16(d, 80), WG_D16(d, 96), WG_D16(d, 112)
 
 // wgmma m64nNk16, f32 += bf16 x bf16.  ss (S = Q K^T, N = the key tile): A
 // (64 x 16) and B (16 x N) both K-major in shared memory, scale_d == 0 drops
@@ -639,7 +592,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const uint32_t sq = smem_addr(smem);           // Q panels (kBM rows each)
+  const uint32_t sq = groot::smem_u32(smem);           // Q panels (kBM rows each)
   const uint32_t skv = sq + C::kQBytes;          // stage st: K, then V
   const uint32_t bar = skv + kStages * C::kStageBytes;
   // q_full, then per stage: K full, V full, K empty, V empty
@@ -748,9 +701,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         Wgmma<HD>::rs(o, pa[ks], desc(vb + ks * 16 * kRow, BN * kRow, 1024));
     };
     auto fence_all = [&]() {
-      fence_regs(sc);
-      fence_regs(o);
-      fence_regs(pa);
+      groot::fence_regs(sc);
+      groot::fence_regs(o);
+      groot::fence_regs(pa);
     };
     // the online softmax of tile kt, O rescaled, P rounded to bf16; only tiles
     // past T or across the diagonal or the window edge of the block's rows
@@ -787,11 +740,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       mbar_wait(k_full(st), phase);
       turn_sync(kTurn + cw);
       fence_all();
-      wg_fence();
+      groot::wgmma_fence();
       gemm_s(st);
-      wg_commit();
+      groot::wgmma_commit();
       turn_arrive(kTurn + 1 - cw);
-      wg_wait_all();
+      groot::wgmma_wait<0>();
       fence_all();
       if (lane == 0) mbar_arrive(k_empty(st));
       softmax(kt_begin);
@@ -806,12 +759,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         mbar_wait(v_full(pst), pphase);
         turn_sync(kTurn + cw);
         fence_all();
-        wg_fence();
+        groot::wgmma_fence();
         gemm_s(st);
         gemm_pv(pst);
-        wg_commit();
+        groot::wgmma_commit();
         turn_arrive(kTurn + 1 - cw);
-        wg_wait_all();
+        groot::wgmma_wait<0>();
         fence_all();
         if (lane == 0) {
           mbar_arrive(k_empty(st));
@@ -822,11 +775,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       mbar_wait(v_full(st), phase);  // the last tile's P V
       turn_sync(kTurn + cw);
       fence_all();
-      wg_fence();
+      groot::wgmma_fence();
       gemm_pv(st);
-      wg_commit();
+      groot::wgmma_commit();
       if (cw == 0) turn_arrive(kTurn + 1);  // balances warpgroup 1's first arrive
-      wg_wait_all();
+      groot::wgmma_wait<0>();
       fence_all();
       if (lane == 0) mbar_arrive(v_empty(st));
     }

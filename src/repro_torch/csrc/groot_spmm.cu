@@ -10,15 +10,16 @@
 //    edges come as consecutive e_t-edge chunks.
 // K4 groot_ld_grouped_mxu replaces src/repro/kernels/groot_spmm.py:
 //    _ld_kernel_grouped_mxu (ld_grouped_apply(mxu=True) for d > 1): the K1 sum
-//    as G one-hot block-diagonal (16, 16*d) @ (x[cols] * wg[:, g]) products on
-//    the tensor cores, each product x * w rounded to the stream dtype first.
+//    as one-hot block-diagonal (16, 16*d) @ (x[cols] * wg) products on the
+//    tensor cores, each product x * w rounded to the stream dtype first.
 //
 // Ungrouped walks (an optional per-slot weight w; the product x * w is taken
 // in the stream dtype, as the reference pre-weights its messages):
 // K5 groot_ld_bucket / groot_ld_bucket_mxu replace
 //    src/repro/kernels/groot_spmm.py:_ld_kernel and :_ld_kernel_mxu (launched
 //    by ld_bucket_apply):  out[r, :] = sum_{k<d} x[cols[r*d+k], :] (* w[r*d+k]).
-//    The VPU body is K1's code at one group; the MXU body is K4's.
+//    The VPU body is K1's code at one group; the MXU body a one-hot
+//    tensor-core walk like K4's.
 // K6 groot_hd replaces src/repro/kernels/groot_spmm.py:_hd_kernel (launched by
 //    hd_apply): K5's sum over an HD row's chunks; K2's code at one group.
 //
@@ -29,7 +30,8 @@
 // bucket touches, the staged weights, the column indices and the f32 output,
 // each moved once, at 3.35 TB/s.  K4's one-hot products do 16x more tensor
 // core work than the sums need (a (16, 16*d) operand of which 1/16 is ones),
-// still far under the tensor cores' rate (495 TFLOP/s TF32, 989 bf16).
+// still far under the tensor cores' rate (495 TFLOP/s TF32, 989 bf16), so
+// what K4 reads decides its time: each slot's index, weights and x row once.
 //
 // What the design does about it:
 //  * The gather is fused.  On the TPU, x[cols] is an XLA gather that writes
@@ -49,18 +51,31 @@
 //    over.  One block owns one HD row and loops over all of its chunks; its
 //    warps stride over the row's edges and reduce through shared memory in a
 //    fixed order.  No atomics, so the result is deterministic.
-//  * K4: one warp owns a 16-row tile and issues mma.sync per 8-feature column
-//    tile and per k-step of the tile's 16*d slots; the one-hot operand A is
-//    made in registers from the slot index (no memory), the weighted messages
-//    B are loaded straight into the fragment registers (no shared memory).
-//    bf16 streams: one m16n8k16 bf16 MMA per step.  f32 streams: the tensor
-//    cores take TF32 (11 significant bits), so each product is split into a
-//    TF32 high part and a TF32 residual and both go through an m16n8k8 MMA;
-//    the one-hot A is exact in TF32.  What the split loses is below 2^-22 of
-//    each product.
+//  * K4 (ld_onehot_staged_kernel): each warp walks 16-row tiles
+//    (persistent grid, 8 warps a block) and reads every slot once: the
+//    gather runs through a cp.async ring in the warp's shared memory
+//    (staged.cuh), a chunk's indices and G weights (one 16-byte copy for
+//    G = 4 f32) two chunks ahead, its x rows (all F features, 16-byte copies)
+//    one chunk ahead, so the next chunk's gather is in flight while this one
+//    runs its products.  One product a k-step serves every group: B is the G
+//    groups' weighted messages side by side (N = G*F = 128 at the model's
+//    width), built from the staged rows with each product x * w rounded to
+//    the stream dtype, and split on f32 streams into a TF32 high part and a
+//    TF32 residual (two m16n8k8 TF32 MMAs; bf16 streams one m16n8k16 bf16
+//    MMA).  The one-hot A is exact and made in registers from the slot's
+//    tile row by a shift (d is a power of two: no division).  Staged rows
+//    are XOR-permuted by the reading slot's lane so that B's loads are free
+//    of bank conflicts.  What the split loses is at most 2^-22 of each
+//    product.
+//  * K5's MXU body (ld_mma_kernel) keeps that first design at one group:
+//    one warp owns a 16-row tile and issues mma.sync per 8-feature column
+//    tile and per k-step of the tile's 16*d slots, the one-hot A made in
+//    registers from the slot index, the weighted messages loaded straight
+//    into the fragment registers.
 // Accumulation is f32 for f32 and bf16 streams alike.  All offsets are int64
 // (G * rows * F passes 2^31 for batches of the largest designs).
-#include "common.cuh"
+#include "mma.cuh"
+#include "staged.cuh"
 
 namespace {
 
@@ -68,7 +83,7 @@ using groot::kWarp;
 
 constexpr int kLdWarps = 8;   // destination rows per LD block (one per warp)
 constexpr int kHdWarps = 8;   // warps sharing one HD row
-constexpr int kMmaWarps = 4;  // 16-row tiles per K4 block (one per warp)
+constexpr int kMmaWarps = 4;  // 16-row tiles per K5 MXU block (one per warp)
 constexpr int kTileRows = 16;
 
 // K1 (kWeighted, !kRound) and K5's VPU body (G = 1, kRound).
@@ -147,7 +162,7 @@ hd_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
   }
 }
 
-// --- K4 / K5's MXU body: tensor-core one-hot reduction ----------------------
+// --- K5's MXU body (and the fragment shapes K4 shares) -----------------------
 
 // mma.sync shapes: f32 streams run m16n8k8 TF32, bf16 streams m16n8k16 bf16.
 // A lane holds kPer slots of each k-step: its B rows, which are also its A
@@ -175,50 +190,21 @@ struct Mma<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ uint32_t tf32_bits(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
 // One k-step's MMAs for one group: A is the one-hot fragment, p the lane's
 // kPer weighted messages (its B fragment before packing).
 __device__ __forceinline__ void mma_step(float (&c)[4], const uint32_t (&a)[4],
                                          const float (&p)[2]) {
   // TF32 high part, then the residual (exact in f32) rounded to TF32
-  const uint32_t h0 = tf32_bits(p[0]), h1 = tf32_bits(p[1]);
-  const uint32_t l0 = tf32_bits(p[0] - __uint_as_float(h0));
-  const uint32_t l1 = tf32_bits(p[1] - __uint_as_float(h1));
-  mma_tf32(c, a, h0, h1);
-  mma_tf32(c, a, l0, l1);
+  uint32_t h0, h1, l0, l1;
+  groot::split_tf32(p[0], h0, l0);
+  groot::split_tf32(p[1], h1, l1);
+  groot::mma_tf32(c, a, h0, h1);
+  groot::mma_tf32(c, a, l0, l1);
 }
 
 __device__ __forceinline__ void mma_step(float (&c)[4], const uint32_t (&a)[4],
                                          const __nv_bfloat16 (&p)[4]) {
-  mma_bf16(c, a, pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]));
+  groot::mma_bf16(c, a, groot::pack_bf16(p[0], p[1]), groot::pack_bf16(p[2], p[3]));
 }
 
 // out[g, r, :] = sum over the slots k of row r of (x[cols[k]] * wg[k, g]),
@@ -298,6 +284,125 @@ ld_mma_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
   }
 }
 
+// --- K4: staged gather, one pass per tile, all groups in one product ---------
+
+constexpr int kOneHotWarps = 8;  // warps a block, each with its own ring
+
+// K4's B has N = G*F columns, group-major.  Lane column gid of n-tile nt:
+//   F >= 8: group nt / (F/8), feature 8 * (nt % (F/8)) + gid (x value j = nt % (F/8));
+//   F == 4: column 8 nt + gid: group 2 nt + gid / 4, feature gid % 4 (x value 0).
+// Its C columns 2 tig, 2 tig + 1 sit at the same group and consecutive features.
+template <int G, int F>
+struct OneHotShape {
+  static_assert(F == 4 || F == 8 || F == 16 || F == 32, "F in {4, 8, 16, 32}");
+  static constexpr int kTiles = (G * F + 7) / 8;  // 8-column n-tiles
+  static constexpr int kXF = F >= 8 ? F / 8 : 1;  // x values a lane reads per slot
+  static __device__ __forceinline__ int feature(int j, int gid) {
+    return F >= 8 ? 8 * j + gid : (gid & 3);
+  }
+};
+
+// out[g, r, :] = sum over the slots k of row r of (x[cols[k]] * wg[k, g]),
+// the product rounded to T, as (one-hot A) @ B with B = the G products of a
+// slot side by side: each slot's index, weights and x row are read once.
+template <typename T, int G, int F>
+__global__ void __launch_bounds__(kOneHotWarps * kWarp, 2)
+ld_onehot_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
+                        const T* __restrict__ wg, float* __restrict__ out, int64_t rows,
+                        int ld2, int64_t out_gstride) {
+  using M = Mma<T>;
+  using S = OneHotShape<G, F>;
+  using Ring = groot::Ring<T, G>;
+  extern __shared__ __align__(128) unsigned char staged_smem[];
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  const int gid = lane >> 2, tig = lane & 3;
+  Ring& ring = reinterpret_cast<Ring*>(staged_smem)[warp];
+  const int64_t wid = static_cast<int64_t>(blockIdx.x) * kOneHotWarps + warp;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kOneHotWarps;
+  const groot::Walk walk(rows, ld2, wid, warps, groot::walk_steps(rows, 1, wid, warps));
+  // the lanes of one load read one slot per tig (f32: tig + 4i, bf16:
+  // 2 tig + (i & 1) + 8 (i >> 1)), so slot p's units move by its tig
+  constexpr int kShift = sizeof(T) == 4 ? 0 : 1;
+  const auto key = [](int p, int) { return ((p >> kShift) & 3) << 1; };
+
+  float acc[S::kTiles][4];
+#pragma unroll
+  for (int nt = 0; nt < S::kTiles; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+
+  groot::run_walk<T, F>(ring, walk, cols, wg, x, lane, key, [&](const groot::Chunk& c,
+                                                               const unsigned char* staged,
+                                                               const T* ws) {
+    for (int k0 = 0; k0 < c.n; k0 += M::kK) {
+      // A: tile row r owns tile slots [r*d, (r+1)*d); this lane holds rows
+      // gid and gid + 8 at its slot columns (shifts: d is a power of two)
+      uint32_t on[M::kPer][2];
+      T xv[M::kPer][S::kXF], wv[M::kPer][G];
+#pragma unroll
+      for (int i = 0; i < M::kPer; ++i) {
+        const int p = k0 + M::slot(tig, i);
+        const int r = (c.begin + p) >> ld2;
+        on[i][0] = r == gid ? M::kOne : 0u;
+        on[i][1] = r == gid + 8 ? M::kOne : 0u;
+        const bool live = p < c.n;
+#pragma unroll
+        for (int j = 0; j < S::kXF; ++j) {
+          const int byte = S::feature(j, gid) * static_cast<int>(sizeof(T));
+          xv[i][j] = live ? *reinterpret_cast<const T*>(
+                                staged + groot::line_offset(p, byte, key(p, 0)))
+                          : groot::zero<T>();
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) wv[i][g] = live ? ws[p * G + g] : groot::zero<T>();
+      }
+      uint32_t a[4];
+      if constexpr (M::kPer == 2) {  // m16n8k8: a0 (gid, k_0) a1 (gid+8, k_0) a2 (gid, k_1) a3 (gid+8, k_1)
+        a[0] = on[0][0];
+        a[1] = on[0][1];
+        a[2] = on[1][0];
+        a[3] = on[1][1];
+      } else {  // m16n8k16: pairs (k_0, k_1) then (k_2, k_3), rows gid / gid+8
+        a[0] = on[0][0] | (on[1][0] << 16);
+        a[1] = on[0][1] | (on[1][1] << 16);
+        a[2] = on[2][0] | (on[3][0] << 16);
+        a[3] = on[2][1] | (on[3][1] << 16);
+      }
+#pragma unroll
+      for (int nt = 0; nt < S::kTiles; ++nt) {
+        T pr[M::kPer];
+#pragma unroll
+        for (int i = 0; i < M::kPer; ++i) {
+          if constexpr (F >= 8) {
+            pr[i] = groot::mul_round(xv[i][nt % S::kXF], wv[i][nt / S::kXF]);
+          } else {  // group 2 nt + gid / 4; past G the column is padding
+            const T w0 = 2 * nt < G ? wv[i][2 * nt < G ? 2 * nt : 0] : groot::zero<T>();
+            const T w1 = 2 * nt + 1 < G ? wv[i][2 * nt + 1 < G ? 2 * nt + 1 : 0] : groot::zero<T>();
+            pr[i] = groot::mul_round(xv[i][0], gid < 4 ? w0 : w1);
+          }
+        }
+        mma_step(acc[nt], a, pr);
+      }
+    }
+  }, [&](int64_t tile) {
+      // C: c0, c1 at (gid, 2 tig + {0, 1}); c2, c3 at (gid + 8, 2 tig + {0, 1})
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = tile * groot::kTile + gid + 8 * h;
+        if (row >= rows) continue;
+#pragma unroll
+        for (int nt = 0; nt < S::kTiles; ++nt) {
+          const int g = F >= 8 ? nt / S::kXF : 2 * nt + (tig >> 1);
+          const int f = F >= 8 ? 8 * (nt % S::kXF) + 2 * tig : 2 * (tig & 1);
+          if (g < G)
+            *reinterpret_cast<float2*>(out + g * out_gstride + row * F + f) =
+                make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < S::kTiles; ++nt)
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  });
+}
+
 // --- launchers ----------------------------------------------------------------
 
 template <typename T, int G, bool kWeighted, bool kRound>
@@ -357,16 +462,53 @@ int dispatch_hd(int groups, const void* x, const void* cols, const void* wg,
   }
 }
 
-template <typename T>
-int dispatch_mma(int groups, const void* x, const void* cols, const void* wg, void* out,
-                 int64_t rows, int deg, int feat, int64_t out_gstride, cudaStream_t stream) {
-  switch (groups) {
-    case 1: return launch_mma<T, 1, true>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
-    case 2: return launch_mma<T, 2, true>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
-    case 3: return launch_mma<T, 3, true>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
-    case 4: return launch_mma<T, 4, true>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
+template <typename T, int G, int F>
+int launch_onehot(const void* x, const void* cols, const void* wg, void* out, int64_t rows,
+                  int ld2, int64_t out_gstride, cudaStream_t stream) {
+  const size_t smem = kOneHotWarps * sizeof(groot::Ring<T, G>);
+  auto kernel = ld_onehot_staged_kernel<T, G, F>;
+  dim3 grid;
+  const int64_t units = ((rows + groot::kTile - 1) / groot::kTile + kOneHotWarps - 1) / kOneHotWarps;
+  const cudaError_t err = groot::persistent_grid(kernel, kOneHotWarps * kWarp, smem, units, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kOneHotWarps * kWarp, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const int32_t*>(cols), static_cast<const T*>(wg),
+      static_cast<float*>(out), rows, ld2, out_gstride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int G>
+int dispatch_onehot_feat(int feat, const void* x, const void* cols, const void* wg, void* out,
+                         int64_t rows, int ld2, int64_t out_gstride, cudaStream_t stream) {
+  switch (feat) {
+    case 4: return launch_onehot<T, G, 4>(x, cols, wg, out, rows, ld2, out_gstride, stream);
+    case 8: return launch_onehot<T, G, 8>(x, cols, wg, out, rows, ld2, out_gstride, stream);
+    case 16: return launch_onehot<T, G, 16>(x, cols, wg, out, rows, ld2, out_gstride, stream);
+    case 32: return launch_onehot<T, G, 32>(x, cols, wg, out, rows, ld2, out_gstride, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int dispatch_onehot(int groups, int feat, const void* x, const void* cols, const void* wg,
+                    void* out, int64_t rows, int ld2, int64_t out_gstride, cudaStream_t stream) {
+  switch (groups) {
+    case 1: return dispatch_onehot_feat<T, 1>(feat, x, cols, wg, out, rows, ld2, out_gstride, stream);
+    case 2: return dispatch_onehot_feat<T, 2>(feat, x, cols, wg, out, rows, ld2, out_gstride, stream);
+    case 3: return dispatch_onehot_feat<T, 3>(feat, x, cols, wg, out, rows, ld2, out_gstride, stream);
+    case 4: return dispatch_onehot_feat<T, 4>(feat, x, cols, wg, out, rows, ld2, out_gstride, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int onehot_call(const void* x, const void* cols, const void* wg, void* out, int64_t rows, int deg,
+                int groups, int feat, int64_t out_gstride, int bf16, cudaStream_t stream) {
+  if (deg < 1 || (deg & (deg - 1))) return static_cast<int>(cudaErrorInvalidValue);
+  const int ld2 = __builtin_ctz(static_cast<unsigned>(deg));
+  return bf16 ? dispatch_onehot<__nv_bfloat16>(groups, feat, x, cols, wg, out, rows, ld2,
+                                               out_gstride, stream)
+              : dispatch_onehot<float>(groups, feat, x, cols, wg, out, rows, ld2, out_gstride,
+                                       stream);
 }
 
 // K5: ungrouped bucket, optional weight, VPU or MXU body
@@ -416,9 +558,8 @@ extern "C" int groot_ld_grouped_mxu(const void* x, const void* cols, const void*
                                     int64_t rows, int deg, int groups, int feat,
                                     int64_t out_gstride, int bf16, void* stream) {
   if (rows <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_mma<__nv_bfloat16>(groups, x, cols, wg, out, rows, deg, feat, out_gstride, st)
-              : dispatch_mma<float>(groups, x, cols, wg, out, rows, deg, feat, out_gstride, st);
+  return onehot_call(x, cols, wg, out, rows, deg, groups, feat, out_gstride, bf16,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // w may be null (no weights: the plain A @ x)

@@ -2,7 +2,9 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with :mod:`ctypes` (the sources share
-device helpers through ``csrc/*.cuh``).  Every pointer and
+device helpers through ``csrc/*.cuh``: ``common.cuh`` the edge-slot sums,
+``mma.cuh`` the tensor-core products, ``staged.cuh`` the cp.async gather
+ring).  Every pointer and
 the stream travel as ``c_void_p``; each C entry point returns
 ``cudaGetLastError()`` after its launch and the caller raises on non-zero.
 Libraries are built at first use from the checkout's own sources into
@@ -50,6 +52,8 @@ SIGNATURES = {
     "fused_sage": {
         # x, cols, wg, w_stack, out, rows, deg, groups, feat, hid, bf16, stream
         "fused_ld_grouped": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P),
+        # groups, feat, hid, bf16 -> dynamic shared memory of one K3 block (-1: none)
+        "fused_ld_grouped_smem": (_I32, _I32, _I32, _I32),
         # x, cols, w (or null), w_mat, out, rows, deg, feat, hid, bf16, stream
         "fused_ld": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P),
     },

@@ -406,6 +406,34 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+#: shared memory a block may use (H100: 227 KB)
+MAX_SMEM = 227 * 1024
+#: the feature widths K3's and K4's staged bodies are built for
+STAGED_FEATS = (4, 8, 16, 32)
+
+
+def check_staged(name: str, x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor, deg: int,
+                 out: torch.Tensor, smem: int = 0) -> None:
+    """Reject, before a K3 or K4 launch, what their staged bodies do not
+    take: a degree that is not a power of two, a feature width outside
+    :data:`STAGED_FEATS`, inputs off 16-byte boundaries (the gather copies
+    16 bytes at a time), an output off 8-byte boundaries (two floats a
+    store), or a block over the shared memory one may use (``smem``, K3's,
+    which grows with H; < 0: no body for this shape)."""
+    if deg & (deg - 1):
+        raise ValueError(f"{name}: degree {deg} is not a power of two")
+    if x_p.shape[1] not in STAGED_FEATS:
+        raise ValueError(f"{name}: feature width {x_p.shape[1]} not in {STAGED_FEATS}")
+    for label, t in (("x_p", x_p), ("cols", cols), ("wg", wg)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must start on a 16-byte boundary")
+    if out.data_ptr() % 8 or out.stride(0) % 2:
+        raise ValueError(f"{name}: out must start on an 8-byte boundary, rows of even stride")
+    if not 0 <= smem <= MAX_SMEM:
+        raise ValueError(f"{name}: a block would need {smem} B of shared memory, "
+                         f"over the {MAX_SMEM} B it may use")
+
+
 def check_deg(name: str, slots: int, deg: int) -> int:
     """The row count of an ELL slab of ``slots`` slots of degree ``deg``."""
     if deg < 1 or slots % deg:
@@ -497,11 +525,13 @@ def ld_grouped_mxu_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor
     """K4: K1's grouped LD row sums as one-hot block-diagonal matrix
     products on the tensor cores.  Same shapes and layout as
     :func:`ld_grouped_apply`.  CPU tensors run :func:`ld_grouped_mxu_plain`;
-    CUDA tensors launch the kernel."""
+    CUDA tensors launch the kernel, which takes power-of-two degrees and
+    feature widths in :data:`STAGED_FEATS` (:func:`check_staged`)."""
     g, rows, feat, out = _grouped_ld_io("ld_grouped_mxu_apply", x_p, cols, wg, deg, out)
     if not on_cuda("ld_grouped_mxu_apply", x_p):
         out.copy_(ld_grouped_mxu_plain(x_p, cols, wg, deg))
         return out
+    check_staged("ld_grouped_mxu_apply", x_p, cols, wg, deg, out)
     rc = build.library("groot_spmm").groot_ld_grouped_mxu(
         x_p.data_ptr(), cols.data_ptr(), wg.data_ptr(), out.data_ptr(),
         rows, deg, g, feat, out.stride(0), int(x_p.dtype == torch.bfloat16), stream(x_p),

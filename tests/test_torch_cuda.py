@@ -8,15 +8,16 @@ without one.  The file imports nothing of JAX, so it runs where the card is:
 The kernels and their plain versions round each message-weight product the
 same way (K1-K3 widen bf16 inputs to f32 exactly; K4-K7 round the product to
 the stream dtype) and accumulate in f32, so only the order of the sums
-differs, plus, for K4 on f32 streams, what the two-term TF32 split loses
-(under 2^-22 of each product): a tolerance of 1e-5 relative to
-max(1, max|plain|) holds for f32 and bf16 streams alike.
+differs, plus what the TF32 splits drop: K4's two-term split of an f32
+product at most 2^-22 of it, K3's three-term contraction at most 2 * 2^-21 of
+each aggregate-weight product (tests/test_torch_numerics.py): a tolerance of
+1e-5 relative to max(1, max|plain|) holds for f32 and bf16 streams alike.
 
 K8 (flash attention) and its plain version round at the same points (f32
 scores, p rounded to the stream dtype, f32 accumulator) and walk the same
 key tiles (``fa.key_tile``: 64 keys on the f32 mma_sync body, 128 on the
 bf16 wgmma body, 64 there at hd 256); the kernel's f32 products run as
-three TF32 MMAs (what the split drops is below 2^-21 of each product), and
+three TF32 MMAs (what the split drops is under 2 * 2^-21 of each product), and
 exp, tanh and the sums run in other orders.  f32: within 5e-5 of max(1, max|plain|).  bf16: within
 2^-7 of max(1, max|plain|), since the f32 scores differ in their last bits
 and now and then the two round a p to neighbouring bf16 values, which moves
@@ -145,6 +146,73 @@ def test_kernels_match_plain_versions(cuda, case, groups, dtype):
         for w in (None, staged.hd[:, 0].contiguous()):
             _close(gs.hd_apply(x_p, dp.hd_cols, dp.hd_meta, dp.hd_row_chunks, e_t, w),
                    gs.hd_plain(x_p, dp.hd_cols, dp.hd_meta, e_t, w))
+
+
+# K3's and K4's staged bodies at their edges: row counts around the 16-row
+# tile and K3's 64-row warpgroup tile, and walks long enough that every warp
+# of the persistent grid takes several tiles, except at degree 512, where the
+# plain version's (G, R * deg, F) products would grow large
+EDGE_ROWS = {1: (1, 15, 63, 65, 64 * 37 + 1, 64 * 1500 + 1),
+             2: (1, 15, 63, 65, 64 * 37 + 1, 64 * 1500 + 1),
+             4: (1, 15, 63, 65, 64 * 9 + 1, 64 * 1500 + 1), 512: (1, 15, 65)}
+
+
+@pytest.mark.parametrize("deg", sorted(EDGE_ROWS))
+@pytest.mark.parametrize("feat", [4, 32])
+@pytest.mark.parametrize("groups", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staged_bodies_at_their_edges(cuda, dtype, groups, feat, deg):
+    """K3 (H = 24 and 32) and K4 (degree > 1) against their plain versions,
+    each launch counted, written into a row slice of a larger buffer whose
+    other rows stay as they were.  At degree 512 a tile's 8,192 slots span
+    256 ring stages."""
+    rng = np.random.default_rng(groups * 1000 + feat * 10 + deg)
+    n = 3000
+    x = torch.as_tensor(rng.standard_normal((n, feat)), dtype=torch.float32, device=cuda)
+    x_p = gs.pad_features(x).to(dtype)
+    for rows in EDGE_ROWS[deg]:
+        slots = rows * deg
+        # some slots hit the zero pad row n, as a bucket's padding does
+        cols = torch.as_tensor(rng.integers(0, n + 1, slots), dtype=torch.int32, device=cuda)
+        wg = torch.as_tensor(rng.standard_normal((slots, groups)), dtype=torch.float32,
+                             device=cuda).to(dtype)
+        for hid in (24, 32):
+            w_stack = torch.as_tensor(rng.standard_normal((groups, feat, hid)),
+                                      dtype=torch.float32, device=cuda)
+            big = torch.full((rows + 7, hid), 7.0, device=cuda)
+            before = fs.fused_ld_matmul_grouped.launches
+            got = fs.fused_ld_matmul_grouped(x_p, cols, wg, w_stack, deg, out=big[3:3 + rows])
+            assert fs.fused_ld_matmul_grouped.launches == before + 1
+            _close(got, fs.fused_ld_grouped_plain(x_p, cols, wg, w_stack, deg))
+            assert (big[:3] == 7.0).all() and (big[3 + rows:] == 7.0).all()
+        if deg > 1:
+            big = torch.full((groups, rows + 7, feat), 7.0, device=cuda)
+            before = gs.ld_grouped_mxu_apply.launches
+            got = gs.ld_grouped_apply(x_p, cols, wg, deg, out=big[:, 3:3 + rows], mxu=True)
+            assert gs.ld_grouped_mxu_apply.launches == before + 1
+            _close(got, gs.ld_grouped_mxu_plain(x_p, cols, wg, deg))
+            assert (big[:, :3] == 7.0).all() and (big[:, 3 + rows:] == 7.0).all()
+
+
+def test_staged_bodies_refuse_what_they_cannot_take(cuda):
+    """K3 and K4 raise on a CUDA shape their staged bodies do not take,
+    rather than run the plain version."""
+    x_p = torch.zeros((11, 32), device=cuda)
+    cols = torch.zeros(30, dtype=torch.int32, device=cuda)
+    wg = torch.ones((30, 2), device=cuda)
+    w_stack = torch.ones((2, 32, 32), device=cuda)
+    with pytest.raises(ValueError, match="power of two"):
+        fs.fused_ld_matmul_grouped(x_p, cols, wg, w_stack, 3)
+    with pytest.raises(ValueError, match="power of two"):
+        gs.ld_grouped_mxu_apply(x_p, cols, wg, 3)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fs.fused_ld_matmul_grouped(x_p, cols, wg, torch.ones((2, 32, 20), device=cuda), 2)
+    x12 = torch.zeros((11, 12), device=cuda)
+    with pytest.raises(ValueError, match="feature width"):
+        gs.ld_grouped_mxu_apply(x12, cols, wg, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        gs.ld_grouped_mxu_apply(torch.zeros(11 * 32 + 1, device=cuda)[1:].view(11, 32), cols,
+                                wg, 2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

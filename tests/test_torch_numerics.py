@@ -1,0 +1,161 @@
+"""The numerics argument behind K3's and K4's tensor-core bodies, on the CPU.
+
+The card's TF32 tensor cores see 10 explicit mantissa bits.  The kernels keep
+f32 accuracy by splitting an f32 value v into hi = tf32(v) and lo =
+tf32(v - hi) (``csrc/mma.cuh``: ``cvt.rna.tf32.f32``, to nearest, ties away
+from zero, on the 13 dropped bits), so v = hi + lo + e with |e| <= 2^-22 |v|.
+
+* K3 contracts each (row, G*F) aggregate a with the (G*F, H) weights W as
+  three products a_hi w_hi + a_hi w_lo + a_lo w_hi; what that drops is at
+  most 3 * 2^-22 (1 + 2^-10) of each |a w|, so per output
+      |approx - a @ W| <= 2 * 2^-21 * sum_k |a_k w_k|.
+* K4 splits each rounded product p = x * w into hi + lo and sums both with
+  the exact one-hot A: per output |approx - sum p| <= 2^-21 / 2 * sum |p|.
+
+Both are held here against an f64 product with torch's own model of the
+rounding, and shown to stay under the card tests' and ``chip_smoke.py``'s
+tolerance, 1e-5 * max(1, max|plain|), at the path's magnitudes: the trained
+``groot_csa8.npz`` layer weights, csa features and the mean-normalised group
+weights, layer by layer.  The argument has a limit: where the terms cancel
+(sum |a w| >> max|out|) the bound, not the tolerance, is what holds; that
+case is kept on its own.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import gnn
+from repro_torch.core import pipeline as P
+
+TOL = 1e-5
+K3_BOUND = 2 * 2.0**-21   # times sum_k |a_k w_k|, per output
+K4_BOUND = 2.0**-21 / 2   # times sum |p|, per output
+PARAMS = Path(gnn.__file__).resolve().parents[1] / "data" / "groot_csa8.npz"
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: an f32 tensor rounded to 10 explicit mantissa
+    bits, to nearest, ties away from zero (adding half of the dropped 2^13
+    to the magnitude's bits carries into the kept ones)."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)      # back to int32's range
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x.float() - hi)
+
+
+def three_term(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K3's contraction: (R, K) @ (K, H) as hi*hi + hi*lo + lo*hi, the
+    products of TF32 values summed exactly enough in f64."""
+    ah, al = (t.double() for t in split(a))
+    wh, wl = (t.double() for t in split(w))
+    return ah @ wh + ah @ wl + al @ wh
+
+
+def check_three_term(a: torch.Tensor, w: torch.Tensor) -> tuple[float, float]:
+    """Hold the three-term contraction to its bound; returns (largest bound
+    over outputs, max |a @ w|)."""
+    exact = a.double() @ w.double()
+    bound = K3_BOUND * (a.double().abs() @ w.double().abs())
+    err = (three_term(a, w) - exact).abs()
+    assert (err <= bound).all(), (err - bound).max().item()
+    return bound.max().item(), exact.abs().max().item()
+
+
+def _layers():
+    """Per layer of the csa-16 forward (the port's reference path): the
+    fanin aggregate (N, 4 * F), the (4 * F, H) fanin weights, and the
+    weighted fanin messages (E, 4, F) that K4 sums."""
+    prep = P.prepare(P.PipelineConfig(dataset="csa", bits=16))
+    g = prep.graph
+    n = g.num_nodes
+    src, dst, inv, slot = gnn.graph_tensors(g, "cpu")
+    wg_in, wg_out = gnn.grouped_edge_weights(src, dst, inv, slot, n)
+    model = gnn.params_from_numpy(gnn.load_params(PARAMS))
+    h = torch.as_tensor(prep.feats).float()
+    out = []
+    for layer in model.layers:
+        msgs = wg_in[:, :, None] * h[src][:, None, :]                      # (E, 4, F)
+        agg_in = torch.zeros((n,) + msgs.shape[1:]).index_add_(0, dst, msgs)
+        agg_out = torch.zeros((n, 2, h.shape[1])).index_add_(
+            0, src, wg_out[:, :, None] * h[dst][:, None, :])
+        w_in = layer.stack(gnn.IN_GROUPS)                                   # (4, F, H)
+        out.append((agg_in.reshape(n, -1), w_in.reshape(-1, w_in.shape[2]), msgs, dst, n))
+        acc = (h @ layer.w_self + layer.b + torch.einsum("ngf,gfh->nh", agg_in, w_in)
+               + torch.einsum("ngf,gfh->nh", agg_out, layer.stack(gnn.OUT_GROUPS)))
+        h = torch.relu(acc)
+    return out
+
+
+@pytest.fixture(scope="module")
+def layers():
+    return _layers()
+
+
+def test_tf32_model_rounds_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2**-11, 1.0 + 3 * 2**-11, -(1.0 + 2**-11), 1.0 + 2**-12,
+                      3.0e-30, -7.5e12], dtype=torch.float32)
+    hi = tf32_rna(x)
+    # ties (exactly half of the last kept bit) go away from zero
+    assert hi[1].item() == 1.0 + 2**-10 and hi[2].item() == 1.0 + 2 * 2**-10
+    assert hi[3].item() == -(1.0 + 2**-10) and hi[4].item() == 1.0
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    rng = np.random.default_rng(0)
+    v = torch.as_tensor(rng.standard_normal(10000) * 10.0 ** rng.uniform(-20, 20, 10000),
+                        dtype=torch.float32)
+    hi, lo = split(v)
+    assert ((v.double() - hi.double()).abs() <= 2.0**-11 * v.double().abs()).all()
+    assert ((v.double() - hi.double() - lo.double()).abs() <= 2.0**-22 * v.double().abs()).all()
+
+
+@pytest.mark.parametrize("layer", range(4))
+def test_k3_split_holds_its_bound_under_the_tolerance_at_the_path(layers, layer):
+    agg, w, *_ = layers[layer]
+    worst, scale = check_three_term(agg, w)
+    assert worst <= TOL * max(1.0, scale), (worst, scale)
+
+
+@pytest.mark.parametrize("layer", range(4))
+def test_k4_split_holds_its_bound_under_the_tolerance_at_the_path(layers, layer):
+    *_, msgs, dst, n = layers[layer]
+    p = msgs.float()                                    # x * w rounded to f32, as K4 takes it
+    hi, lo = split(p)
+    exact = torch.zeros((n,) + p.shape[1:], dtype=torch.float64).index_add_(0, dst, p.double())
+    approx = torch.zeros_like(exact).index_add_(0, dst, hi.double() + lo.double())
+    bound = K4_BOUND * torch.zeros_like(exact).index_add_(0, dst, p.double().abs())
+    assert ((approx - exact).abs() <= bound).all()
+    assert bound.max().item() <= TOL * max(1.0, exact.abs().max().item())
+
+
+@pytest.mark.parametrize("k", [16, 128, 512])
+def test_k3_split_bound_over_wide_range_and_mixed_signs(k):
+    rng = np.random.default_rng(k)
+    mag = lambda shape: 10.0 ** rng.uniform(-6, 6, shape) * rng.choice([-1.0, 1.0], shape)
+    a = torch.as_tensor(mag((64, k)), dtype=torch.float32)
+    w = torch.as_tensor(mag((k, 32)), dtype=torch.float32)
+    check_three_term(a, w)
+
+
+def test_k3_split_under_heavy_cancellation_holds_the_bound_not_the_tolerance():
+    """W's columns in the null space of the aggregate rows: every output
+    cancels to the f32 rounding of W, sum |a w| is 10^3 times |out| and
+    more, and the split's bound lies past the tolerance, so only the bound
+    is asserted.  The path's weights do not do this (the tests above); a
+    layer that did would need the plain version's f32 contraction."""
+    rng = np.random.default_rng(1)
+    a = rng.uniform(50.0, 150.0, (64, 128))
+    null = np.linalg.svd(a)[2][64:96].T                       # (128, 32): a @ null = 0
+    a, w = (torch.as_tensor(t, dtype=torch.float32) for t in (a, null))
+    exact = a.double() @ w.double()
+    terms = a.double().abs() @ w.double().abs()
+    assert (terms / exact.abs()).min() > 1e3
+    worst, scale = check_three_term(a, w)
+    assert worst > TOL * max(1.0, scale)
