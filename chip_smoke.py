@@ -7,11 +7,14 @@ Phases (any failure raises and the script exits non-zero):
 
  1. device    the card's name and power limit (``nvidia-smi``)
  2. build     the CUDA kernels, compiled from ``src/repro_torch/csrc`` (timed);
-              the compiler's report for K3's and K4's staged bodies
-              (registers, spills and warnings of each instantiation) and
-              their HGMMA (K3) or HMMA (K4) and LDGSTS counts by
-              ``cuobjdump`` (none fails, as does a grouped instantiation of
-              the bodies they replaced)
+              the compiler's report for the staged bodies (K3 and K7
+              ``fused_staged_kernel``, K4 and K5's MXU body
+              ``ld_onehot_staged_kernel``, K5's VPU body ``ld_staged_kernel``:
+              registers, spills and warnings of each instantiation) and their
+              HGMMA (K3, K7) or HMMA (K4, K5 MXU) and LDGSTS counts by
+              ``cuobjdump`` (none fails, as does any instantiation of the
+              bodies they replaced: ``fused_kernel``, ``ld_mma_kernel``,
+              ``ld_kernel`` at one group)
  3. parity    every kernel against its plain PyTorch version at the
               csa-<bits> shapes, f32 and bf16 streams, hidden width 32 and
               the 4-wide first layer: K1 grouped LD, K2 grouped HD, K3
@@ -19,9 +22,12 @@ Phases (any failure raises and the script exits non-zero):
               G=2, the HD chunks); K4 grouped MXU LD (the buckets of degree
               > 1); K5 ungrouped LD (every bucket, with and without a
               weight, VPU and MXU bodies), K6 ungrouped HD, K7 ungrouped
-              fused LD (the fanin buckets).  Kernel, plain and library
-              (``torch.sparse.mm``) times by CUDA events; K3's and K4's bf16
-              times at F=32 beside their f32 times.
+              fused LD (the fanin buckets, with and without a weight).
+              Kernel, plain and library (``torch.sparse.mm``) times by CUDA
+              events; K3's and K4's bf16 times at F=32 beside their f32
+              times; K5's VPU and MXU bodies timed apart.  Then K3, K4, K5
+              and K7 at the widths the staged bodies pad or slice (F = H =
+              24 and 64) on the first WIDTH_ROWS rows of every bucket.
  4. spmm      the paper's single SpMM, ``ops.groot_spmm(x, src, dst, n, w)``
               and its transpose, F=32 f32, on ``groot`` and ``groot_mxu``,
               against ``spmm_ref`` and timed beside ``torch.sparse.mm``.
@@ -31,7 +37,10 @@ Phases (any failure raises and the script exits non-zero):
               timed with ``torch.cuda.synchronize()`` around it; logits
               finite, compared with ``ref``.  Every K3 launch of the
               ``groot_fused`` forward and every K4 launch of the
-              ``groot_mxu`` forward counted (one a bucket a layer); the
+              ``groot_mxu`` forward counted (one a bucket a layer), and
+              every K5 launch (by body) of phase 4 and of the per-group
+              forwards and every K7 launch of the per-group ``groot_fused``
+              forward (one a bucket a group a layer); the
               ``groot``, ``groot_fused`` and ``groot_mxu`` forwards
               profiled (device time by kernel, idle share).  ``onehot``
               against ``ref`` at csa-32 (its (E, N) one-hot cannot exist at
@@ -40,7 +49,10 @@ Phases (any failure raises and the script exits non-zero):
               .verify(dataset="csa", bits=<bits>)`` for ``groot``,
               ``groot_mxu`` and ``groot_fused``, then ``ref`` (no kernel).
               Verdicts must equal ``ref``'s and predictions may differ on at
-              most 1e-5 of the nodes.
+              most 1e-5 of the nodes.  Then ``groot_fused`` and
+              ``groot_mxu`` at ``hidden`` 24 and 64 (params from a seeded
+              numpy generator) at csa-<ONEHOT_BITS>: verdict and predictions
+              equal to ``ref``'s on the same params.
  7. serve     K8 (flash attention): the compiler's report for the wgmma
               body (registers, shared memory, spills from ``-Xptxas=-v``)
               and, where ``cuobjdump`` exists, the counts of its HGMMA and
@@ -94,18 +106,24 @@ PEAK_F32_FLOPS = 67e12
 # message-weight product the same way (K1-K3 widen bf16 to f32 exactly, K4-K7
 # round the product to the stream dtype) and accumulate in f32, so only the
 # order of the sums differs (a few f32 ulps over at most 1024 terms of
-# mean-normalised weights), plus what the TF32 splits drop: K4's two-term
-# split of an f32 product at most 2^-22 of it, K3's three-term contraction
-# at most 2 * 2^-21 of each aggregate-weight product, which at the model's
-# magnitudes stays far under TOL (tests/test_torch_numerics.py).
+# mean-normalised weights), plus what the TF32 splits drop: K4's and K5's
+# MXU two-term split of an f32 product at most 2^-22 of it, K3's and K7's
+# three-term contraction at most 2 * 2^-21 of each aggregate-weight product,
+# which at the model's magnitudes stays far under TOL
+# (tests/test_torch_numerics.py).
 TOL = 1e-5
 MAX_PRED_MISMATCH = 1e-5
 # |logits - ref logits| <= LOGIT_TOL * max(1, max|ref logits|) for every
 # forward: four layers of f32 sums in other orders (6.3e-5 at most on an
 # H100 at csa-1024, PERF.md)
 LOGIT_TOL = 1e-3
-# the design onehot runs on: its (E, N) one-hot grows with E * N
+# the design onehot runs on: its (E, N) one-hot grows with E * N; also the
+# design of the hidden-width sessions of phase 6
 ONEHOT_BITS = 32
+# the hidden widths the staged bodies pad (24) or slice (64), and the rows
+# of each csa-<bits> bucket they are held to their plain versions on
+WIDTHS = (24, 64)
+WIDTH_ROWS = 2**18 + 5
 # K8 runs on the tensor cores: bf16 streams at the dense bf16 rate, f32
 # streams as three TF32 MMAs per product (high x high, high x residual,
 # residual x high), so at a third of the dense TF32 rate
@@ -283,9 +301,18 @@ def k8_build_report() -> dict:
     return report
 
 
-# K3's and K4's staged bodies: (library, kernel, its tensor-core opcode)
-STAGED_BODIES = {"fused_ld_grouped": ("fused_sage", "fused_staged_kernel", "HGMMA"),
-                 "ld_grouped_mxu": ("groot_spmm", "ld_onehot_staged_kernel", "HMMA")}
+# the staged bodies: kernel -> (library, its tensor-core opcode or None)
+STAGED_BODIES = {"fused_staged_kernel": ("fused_sage", "HGMMA"),
+                 "ld_onehot_staged_kernel": ("groot_spmm", "HMMA"),
+                 "ld_staged_kernel": ("groot_spmm", None)}
+# each staged kernel of the summary: its body (K5: the VPU body's; its MXU
+# body is K4's at one group)
+STAGED_KERNELS = {"fused_ld_grouped": "fused_staged_kernel",
+                  "ld_grouped_mxu": "ld_onehot_staged_kernel",
+                  "ld_bucket": "ld_staged_kernel", "fused_ld": "fused_staged_kernel"}
+# instantiations of the bodies the staged ones replaced (none may remain):
+# the first K3's and K7's fused_kernel, K5's ld_mma_kernel, ld_kernel at one group
+REPLACED = r"(fused_kernelI|ld_mma_kernelI|ld_kernelI(?:f|13__nv_bfloat16)Li1E)"
 
 
 def sass_by_function(lib: str) -> dict:
@@ -310,61 +337,98 @@ def sass_by_function(lib: str) -> dict:
     return {k: "\n".join(v) for k, v in funcs.items()}
 
 
+def staged_label(mangled: str):
+    """(kernel, label) of a staged body's instantiation from its mangled
+    name, e.g. ("fused_staged_kernel", "f32 G=4 F=32 K3"); None for any
+    other function."""
+    import re
+
+    dt = r"I(f|13__nv_bfloat16)"
+    pats = {
+        # <T, G, F, kWeighted, kRound>: K3 (1, 0), K7 with a weight (1, 1), K7 (0, 1)
+        "fused_staged_kernel": dt + r"Li(\d)ELi(\d+)ELb([01])ELb([01])E",
+        # <T, G, F, kWeighted>: K4, K5's MXU body (G = 1)
+        "ld_onehot_staged_kernel": dt + r"Li(\d)ELi(\d+)ELb([01])E",
+        # <T, F, kWeighted, kRound>: K5 (round), K1 at one group (fmaf)
+        "ld_staged_kernel": dt + r"Li(\d+)ELb([01])ELb([01])E",
+    }
+    for kern, pat in pats.items():
+        m = re.search(r"\d" + kern + pat, mangled)
+        if m is None:
+            continue
+        g = m.groups()
+        t = "f32" if g[0] == "f" else "bf16"
+        if kern == "fused_staged_kernel":
+            mode = {("1", "0"): "K3", ("1", "1"): "K7 w", ("0", "1"): "K7"}.get(g[3:], "?")
+            return kern, f"{t} G={g[1]} F={g[2]} {mode}"
+        if kern == "ld_onehot_staged_kernel":
+            return kern, f"{t} G={g[1]} F={g[2]}{' w' if g[3] == '1' else ''}"
+        mode = {("1", "1"): "K5 w", ("0", "1"): "K5", ("1", "0"): "K1 G=1"}.get(g[2:], "?")
+        return kern, f"{t} F={g[1]} {mode}"
+    return None
+
+
 def staged_build_report() -> dict:
-    """What the compiler made of K3's and K4's staged bodies: each
-    instantiation's registers and spills (``-Xptxas=-v``), the compiler's
-    warnings, and its tensor-core (K3 HGMMA: wgmma; K4 HMMA: mma.sync) and
-    LDGSTS (cp.async) counts in the SASS; fails if an instantiation lacks
-    either, or if a library still holds a grouped instantiation of the bodies
-    they replaced (K7's fused_kernel and K5's ld_mma_kernel remain, at one
-    group)."""
+    """What the compiler made of the staged bodies (K3, K4, K5's two, K7):
+    each instantiation's registers and spills (``-Xptxas=-v``), the
+    compiler's warnings, and its tensor-core (fused_staged_kernel HGMMA:
+    wgmma; ld_onehot_staged_kernel HMMA: mma.sync) and LDGSTS (cp.async)
+    counts in the SASS; fails if an instantiation lacks either, or if a
+    library still holds an instantiation of a body they replaced
+    (:data:`REPLACED`)."""
     import re
 
     from repro_torch.kernels import build
 
-    pat = re.compile(r"(fused_staged_kernel|ld_onehot_staged_kernel)I(f|13__nv_bfloat16)"
-                     r"Li(\d)ELi(\d+)E(?:Li(\d+)E)?")
-
-    def label(mangled):
-        m = pat.search(mangled)
-        return None if m is None else (
-            f"{'f32' if m.group(2) == 'f' else 'bf16'} G={m.group(3)} F={m.group(4)}"
-            + ("" if m.group(5) is None else f" H%32={m.group(5)}"))
-
-    report: dict = {}
-    for kname, (lib, body, mma) in STAGED_BODIES.items():
-        rep = report[kname] = {"body": body, "ptxas": {}, "sass": {}, "warnings": [
-            line.strip() for line in build.build_log(lib).splitlines() if "warning" in line]}
+    report: dict = {kern: {"library": lib, "ptxas": {}, "sass": {}}
+                    for kern, (lib, _) in STAGED_BODIES.items()}
+    for lib in sorted({lib for lib, _ in STAGED_BODIES.values()}):
+        text = build.build_log(lib)
+        warnings = [line.strip() for line in text.splitlines() if "warning" in line]
+        log(f"compiler warnings for {lib}.cu: {warnings or 'none'}")
+        report[f"warnings_{lib}"] = warnings
         entry = None
-        for line in build.build_log(lib).splitlines():
+        for line in text.splitlines():
             if "Compiling entry function" in line:
-                entry = label(line.split("'")[1]) if "'" in line else None
+                entry = staged_label(line.split("'")[1]) if "'" in line else None
+                if "'" in line and re.search(REPLACED, line.split("'")[1]):
+                    fail(f"{lib}: an instantiation of a replaced body remains: {line.strip()}")
             elif entry and ("registers" in line or "spill" in line):
-                rep["ptxas"].setdefault(entry, []).append(
+                report[entry[0]]["ptxas"].setdefault(entry[1], []).append(
                     " ".join(line.replace("ptxas info    :", "").split()))
         funcs = sass_by_function(lib)
-        for name, text in funcs.items():
-            if label(name):
-                rep["sass"][label(name)] = {op: len(re.findall(rf"\b{op}\b", text))
-                                            for op in (mma, "LDGSTS")}
-            old = re.search(r"(fused_kernel|ld_mma_kernel)I(?:f|13__nv_bfloat16)Li(\d)E", name)
-            if old and old.group(2) != "1":
-                fail(f"{lib}: a grouped instantiation of the replaced body remains: {name}")
-        tail = " H%32=0" if mma == "HGMMA" else ""  # the path's H = 32
-        for key in ("f32 G=4 F=32", "f32 G=2 F=32", "f32 G=4 F=4", "bf16 G=4 F=32"):
-            key += tail
-            log(f"{kname} {body} {key}: {'; '.join(rep['ptxas'].get(key, ['no report']))}; "
+        for name, sass in funcs.items():
+            if re.search(REPLACED, name):
+                fail(f"{lib}: an instantiation of a replaced body remains: {name}")
+            lab = staged_label(name)
+            if lab:
+                mma = STAGED_BODIES[lab[0]][1]
+                report[lab[0]]["sass"][lab[1]] = {op: len(re.findall(rf"\b{op}\b", sass))
+                                                  for op in (mma, "LDGSTS") if op}
+        if not funcs:
+            log(f"{lib}: no cuobjdump beside nvcc, SASS not counted")
+    # the instantiations the csa path runs (F = 32 at hidden 32, F = 4 first)
+    path = {"fused_staged_kernel": ("f32 G=4 F=32 K3", "f32 G=4 F=4 K3", "bf16 G=4 F=32 K3",
+                                    "f32 G=1 F=32 K7 w", "f32 G=1 F=4 K7 w",
+                                    "bf16 G=1 F=32 K7 w"),
+            "ld_onehot_staged_kernel": ("f32 G=4 F=32 w", "f32 G=2 F=32 w", "bf16 G=4 F=32 w",
+                                        "f32 G=1 F=32 w", "f32 G=1 F=32", "bf16 G=1 F=32 w"),
+            "ld_staged_kernel": ("f32 F=32 K5 w", "f32 F=4 K5 w", "f32 F=32 K5",
+                                 "bf16 F=32 K5 w")}
+    for kern, keys in path.items():
+        rep = report[kern]
+        for key in keys:
+            log(f"{kern} {key}: {'; '.join(rep['ptxas'].get(key, ['no report']))}; "
                 f"SASS {json.dumps(rep['sass'].get(key, 'not counted'))}")
-        log(f"{kname}: compiler warnings for {lib}.cu: {rep['warnings'] or 'none'}")
         rep["spilled"] = sorted(
             k for k, lines in rep["ptxas"].items() for x in lines
             if any(int(n) for n in re.findall(r"(\d+) bytes spill", x)))
-        log(f"{kname}: {len(rep['ptxas'])} instantiations, spilling: {rep['spilled'] or 'none'}")
-        if funcs and (not rep["sass"] or any(not c[mma] or not c["LDGSTS"]
-                                             for c in rep["sass"].values())):
-            fail(f"{kname}: an instantiation without {mma} or LDGSTS: {rep['sass']}")
-        if not funcs:
-            log(f"{kname}: no cuobjdump beside nvcc, SASS not counted")
+        log(f"{kern}: {len(rep['ptxas'])} instantiations, spilling: {rep['spilled'] or 'none'}")
+        if rep["sass"] and any(not all(c.values()) for c in rep["sass"].values()):
+            fail(f"{kern}: an instantiation without {STAGED_BODIES[kern][1]} or LDGSTS: "
+                 f"{rep['sass']}")
+        if sass_by_function(STAGED_BODIES[kern][0]) and not rep["sass"]:
+            fail(f"{kern}: no instantiation found in {STAGED_BODIES[kern][0]}'s SASS")
     return report
 
 
@@ -611,6 +675,28 @@ def serve_phase(args, dev, drive, launches: dict, bodies: dict) -> dict:
     return rep
 
 
+def random_params(hidden: int, seed: int) -> dict:
+    """A ``GNNConfig(hidden=hidden)`` params tree (4 layers from the 4 input
+    features, 5 classes) from a seeded numpy generator, each matrix scaled
+    by 1 / sqrt(its fan-in)."""
+    import numpy as np
+
+    from repro_torch.core import gnn
+
+    rng = np.random.default_rng(seed)
+    dims = [gnn.GNNConfig().in_features] + [hidden] * gnn.GNNConfig().num_layers
+
+    def mat(fan_in, fan_out):
+        return (rng.standard_normal((fan_in, fan_out)) / np.sqrt(fan_in)).astype(np.float32)
+
+    layers = [{**{nm: mat(a, b) for nm in gnn.LAYER_WEIGHTS},
+               "b": (0.1 * rng.standard_normal(b)).astype(np.float32)}
+              for a, b in zip(dims, dims[1:])]
+    classes = gnn.GNNConfig().num_classes
+    return {"layers": layers, "head": {"w": mat(hidden, classes),
+                                       "b": np.zeros(classes, np.float32)}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bits", type=int, default=1024,
@@ -755,12 +841,15 @@ def main() -> int:
         return t_bytes
 
     def check(kname, what, run, plain, bytes_of, flops, timed, reps, ops_ms=None):
-        """Hold one kernel launch against its plain version, then time both;
-        returns (kernel ms, ms the bytes alone would take)."""
+        """Hold one kernel launch against its plain version, then time both
+        (reps = 0: parity only); returns (kernel ms, ms the bytes alone
+        would take)."""
         got = run(None)
         want = plain()
         compare(kname, what, got, want)
         del want
+        if not reps:
+            return 0.0, 0.0
         ms = cuda_ms(lambda: run(got), reps)
         plain_ms = cuda_ms(plain, 2)
         return ms, account(kname, what, ms, plain_ms, bytes_of(got), flops, timed, ops_ms)
@@ -771,13 +860,15 @@ def main() -> int:
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
-    staged_ms = {k: {"f32": 0.0, "bf16": 0.0} for k in STAGED_BODIES}
+    staged_ms = {k: {"f32": 0.0, "bf16": 0.0} for k in ("fused_ld_grouped", "ld_grouped_mxu")}
     k3_fma_bound_ms = 0.0
+    # K5's MXU body at F=32 f32, weighted, summed like the VPU body's time
+    k5_mxu = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     # ungrouped weight streams per direction: one mean-normalised group column
     w_edge = {"fanin": wg_in[:, 0].contiguous(), "fanout": wg_out[:, 0].contiguous()}
     for sdt in (None, torch.bfloat16):
         tag = "bf16" if sdt is not None else "f32"
-        for x in (x32, x4) if sdt is None else (x32,):
+        for x in (x32, x4):
             xs = x if sdt is None else x.to(sdt)
             feat = x.shape[1]
             # the summary reports hidden 32 with f32 streams; K3's and K4's
@@ -811,18 +902,27 @@ def main() -> int:
                                       2.0 * slots * grp * feat, timed, staged_reps)
                         if feat == 32:
                             staged_ms["ld_grouped_mxu"][tag] += ms
-                    # K5, both bodies, with and without a weight
+                    # K5, both bodies, with and without a weight; the
+                    # summary's time is the weighted VPU body, the MXU
+                    # body's weighted time is kept beside it
                     for w in (wb, None):
                         for mxu in (False, True) if b.deg > 1 else (False,):
                             body = "mxu" if mxu else "vpu"
-                            check("ld_bucket",
-                                  f"{direction} d={b.deg} R={rows} F={feat} {tag} "
-                                  f"{body}{'' if w is None else ' w'}",
-                                  lambda o: gs.ld_bucket_apply(xs, cols, b.deg, w, mxu=mxu, out=o),
-                                  lambda: gs.ld_bucket_plain(xs, cols, b.deg, w),
-                                  lambda o: cols_rows + nbytes(w, cols, o),
-                                  (2.0 if w is not None else 1.0) * slots * feat,
-                                  timed and w is not None and not mxu, reps)
+                            before = dict(gs.ld_bucket_apply.body_launches)
+                            k5_what = (f"{direction} d={b.deg} R={rows} F={feat} {tag} "
+                                       f"{body}{'' if w is None else ' w'}")
+                            ms, t_bytes = check(
+                                "ld_bucket", k5_what,
+                                lambda o: gs.ld_bucket_apply(xs, cols, b.deg, w, mxu=mxu, out=o),
+                                lambda: gs.ld_bucket_plain(xs, cols, b.deg, w),
+                                lambda o: cols_rows + nbytes(w, cols, o),
+                                (2.0 if w is not None else 1.0) * slots * feat,
+                                timed and w is not None and not mxu, reps)
+                            if gs.ld_bucket_apply.body_launches[body] <= before[body]:
+                                fail(f"ld_bucket {k5_what}: not launched on its {body} body")
+                            if timed and w is not None and mxu:
+                                k5_mxu["ms"] += ms
+                                k5_mxu["bound_ms"] += t_bytes
                     if direction == "fanin":
                         # K3 and K7: the fused paths fuse the fanin aggregation
                         agg_flops = 2.0 * slots * grp * feat
@@ -841,11 +941,17 @@ def main() -> int:
                             k3_fma_bound_ms += max(
                                 t_bytes, (agg_flops + mma_flops) / PEAK_F32_FLOPS * 1e3)
                         w_mat = ws[0].contiguous()
-                        check("fused_ld", f"fanin d={b.deg} R={rows} F={feat} H={hid} {tag} w",
-                              lambda o: fs.fused_ld_matmul(xs, cols, w_mat, b.deg, wb, out=o),
-                              lambda: fs.fused_ld_plain(xs, cols, w_mat, b.deg, wb),
-                              lambda o: cols_rows + nbytes(wb, cols, w_mat, o),
-                              2.0 * slots * feat + 2.0 * rows * feat * hid, timed, reps)
+                        for w in (wb, None):
+                            agg_flops = (2.0 if w is not None else 1.0) * slots * feat
+                            mma_flops = 2.0 * rows * feat * hid
+                            check("fused_ld", f"fanin d={b.deg} R={rows} F={feat} H={hid} {tag}"
+                                              f"{'' if w is None else ' w'}",
+                                  lambda o: fs.fused_ld_matmul(xs, cols, w_mat, b.deg, w, out=o),
+                                  lambda: fs.fused_ld_plain(xs, cols, w_mat, b.deg, w),
+                                  lambda o: cols_rows + nbytes(w, cols, w_mat, o),
+                                  agg_flops + mma_flops, timed and w is not None, reps,
+                                  ops_ms=(agg_flops / PEAK_F32_FLOPS
+                                          + mma_flops / (PEAK_TF32_FLOPS / F32_MMAS)) * 1e3)
                 if plan.hd is not None:
                     hd = plan.hd
                     n_hd, slots = hd.rows.shape[0], dp.hd_cols.numel()
@@ -878,6 +984,63 @@ def main() -> int:
         f"(contraction at {PEAK_TF32_FLOPS / F32_MMAS / 1e12:.0f} TFLOP/s); with every "
         f"operation at the f32 FMA rate, as before: {k3_fma_bound_ms:.4f} ms")
 
+    # the staged bodies at the widths they pad (24) or slice (64): K3, K4,
+    # K5 (both bodies) and K7 on the first WIDTH_ROWS rows of every bucket,
+    # F = H, f32 and bf16, with and without a weight; the f32 launches timed
+    # beside their bounds, their padding and scratch passes included (not
+    # in the summary)
+    for width in WIDTHS:
+        xw = torch.randn((n + 1, width), generator=gen, device=dev)
+        xw[-1] = 0
+        wsw = torch.randn((len(gnn.IN_GROUPS), width, width), generator=gen,
+                          device=dev) / width ** 0.5
+        for sdt in (None, torch.bfloat16):
+            tag = "bf16" if sdt is not None else "f32"
+            xs = xw if sdt is None else xw.to(sdt)
+            reps = 3 if sdt is None else 0
+            for direction, plan in (("fanin", in_plan), ("fanout", out_plan)):
+                sw = staged[("in" if direction == "fanin" else "out", sdt)]
+                w_buckets, _ = gs.stage_weight(plan, w_edge[direction], xs.dtype)
+                for b, cols, wge, wb in zip(plan.buckets, plan.on(dev).cols, sw.buckets,
+                                            w_buckets):
+                    rows = min(b.num_rows, WIDTH_ROWS)
+                    c, wgr, wr = (t[:rows * b.deg] for t in (cols, wge, wb))
+                    grp, slots = wgr.shape[1], rows * b.deg
+                    what = f"{direction} d={b.deg} R={rows} F=H={width} {tag}"
+                    c_rows = distinct_row_bytes(c, xs) if reps else 0
+                    wst = wsw[:grp].contiguous()
+                    if direction == "fanin":
+                        agg_flops, mma_flops = 2.0 * slots * grp * width, 2.0 * rows * grp * width ** 2
+                        check("fused_ld_grouped", what + f" G={grp}",
+                              lambda o: fs.fused_ld_matmul_grouped(xs, c, wgr, wst, b.deg, out=o),
+                              lambda: fs.fused_ld_grouped_plain(xs, c, wgr, wst, b.deg),
+                              lambda o: c_rows + nbytes(wgr, c, wst, o), agg_flops + mma_flops,
+                              False, reps, ops_ms=(agg_flops / PEAK_F32_FLOPS + mma_flops / (
+                                  PEAK_TF32_FLOPS / F32_MMAS)) * 1e3)
+                    if b.deg > 1:
+                        check("ld_grouped_mxu", what + f" G={grp}",
+                              lambda o: gs.ld_grouped_mxu_apply(xs, c, wgr, b.deg, out=o),
+                              lambda: gs.ld_grouped_mxu_plain(xs, c, wgr, b.deg),
+                              lambda o: c_rows + nbytes(wgr, c, o), 2.0 * slots * grp * width,
+                              False, reps)
+                    for w in (wr, None):
+                        wt = "" if w is None else " w"
+                        for mxu in (False, True) if b.deg > 1 else (False,):
+                            check("ld_bucket", what + f" {'mxu' if mxu else 'vpu'}{wt}",
+                                  lambda o: gs.ld_bucket_apply(xs, c, b.deg, w, mxu=mxu, out=o),
+                                  lambda: gs.ld_bucket_plain(xs, c, b.deg, w),
+                                  lambda o: c_rows + nbytes(w, c, o), 2.0 * slots * width,
+                                  False, reps)
+                        if direction == "fanin":
+                            flops = 2.0 * slots * width + 2.0 * rows * width ** 2
+                            check("fused_ld", what + wt,
+                                  lambda o: fs.fused_ld_matmul(xs, c, wsw[0], b.deg, w, out=o),
+                                  lambda: fs.fused_ld_plain(xs, c, wsw[0], b.deg, w),
+                                  lambda o: c_rows + nbytes(w, c, wsw[0], o), flops, False, reps)
+                del w_buckets
+        del xw, xs
+        torch.cuda.empty_cache()
+
     # library yardstick: one torch.sparse.mm over a (G*N, N) CSR computing
     # the same (grouped) sums (cuSPARSE; the port never calls it)
     deg_in = torch.bincount(dst, minlength=n)
@@ -907,6 +1070,9 @@ def main() -> int:
         ("fanin_1", dst, src, w_edge["fanin"][:, None], every),
         ("fanout_ld_1", src, dst, w_edge["fanout"][:, None], ld_out),
         ("fanout_hd_1", src, dst, w_edge["fanout"][:, None], hd_out),
+        # K5's MXU body: one weight column over the LD rows of degree > 1
+        ("fanin_deg2+_1", dst, src, w_edge["fanin"][:, None], deg_in[dst] > 1),
+        ("fanout_ld_deg2+_1", src, dst, w_edge["fanout"][:, None], ld_out & (deg_out[src] > 1)),
     ):
         a = csr(rows_of, cols_of, wg, keep)
         lib[label] = cuda_ms(lambda: torch.sparse.mm(a, x32n), args.reps)
@@ -935,6 +1101,12 @@ def main() -> int:
     kernels["fused_ld_grouped"]["library_ms"] = None
     kernels["ld_grouped_mxu"]["library_ms"] = lib["fanin_deg2+"] + lib["fanout_ld_deg2+"]
     kernels["ld_bucket"]["library_ms"] = lib["fanin_1"] + lib["fanout_ld_1"]
+    k5_mxu["library_ms"] = lib["fanin_deg2+_1"] + lib["fanout_ld_deg2+_1"]
+    report["k5_mxu_body"] = k5_mxu
+    log(f"ld_bucket mxu body, weighted, F=32 f32, one SpMM pair (buckets of degree > 1): "
+        f"kernel {k5_mxu['ms']:.4f} ms bound {k5_mxu['bound_ms']:.4f} ms (bytes) "
+        f"torch.sparse.mm {k5_mxu['library_ms']:.4f} ms; vpu body over every bucket "
+        f"{kernels['ld_bucket']['ms']:.4f} ms")
     kernels["hd"]["library_ms"] = lib["fanout_hd_1"]
     kernels["fused_ld"]["library_ms"] = None
     del staged, x4
@@ -942,13 +1114,15 @@ def main() -> int:
 
     launches: dict = {}
     bodies: dict = {}
+    k5_bodies: dict = {}
 
     def drive(path, fn):
-        """Run one path with every launch count (and K8's per body) set to 0
-        just before it; record the counts just after."""
+        """Run one path with every launch count (and K8's and K5's per body)
+        set to 0 just before it; record the counts just after."""
         for k in kernels.values():
             k["fn"].launches = 0
         fa.flash_attention.body_launches = dict.fromkeys(fa.flash_attention.body_launches, 0)
+        gs.ld_bucket_apply.body_launches = dict.fromkeys(gs.ld_bucket_apply.body_launches, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -956,7 +1130,23 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches[path] = {kn: k["fn"].launches for kn, k in kernels.items()}
         bodies[path] = dict(fa.flash_attention.body_launches)
+        k5_bodies[path] = dict(gs.ld_bucket_apply.body_launches)
         return out, wall
+
+    def k5_expect(path, plans_groups, mxu):
+        """Fail unless the path's K5 launches were one a bucket a group of
+        each (plan, groups), on the VPU body, or for ``mxu`` the MXU body at
+        degree > 1, and K5's launch count is their sum."""
+        want = {"vpu": 0, "mxu": 0}
+        for plan, groups in plans_groups:
+            for b in plan.buckets:
+                want["mxu" if mxu and b.deg > 1 else "vpu"] += groups
+        got = k5_bodies[path]
+        log(f"{path}: ld_bucket launches by body {json.dumps(got)} (expected {json.dumps(want)})")
+        if got != want or launches[path]["ld_bucket"] != sum(want.values()):
+            fail(f"{path}: ld_bucket launches by body {got}, "
+                 f"{launches[path]['ld_bucket']} in all, expected {want}")
+        return got
 
     # -- 4. the paper's single SpMM, both directions ----------------------------
     w_rand = torch.rand(g.num_edges, generator=gen, device=dev)
@@ -971,6 +1161,7 @@ def main() -> int:
         for b in ("groot", "groot_mxu"):
             path = f"groot_spmm {b} {direction}"
             got, _ = drive(path, lambda: ops.groot_spmm(x32n, a_src, a_dst, n, w_rand, backend=b))
+            k5_expect(path, [(in_plan if direction == "fanin" else out_plan, 1)], b == "groot_mxu")
             err = (got - want).abs().max().item()
             scale = max(1.0, want.abs().max().item())
             ok = bool(torch.isfinite(got).all()) and err <= TOL * scale
@@ -979,7 +1170,7 @@ def main() -> int:
             pair = ops.make_agg_pair(a_src.cpu().numpy(), a_dst.cpu().numpy(), n, b, device=dev)
             ms = cuda_ms(lambda: pair.in_agg(x32n, w_rand), args.reps)
             spmm[path] = dict(ms=ms, sparse_mm_ms=lib_ms, max_abs_err=err,
-                              launches=launches[path])
+                              launches=launches[path], k5_bodies=k5_bodies[path])
             log(f"{path:30s} {ms:.4f} ms vs torch.sparse.mm {lib_ms:.4f} ms; max_abs_err "
                 f"{err:.3e} vs spmm_ref (tol {TOL * scale:.3e}) {'ok' if ok else 'MISS'}; "
                 f"launches {json.dumps({k: v for k, v in launches[path].items() if v})}")
@@ -1021,8 +1212,6 @@ def main() -> int:
         used = {k: v for k, v in launches[f"forward {b}"].items() if v}
         log(f"forward {b:22s} {fwd[b]:.2f} ms (median of 3, synchronize around it) "
             f"launches {json.dumps(used)}")
-    if launches["forward ungrouped groot_fused"]["fused_ld"] <= 0:
-        fail("the per-group groot_fused forward did not launch K7")
     # every K3 launch of the groot_fused forward and every K4 launch of the
     # groot_mxu forward is one of the staged body (the only body each has):
     # one per fanin bucket (K3), one per bucket of degree > 1 (K4), a layer
@@ -1035,11 +1224,26 @@ def main() -> int:
     report["staged_launches"] = {}
     for kn, (path, n_expect) in expect.items():
         got = launches[path][kn]
-        body = STAGED_BODIES[kn][1]
+        body = STAGED_KERNELS[kn]
         report["staged_launches"][kn] = {"path": path, body: got, "expected": n_expect}
         log(f"{path}: {kn} launches by body {{{body}: {got}}} (a bucket a layer: {n_expect})")
         if got != n_expect:
             fail(f"{path}: {got} launches of {kn}, expected {n_expect}")
+    # the per-group forwards: K5 one a bucket a group a layer (fanin 4
+    # groups, fanout 2; on groot_fused the fanin groups run K7 instead)
+    report["k5_bodies"] = {}
+    for b in ("groot", "groot_mxu", "groot_fused"):
+        path = f"forward ungrouped {b}"
+        groups = [(out_plan, 2 * n_layers)]
+        if b != "groot_fused":
+            groups.append((in_plan, 4 * n_layers))
+        report["k5_bodies"][path] = k5_expect(path, groups, b == "groot_mxu")
+    k7_want = 4 * n_layers * len(in_plan.buckets)
+    got = launches["forward ungrouped groot_fused"]["fused_ld"]
+    log(f"forward ungrouped groot_fused: fused_ld launches by body "
+        f"{{fused_staged_kernel: {got}}} (a fanin bucket a group a layer: {k7_want})")
+    if got != k7_want:
+        fail(f"forward ungrouped groot_fused: {got} launches of fused_ld, expected {k7_want}")
     if any(launches["forward ref"].values()):
         fail(f"the ref forward launched kernels: {launches['forward ref']}")
     # where one groot forward's device time goes (kernel names by self time)
@@ -1114,6 +1318,28 @@ def main() -> int:
         if mism > MAX_PRED_MISMATCH * n:
             fail(f"{b}: {mism} predictions differ from ref")
         report["sessions"][b]["pred_mismatch_vs_ref"] = mism
+    # the hidden widths the staged bodies pad (24) or slice (64): verdict and
+    # predictions equal to ref's on the same seeded params
+    report["hidden_widths"] = {}
+    for hidden in WIDTHS:
+        params = gnn.params_from_numpy(random_params(hidden, args.seed), device=dev)
+        res = {}
+        for b in ("groot_fused", "groot_mxu", "ref"):
+            path = f"session.verify {b} hidden={hidden} csa-{ONEHOT_BITS}"
+            res[b], wall = drive(path, lambda: Session(params=params, backend=b).verify(
+                dataset="csa", bits=ONEHOT_BITS, return_predictions=True))
+        for b, kn in (("groot_fused", "fused_ld_grouped"), ("groot_mxu", "ld_grouped_mxu")):
+            path = f"session.verify {b} hidden={hidden} csa-{ONEHOT_BITS}"
+            r, used = res[b], {k: v for k, v in launches[path].items() if v}
+            mism = int((r.predictions != res["ref"].predictions).sum())
+            log(f"{path}: status {r.status} (ref {res['ref'].status}), {mism} of "
+                f"{len(r.predictions)} predictions differ from ref; launches {json.dumps(used)}")
+            report["hidden_widths"][path] = dict(status=r.status, pred_mismatch_vs_ref=mism,
+                                                 launches=used)
+            if r.status != res["ref"].status or mism or not used.get(kn):
+                fail(f"{path}: verdict {r.status} vs ref's {res['ref'].status}, {mism} "
+                     f"predictions differ, launches {used}")
+        del params
 
     # -- 7. serve: K8, then qwen3-8b through BatchServer -------------------------
     del pairs, x32, x32p, x0, src, dst, inv, slot, wg_in, wg_out, w_rand

@@ -1,12 +1,13 @@
 // Fused LD aggregate + weight matmul for Hopper (sm_90a), plain C interface.
 //
-// K3 fused_ld_grouped replaces the Pallas kernel
+// K3 (fused_ld_staged, G groups) replaces the Pallas kernel
 //    src/repro/kernels/fused_sage.py:_fused_kernel_grouped (launched by
 //    fused_ld_matmul_grouped).  For one ELL bucket of degree d:
 //        out[r, :] = sum_g ( sum_{k<d} wg[r*d+k, g] * x[cols[r*d+k], :] ) @ W[g]
 //    with W the (G, F, H) f32 weight stack of one SAGE layer.
-// K7 fused_ld replaces src/repro/kernels/fused_sage.py:_fused_kernel (launched
-//    by fused_ld_matmul): the ungrouped form, one (F, H) matrix and an
+// K7 (fused_ld_staged, one group) replaces
+//    src/repro/kernels/fused_sage.py:_fused_kernel (launched by
+//    fused_ld_matmul): the ungrouped form, one (F, H) matrix and an
 //    optional per-slot weight whose product with x is rounded to the stream
 //    dtype before the sum (the reference pre-weights its messages in x.dtype):
 //        out[r, :] = ( sum_{k<d} x[cols[r*d+k], :] (* w[r*d+k]) ) @ W
@@ -19,10 +20,10 @@
 // rows touched, the staged weights, the indices and the (R, H) f32 output,
 // each moved once, at 3.35 TB/s) take about twice as long as those
 // operations.  What binds in practice is the contraction: as an f32 FMA
-// loop that reads two shared-memory operands per multiply-add it takes 7x
-// the bound, and as mma.sync m16n8k8 (one B fragment load from shared
-// memory per 16 rows) it is still slower than the wgmma contraction below
-// (PERF.md).
+// loop that reads two shared-memory operands per multiply-add (the first
+// design of K3 and of K7) it takes 5-7x the bound, and as mma.sync m16n8k8
+// (one B fragment load from shared memory per 16 rows) it is still slower
+// than the wgmma contraction below (PERF.md).
 //
 // K3's design (fused_staged_kernel):
 //  * One block is one warpgroup; it walks 64-row tiles (persistent grid),
@@ -42,15 +43,27 @@
 //    B (W^T, K-major, no swizzle) from shared memory, where W's TF32 high
 //    and low parts are split once per block: three products a k-step
 //    (lo*hi, hi*lo, hi*hi; mma.cuh), f32 accumulation, one B read serving
-//    64 rows.  H runs in 32-column chunks plus a tail of H % 32 (a template
-//    argument, so no wgmma sits under a runtime branch).  What the split
+//    64 rows.  H runs in 32-column chunks, every trip of the loop issuing
+//    the same products, so no wgmma sits under a branch.  What the split
 //    drops is under 2 * 2^-21 of each product.
 //  * K = G*F is padded with zero columns to a multiple of 8 (G = 1 or 3 at
 //    F = 4); rows past the bucket's end aggregate nothing and are not
 //    stored.
-// K7 keeps that first design (fused_kernel below): one warp per row, its
-// (F) aggregate parked in shared memory and contracted by an f32 FMA loop
-// against the weights, which every block loads into shared memory once.
+//  * Widths: the body is built for rows of 4, 8, 16 or 32 features and W
+//    of a multiple of 32 columns (32-column wgmma chunks), and stores every
+//    column of its chunks with 8-byte stores.  The wrappers zero-pad x to
+//    the next of these widths (or to a multiple of 32, each 32-column
+//    slice of a wider row copied apart and launched on its own), W's rows
+//    to match and its columns to a multiple of 32; a second slice, or W's
+//    padded columns, go through a scratch output that is added or copied
+//    into place (groot_spmm.py: stage_width, fused_sage.py).  At the
+//    model's width (F = H = 32, and F = 4) nothing is copied and no store
+//    is guarded.
+// K7 runs the same body at G = 1 (fused_ld_staged with one group): with a
+// weight, each product x * w rounded to the stream dtype before the f32 sum
+// (the reference pre-weights its messages in x.dtype; K3 widens instead),
+// or x alone without one.  Its contraction is a quarter of K3's, so its
+// gather sets the pace.
 // Accumulation is f32 for f32 and bf16 streams alike.  All offsets are int64.
 #include "mma.cuh"
 #include "staged.cuh"
@@ -59,11 +72,10 @@ namespace {
 
 using groot::kWarp;
 
-constexpr int kFusedWarps = 8;      // K7: rows in flight per block (one per warp)
-constexpr int kBlocksPerSm = 8;     // K7: grid = SMs * this, rows strided over it
-constexpr int kStagedWarps = 4;     // K3: one warpgroup a block, each warp its own ring
+constexpr int kStagedWarps = 4;  // one warpgroup a block, each warp its own ring
+constexpr int kChunkN = 32;      // output columns a wgmma chunk
 
-// --- K3: staged gather, contraction by wgmma ----------------------------------
+// --- K3 and K7: staged gather, contraction by wgmma ---------------------------
 
 // A lane's share of a 16-row subtile's (16, G*F) aggregate: rows gid and
 // gid + 8, and for each group the kFeat contiguous features tig*kFeat ..;
@@ -85,45 +97,6 @@ template <int N>
 struct WgmmaTf32;
 
 template <>
-struct WgmmaTf32<8> {
-  static __device__ __forceinline__ void rs(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %9, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
-        : WG_D4(d, 0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaTf32<16> {
-  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-        : WG_D4(d, 0), WG_D4(d, 4)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaTf32<24> {
-  static __device__ __forceinline__ void rs(float (&d)[12], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %17, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
-        : WG_D4(d, 0), WG_D4(d, 4), WG_D4(d, 8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
 struct WgmmaTf32<32> {
   static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
     asm volatile(
@@ -136,24 +109,25 @@ struct WgmmaTf32<32> {
   }
 };
 
-// W's TF32 high and low parts, each as the K-major B operand (W^T, H rows of
-// K) in 8-row x 16-byte core matrices: core matrix (ks, ng, kc) holds
+// W's TF32 high and low parts, each as the K-major B operand (W^T, hp rows
+// of K) in 8-row x 16-byte core matrices: core matrix (ks, ng, kc) holds
 // columns 8 ng .. 8 ng + 7 of W at the four K positions 4 kc .. 4 kc + 3 of
 // k-step ks, at ((ks * NG + ng) * 2 + kc) * 128 bytes: K neighbours 128 bytes
-// apart (LBO), 8-column groups 256 (SBO).
+// apart (LBO), 8-column groups 256 (SBO).  W's slice: group g's row f at
+// w[g * w_gstride + f * hp], hp columns.
 constexpr uint32_t kCoreLbo = 128, kCoreSbo = 256;
 
 template <int G, int F>
 __device__ void stage_w(float* __restrict__ w_hi, float* __restrict__ w_lo,
-                        const float* __restrict__ w_stack, int hid) {
+                        const float* __restrict__ w, int64_t w_gstride, int hp) {
   using S = FusedShape<G, F>;
-  const int ngs = hid / 8;
+  const int ngs = hp / 8;
   const int total = S::kSteps * ngs * 64;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int t = i & 3, r = (i >> 2) & 7, kc = (i >> 5) & 1;
     const int ng = (i >> 6) % ngs, ks = (i >> 6) / ngs;
     const int e = 2 * ks + kc, g = e / S::kFeat, f = t * S::kFeat + e % S::kFeat;
-    const float v = g < G ? w_stack[(static_cast<int64_t>(g) * F + f) * hid + ng * 8 + r] : 0.f;
+    const float v = g < G ? w[g * w_gstride + static_cast<int64_t>(f) * hp + ng * 8 + r] : 0.f;
     uint32_t hi, lo;
     groot::split_tf32(v, hi, lo);
     w_hi[i] = __uint_as_float(hi);
@@ -167,8 +141,8 @@ template <int G, int F, int N>
 __device__ __forceinline__ void contract_chunk(const uint32_t (&ah)[FusedShape<G, F>::kSteps][4],
                                                const uint32_t (&al)[FusedShape<G, F>::kSteps][4],
                                                uint32_t w_hi, uint32_t w_lo, int ngs, int n0,
-                                               float* __restrict__ out, int64_t row0,
-                                               int64_t rows, int hid, int lane) {
+                                               float* __restrict__ out, int64_t out_stride,
+                                               int64_t row0, int64_t rows, int lane) {
   using S = FusedShape<G, F>;
   float d[N / 2];
 #pragma unroll
@@ -193,31 +167,34 @@ __device__ __forceinline__ void contract_chunk(const uint32_t (&ah)[FusedShape<G
     if (row >= rows) continue;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
-      *reinterpret_cast<float2*>(out + row * hid + n0 + 8 * j + 2 * tig) =
+      *reinterpret_cast<float2*>(out + row * out_stride + n0 + 8 * j + 2 * tig) =
           make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
   }
 }
 
 // One block is one warpgroup; it walks 64-row tiles (warp w aggregating rows
 // 16w .. 16w + 15 through its own ring), then the four warps contract the
-// tile together.  kTail = H % 32: H is contracted in 32-column chunks and a
-// tail of kTail columns.
-template <typename T, int G, int F, int kTail>
+// tile together, hp columns in 32-column chunks (output rows out_stride
+// floats apart, 8-byte aligned).  K3: kWeighted, !kRound (fmaf of the
+// widened weight and message); K7: G = 1, kRound (the product rounded to
+// T), or !kWeighted (the message alone).
+template <typename T, int G, int F, bool kWeighted, bool kRound>
 __global__ void __launch_bounds__(kStagedWarps * kWarp, 2)
 fused_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
-                    const T* __restrict__ wg, const float* __restrict__ w_stack,
-                    float* __restrict__ out, int64_t rows, int ld2, int hid) {
+                    const T* __restrict__ wg, const float* __restrict__ w,
+                    float* __restrict__ out, int64_t out_stride, int64_t rows, int ld2,
+                    int64_t w_gstride, int hp) {
   using S = FusedShape<G, F>;
   using Ring = groot::Ring<T, G>;
   extern __shared__ __align__(1024) unsigned char staged_smem[];
   const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
   const int gid = lane >> 2, tig = lane & 3;
-  const int ngs = hid / 8;
+  const int ngs = hp / 8;
   const size_t w_bytes = static_cast<size_t>(S::kSteps) * ngs * 256;
   float* w_hi = reinterpret_cast<float*>(staged_smem);
   float* w_lo = reinterpret_cast<float*>(staged_smem + w_bytes);
   Ring& ring = reinterpret_cast<Ring*>(staged_smem + 2 * w_bytes)[warp];
-  stage_w<G, F>(w_hi, w_lo, w_stack, hid);
+  stage_w<G, F>(w_hi, w_lo, w, w_gstride, hp);
   __syncthreads();
 
   // every warp of the warpgroup walks the same number of 64-row tiles
@@ -234,10 +211,10 @@ fused_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
 #pragma unroll
     for (int e = 0; e < S::kEntries; ++e) agg[h][e] = 0.f;
 
-  groot::run_walk<T, F>(ring, walk, cols, wg, x, lane, key, [&](const groot::Chunk& c,
-                                                               const unsigned char* staged,
-                                                               const T* ws) {
-    // aggregate: fmaf(w, x, acc) over this chunk's slots of rows gid, gid + 8
+  groot::run_walk<T, F, kWeighted>(ring, walk, cols, wg, x, lane, key,
+                                   [&](const groot::Chunk& c, const unsigned char* staged,
+                                       const T* ws) {
+    // aggregate over this chunk's slots of rows gid, gid + 8, ascending
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = gid + 8 * h;
@@ -249,10 +226,11 @@ fused_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
                          tig * S::kFeat * static_cast<int>(sizeof(T)), gid);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          const float w = groot::to_f32(ws[p * G + g]);
+          const T wv = kWeighted ? ws[p * G + g] : groot::zero<T>();
 #pragma unroll
           for (int i = 0; i < S::kFeat; ++i)
-            agg[h][g * S::kFeat + i] = fmaf(w, groot::to_f32(xv[i]), agg[h][g * S::kFeat + i]);
+            agg[h][g * S::kFeat + i] = groot::accumulate<kWeighted, kRound>(
+                agg[h][g * S::kFeat + i], xv[i], wv);
         }
       }
     }
@@ -269,11 +247,9 @@ fused_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
       for (int j = 0; j < 4; ++j) groot::split_tf32(av[j], ah[ks][j], al[ks][j]);
     }
     const int64_t row0 = tile * groot::kTile;
-    int n0 = 0;
-    for (; n0 + 32 <= hid; n0 += 32)
-      contract_chunk<G, F, 32>(ah, al, hi_addr, lo_addr, ngs, n0, out, row0, rows, hid, lane);
-    if constexpr (kTail > 0)
-      contract_chunk<G, F, kTail>(ah, al, hi_addr, lo_addr, ngs, n0, out, row0, rows, hid, lane);
+    for (int n0 = 0; n0 < hp; n0 += kChunkN)
+      contract_chunk<G, F, kChunkN>(ah, al, hi_addr, lo_addr, ngs, n0, out, out_stride, row0,
+                                    rows, lane);
     // the A fragments stay live until the products that read them completed
     groot::fence_regs(ah);
     groot::fence_regs(al);
@@ -285,182 +261,110 @@ fused_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
 }
 
 template <typename T, int G, int F>
-size_t fused_smem_bytes(int hid) {
-  return 2 * static_cast<size_t>(FusedShape<G, F>::kSteps) * (hid / 8) * 256 +
+size_t fused_smem_bytes(int hp) {
+  return 2 * static_cast<size_t>(FusedShape<G, F>::kSteps) * (hp / 8) * 256 +
          kStagedWarps * sizeof(groot::Ring<T, G>);
 }
 
-template <typename T, int G, int F, int kTail>
-int launch_staged(const void* x, const void* cols, const void* wg, const void* w_stack,
-                  void* out, int64_t rows, int ld2, int hid, cudaStream_t stream) {
-  const size_t smem = fused_smem_bytes<T, G, F>(hid);
-  auto kernel = fused_staged_kernel<T, G, F, kTail>;
+// One launch's arguments (see fused_ld_staged below).
+struct FusedArgs {
+  const void* x;
+  const void* cols;
+  const void* wg;  // null: no weights
+  const void* w;
+  void* out;
+  int64_t out_stride;
+  int64_t rows;
+  int ld2;
+  int64_t w_gstride;
+  int hp;
+};
+
+template <typename T, int G, int F, bool kWeighted, bool kRound>
+int launch_staged(const FusedArgs& a, size_t* smem_only, cudaStream_t stream) {
+  const size_t smem = fused_smem_bytes<T, G, F>(a.hp);
+  if (smem_only) {
+    *smem_only = smem;
+    return 0;
+  }
+  auto kernel = fused_staged_kernel<T, G, F, kWeighted, kRound>;
   dim3 grid;
-  const int64_t tiles = (rows + 4 * groot::kTile - 1) / (4 * groot::kTile);  // 64-row tiles
+  const int64_t tiles = (a.rows + 4 * groot::kTile - 1) / (4 * groot::kTile);  // 64-row tiles
   const cudaError_t err = groot::persistent_grid(kernel, kStagedWarps * kWarp, smem, tiles, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kStagedWarps * kWarp, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(cols), static_cast<const T*>(wg),
-      static_cast<const float*>(w_stack), static_cast<float*>(out), rows, ld2, hid);
+      static_cast<const T*>(a.x), static_cast<const int32_t*>(a.cols),
+      static_cast<const T*>(a.wg), static_cast<const float*>(a.w), static_cast<float*>(a.out),
+      a.out_stride, a.rows, a.ld2, a.w_gstride, a.hp);
   return static_cast<int>(cudaGetLastError());
 }
 
+// mode 0: K3 (weights widened, fmaf); 1: K7 with a weight (product rounded
+// to T); 2: K7 without weights.  K7 runs at one group only.
 template <typename T, int G, int F>
-int dispatch_tail(const void* x, const void* cols, const void* wg, const void* w_stack,
-                  void* out, int64_t rows, int ld2, int hid, size_t* smem_only,
-                  cudaStream_t stream) {
-  if (smem_only) {
-    *smem_only = fused_smem_bytes<T, G, F>(hid);
-    return 0;
+int dispatch_mode(int mode, const FusedArgs& a, size_t* smem_only, cudaStream_t stream) {
+  if constexpr (G == 1) {
+    if (mode == 1) return launch_staged<T, 1, F, true, true>(a, smem_only, stream);
+    if (mode == 2) return launch_staged<T, 1, F, false, true>(a, smem_only, stream);
   }
-  switch (hid % 32) {
-    case 0: return launch_staged<T, G, F, 0>(x, cols, wg, w_stack, out, rows, ld2, hid, stream);
-    case 8: return launch_staged<T, G, F, 8>(x, cols, wg, w_stack, out, rows, ld2, hid, stream);
-    case 16: return launch_staged<T, G, F, 16>(x, cols, wg, w_stack, out, rows, ld2, hid, stream);
-    default: return launch_staged<T, G, F, 24>(x, cols, wg, w_stack, out, rows, ld2, hid, stream);
-  }
+  if (mode != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_staged<T, G, F, true, false>(a, smem_only, stream);
 }
 
 template <typename T, int G>
-int dispatch_feat(int feat, const void* x, const void* cols, const void* wg,
-                  const void* w_stack, void* out, int64_t rows, int ld2, int hid,
-                  size_t* smem_only, cudaStream_t stream) {
+int dispatch_feat(int feat, int mode, const FusedArgs& a, size_t* smem_only,
+                  cudaStream_t stream) {
   switch (feat) {
-    case 4: return dispatch_tail<T, G, 4>(x, cols, wg, w_stack, out, rows, ld2, hid, smem_only, stream);
-    case 8: return dispatch_tail<T, G, 8>(x, cols, wg, w_stack, out, rows, ld2, hid, smem_only, stream);
-    case 16: return dispatch_tail<T, G, 16>(x, cols, wg, w_stack, out, rows, ld2, hid, smem_only, stream);
-    case 32: return dispatch_tail<T, G, 32>(x, cols, wg, w_stack, out, rows, ld2, hid, smem_only, stream);
+    case 4: return dispatch_mode<T, G, 4>(mode, a, smem_only, stream);
+    case 8: return dispatch_mode<T, G, 8>(mode, a, smem_only, stream);
+    case 16: return dispatch_mode<T, G, 16>(mode, a, smem_only, stream);
+    case 32: return dispatch_mode<T, G, 32>(mode, a, smem_only, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T>
-int dispatch(int groups, int feat, const void* x, const void* cols, const void* wg,
-             const void* w_stack, void* out, int64_t rows, int ld2, int hid, size_t* smem_only,
+int dispatch(int groups, int feat, int mode, const FusedArgs& a, size_t* smem_only,
              cudaStream_t stream) {
   switch (groups) {
-    case 1: return dispatch_feat<T, 1>(feat, x, cols, wg, w_stack, out, rows, ld2, hid, smem_only, stream);
-    case 2: return dispatch_feat<T, 2>(feat, x, cols, wg, w_stack, out, rows, ld2, hid, smem_only, stream);
-    case 3: return dispatch_feat<T, 3>(feat, x, cols, wg, w_stack, out, rows, ld2, hid, smem_only, stream);
-    case 4: return dispatch_feat<T, 4>(feat, x, cols, wg, w_stack, out, rows, ld2, hid, smem_only, stream);
+    case 1: return dispatch_feat<T, 1>(feat, mode, a, smem_only, stream);
+    case 2: return dispatch_feat<T, 2>(feat, mode, a, smem_only, stream);
+    case 3: return dispatch_feat<T, 3>(feat, mode, a, smem_only, stream);
+    case 4: return dispatch_feat<T, 4>(feat, mode, a, smem_only, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int staged_call(const void* x, const void* cols, const void* wg, const void* w_stack, void* out,
-                int64_t rows, int deg, int groups, int feat, int hid, int bf16,
+int staged_call(int groups, int feat, int mode, int deg, int bf16, const FusedArgs& a,
                 size_t* smem_only, cudaStream_t stream) {
-  if (deg < 1 || (deg & (deg - 1)) || hid < 8 || hid % 8)
+  if (deg < 1 || (deg & (deg - 1)) || a.hp < kChunkN || a.hp % kChunkN)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ld2 = __builtin_ctz(static_cast<unsigned>(deg));
-  return bf16 ? dispatch<__nv_bfloat16>(groups, feat, x, cols, wg, w_stack, out, rows, ld2, hid,
-                                        smem_only, stream)
-              : dispatch<float>(groups, feat, x, cols, wg, w_stack, out, rows, ld2, hid,
-                                smem_only, stream);
-}
-
-// --- K7: one warp per row, f32 FMA contraction --------------------------------
-
-template <typename T, int G, bool kWeighted, bool kRound>
-__global__ void __launch_bounds__(kFusedWarps * kWarp)
-fused_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
-             const T* __restrict__ wg, const float* __restrict__ w_stack,
-             float* __restrict__ out, int64_t rows, int deg, int feat, int hid) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int warp = threadIdx.x / kWarp;
-  const int w_elems = G * feat * hid;
-  float* w_sm = smem;
-  float* agg = smem + w_elems + warp * G * feat;
-  for (int i = threadIdx.x; i < w_elems; i += blockDim.x) w_sm[i] = w_stack[i];
-  __syncthreads();
-
-  for (int64_t row = static_cast<int64_t>(blockIdx.x) * kFusedWarps + warp; row < rows;
-       row += static_cast<int64_t>(gridDim.x) * kFusedWarps) {
-    const int64_t base = row * deg;
-    for (int f = lane; f < feat; f += kWarp) {
-      float acc[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) acc[g] = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < deg; ++k) {
-        const int64_t s = base + k;
-        const int64_t c = cols[s];
-        const T xv = x[c * feat + f];
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          acc[g] = groot::accumulate<kWeighted, kRound>(
-              acc[g], xv, groot::slot_weight<kWeighted, G>(wg, s, g));
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) agg[g * feat + f] = acc[g];
-    }
-    __syncwarp();
-    for (int h = lane; h < hid; h += kWarp) {
-      float o = 0.f;
-      for (int gf = 0; gf < G * feat; ++gf) o = fmaf(agg[gf], w_sm[gf * hid + h], o);
-      out[row * hid + h] = o;
-    }
-    __syncwarp();  // the next row overwrites this warp's aggregate
-  }
-}
-
-template <typename T, int G, bool kWeighted, bool kRound>
-int launch(const void* x, const void* cols, const void* wg, const void* w_stack, void* out,
-           int64_t rows, int deg, int feat, int hid, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(G) * feat * hid +
-                                       static_cast<size_t>(kFusedWarps) * G * feat);
-  auto kernel = fused_kernel<T, G, kWeighted, kRound>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t need = (rows + kFusedWarps - 1) / kFusedWarps;
-  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
-  const dim3 grid(static_cast<unsigned>(need < cap ? need : cap));
-  kernel<<<grid, kFusedWarps * kWarp, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(cols), static_cast<const T*>(wg),
-      static_cast<const float*>(w_stack), static_cast<float*>(out), rows, deg, feat, hid);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_ungrouped(const void* x, const void* cols, const void* w, const void* w_mat,
-                       void* out, int64_t rows, int deg, int feat, int hid, cudaStream_t stream) {
-  return w ? launch<T, 1, true, true>(x, cols, w, w_mat, out, rows, deg, feat, hid, stream)
-           : launch<T, 1, false, true>(x, cols, w, w_mat, out, rows, deg, feat, hid, stream);
+  return bf16 ? dispatch<__nv_bfloat16>(groups, feat, mode, a, smem_only, stream)
+              : dispatch<float>(groups, feat, mode, a, smem_only, stream);
 }
 
 }  // namespace
 
-extern "C" int fused_ld_grouped(const void* x, const void* cols, const void* wg,
-                                const void* w_stack, void* out, int64_t rows, int deg,
-                                int groups, int feat, int hid, int bf16, void* stream) {
+// K3 (mode 0, wg of ``groups`` weights a slot) and K7 (groups 1; mode 1 with
+// a weight, 2 without: wg null) over one ELL bucket and one slice of x:
+// feat is the slice's staged width (4, 8, 16 or 32); w is that slice of the
+// (G, ., hp) f32 weight stack, groups w_gstride floats apart, rows hp floats
+// (hp a multiple of 32); out gets all hp columns, rows out_stride floats
+// apart.
+extern "C" int fused_ld_staged(const void* x, const void* cols, const void* wg, const void* w,
+                               void* out, int64_t rows, int deg, int groups, int feat,
+                               int64_t w_gstride, int hp, int64_t out_stride, int mode,
+                               int bf16, void* stream) {
   if (rows <= 0) return 0;
-  return staged_call(x, cols, wg, w_stack, out, rows, deg, groups, feat, hid, bf16, nullptr,
-                     static_cast<cudaStream_t>(stream));
+  const FusedArgs a{x, cols, wg, w, out, out_stride, rows,
+                    deg > 0 ? __builtin_ctz(static_cast<unsigned>(deg)) : 0, w_gstride, hp};
+  return staged_call(groups, feat, mode, deg, bf16, a, nullptr, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of one K3 block at this shape (-1: not a shape K3 takes).
-extern "C" int fused_ld_grouped_smem(int groups, int feat, int hid, int bf16) {
+// Dynamic shared memory of one block at this shape (-1: not a shape the body takes).
+extern "C" int fused_ld_staged_smem(int groups, int feat, int hp, int mode, int bf16) {
   size_t smem = 0;
-  const int rc = staged_call(nullptr, nullptr, nullptr, nullptr, nullptr, 0, 1, groups, feat,
-                             hid, bf16, &smem, nullptr);
+  const FusedArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, hp};
+  const int rc = staged_call(groups, feat, mode, 1, bf16, a, &smem, nullptr);
   return rc ? -1 : static_cast<int>(smem);
-}
-
-// w may be null (no weights)
-extern "C" int fused_ld(const void* x, const void* cols, const void* w, const void* w_mat,
-                        void* out, int64_t rows, int deg, int feat, int hid, int bf16,
-                        void* stream) {
-  if (rows <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_ungrouped<__nv_bfloat16>(x, cols, w, w_mat, out, rows, deg, feat, hid, st)
-              : dispatch_ungrouped<float>(x, cols, w, w_mat, out, rows, deg, feat, hid, st);
 }

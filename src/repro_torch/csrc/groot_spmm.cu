@@ -15,11 +15,12 @@
 //
 // Ungrouped walks (an optional per-slot weight w; the product x * w is taken
 // in the stream dtype, as the reference pre-weights its messages):
-// K5 groot_ld_bucket / groot_ld_bucket_mxu replace
-//    src/repro/kernels/groot_spmm.py:_ld_kernel and :_ld_kernel_mxu (launched
-//    by ld_bucket_apply):  out[r, :] = sum_{k<d} x[cols[r*d+k], :] (* w[r*d+k]).
-//    The VPU body is K1's code at one group; the MXU body a one-hot
-//    tensor-core walk like K4's.
+// K5 groot_ld_bucket replaces src/repro/kernels/groot_spmm.py:_ld_kernel and
+//    :_ld_kernel_mxu (launched by ld_bucket_apply):
+//        out[r, :] = sum_{k<d} x[cols[r*d+k], :] (* w[r*d+k]).
+//    Both bodies gather through K4's staged ring at one group: the VPU body
+//    (ld_staged_kernel) sums the staged rows on the f32 units, the MXU body
+//    is K4's ld_onehot_staged_kernel at G = 1.
 // K6 groot_hd replaces src/repro/kernels/groot_spmm.py:_hd_kernel (launched by
 //    hd_apply): K5's sum over an HD row's chunks; K2's code at one group.
 //
@@ -67,11 +68,27 @@
 //    are XOR-permuted by the reading slot's lane so that B's loads are free
 //    of bank conflicts.  What the split loses is at most 2^-22 of each
 //    product.
-//  * K5's MXU body (ld_mma_kernel) keeps that first design at one group:
-//    one warp owns a 16-row tile and issues mma.sync per 8-feature column
-//    tile and per k-step of the tile's 16*d slots, the one-hot A made in
-//    registers from the slot index, the weighted messages loaded straight
-//    into the fragment registers.
+//  * K5 (both bodies) walks the same ring at one group, so each slot's
+//    index, weight and x row are read once (K5's first bodies read them once
+//    per 8-feature pass, or waited on one dependent index -> row load after
+//    another per warp).  The MXU body is K4's kernel at G = 1, with an
+//    unweighted variant whose products are x itself.  The VPU body
+//    (ld_staged_kernel) sums the staged rows with f32 adds: each lane owns
+//    16 bytes of a row (the whole row when it is narrower), so a 16-row
+//    tile's rows share the warp (4 rows a pass at F = 32 f32, all 16 at
+//    F = 4), each product x * w rounded to the stream dtype and the slots
+//    of a row summed in ascending order, and the lane stores its 16 or 32
+//    bytes of each row at once.  K1 at one group runs the same body with
+//    K1's rounding (widen, then fmaf).
+//  * Widths: the staged bodies are built for rows of 4, 8, 16 or 32
+//    features.  The wrappers zero-pad x to the next of these (or to a
+//    multiple of 32, each 32-column slice of a wider row copied apart and
+//    launched on its own), and the kernels store all of a slice's columns
+//    with vector stores; a slice with padded columns, or an output whose
+//    rows those stores cannot reach, goes through a scratch buffer
+//    (groot_spmm.py: stage_width).  At the model's widths nothing is copied
+//    and no store or row address differs from a body built for that width
+//    alone.
 // Accumulation is f32 for f32 and bf16 streams alike.  All offsets are int64
 // (G * rows * F passes 2^31 for batches of the largest designs).
 #include "mma.cuh"
@@ -83,11 +100,9 @@ using groot::kWarp;
 
 constexpr int kLdWarps = 8;   // destination rows per LD block (one per warp)
 constexpr int kHdWarps = 8;   // warps sharing one HD row
-constexpr int kMmaWarps = 4;  // 16-row tiles per K5 MXU block (one per warp)
-constexpr int kTileRows = 16;
 
-// K1 (kWeighted, !kRound) and K5's VPU body (G = 1, kRound).
-template <typename T, int G, bool kWeighted, bool kRound>
+// K1 at G = 2..4 (one group runs ld_staged_kernel).
+template <typename T, int G>
 __global__ void __launch_bounds__(kLdWarps * kWarp)
 ld_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
           const T* __restrict__ wg, float* __restrict__ out,
@@ -109,8 +124,7 @@ ld_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
       const T xv = live ? x[c * feat + f] : groot::zero<T>();
 #pragma unroll
       for (int g = 0; g < G; ++g)
-        acc[g] = groot::accumulate<kWeighted, kRound>(
-            acc[g], xv, groot::slot_weight<kWeighted, G>(wg, s, g));
+        acc[g] = groot::accumulate<true, false>(acc[g], xv, wg[s * G + g]);
     }
     if (live) {
 #pragma unroll
@@ -162,7 +176,7 @@ hd_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
   }
 }
 
-// --- K5's MXU body (and the fragment shapes K4 shares) -----------------------
+// --- The fragment shapes of K4 and K5's MXU body ---------------------------
 
 // mma.sync shapes: f32 streams run m16n8k8 TF32, bf16 streams m16n8k16 bf16.
 // A lane holds kPer slots of each k-step: its B rows, which are also its A
@@ -207,84 +221,7 @@ __device__ __forceinline__ void mma_step(float (&c)[4], const uint32_t (&a)[4],
   groot::mma_bf16(c, a, groot::pack_bf16(p[0], p[1]), groot::pack_bf16(p[2], p[3]));
 }
 
-// out[g, r, :] = sum over the slots k of row r of (x[cols[k]] * wg[k, g]),
-// the product rounded to T, as (one-hot A) @ B on the tensor cores.
-template <typename T, int G, bool kWeighted>
-__global__ void __launch_bounds__(kMmaWarps * kWarp)
-ld_mma_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
-              const T* __restrict__ wg, float* __restrict__ out,
-              int64_t rows, int deg, int feat, int64_t out_gstride) {
-  using M = Mma<T>;
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int gid = lane >> 2;  // fragment row group
-  const int tig = lane & 3;   // thread in group
-  const int64_t row0 =
-      (static_cast<int64_t>(blockIdx.x) * kMmaWarps + threadIdx.x / kWarp) * kTileRows;
-  if (row0 >= rows) return;
-  const int64_t slot0 = row0 * deg;
-  const int64_t slots = rows * deg;
-  const int tile_slots = kTileRows * deg;
-  for (int f0 = 0; f0 < feat; f0 += 8) {
-    const int f = f0 + gid;  // B column of this lane
-    const bool live = f < feat;
-    float c[G][4];
-#pragma unroll
-    for (int g = 0; g < G; ++g) c[g][0] = c[g][1] = c[g][2] = c[g][3] = 0.f;
-    for (int k0 = 0; k0 < tile_slots; k0 += M::kK) {
-      // A: tile row r owns tile slots [r*d, (r+1)*d); this lane holds rows
-      // gid and gid + 8 at its slot columns
-      uint32_t on[M::kPer][2];
-      T p[G][M::kPer];
-#pragma unroll
-      for (int i = 0; i < M::kPer; ++i) {
-        const int k = k0 + M::slot(tig, i);
-        const int r = k / deg;
-        on[i][0] = r == gid ? M::kOne : 0u;
-        on[i][1] = r == gid + 8 ? M::kOne : 0u;
-        const int64_t s = slot0 + k;
-        T xv = groot::zero<T>();
-        if (s < slots && live) xv = x[static_cast<int64_t>(cols[s]) * feat + f];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          if constexpr (kWeighted) {
-            p[g][i] = s < slots ? groot::mul_round(xv, wg[s * G + g]) : groot::zero<T>();
-          } else {
-            p[g][i] = xv;
-          }
-        }
-      }
-      uint32_t a[4];
-      if constexpr (M::kPer == 2) {  // m16n8k8: a0 (gid, k_0) a1 (gid+8, k_0) a2 (gid, k_1) a3 (gid+8, k_1)
-        a[0] = on[0][0];
-        a[1] = on[0][1];
-        a[2] = on[1][0];
-        a[3] = on[1][1];
-      } else {  // m16n8k16: pairs (k_0, k_1) then (k_2, k_3), rows gid / gid+8
-        a[0] = on[0][0] | (on[1][0] << 16);
-        a[1] = on[0][1] | (on[1][1] << 16);
-        a[2] = on[2][0] | (on[3][0] << 16);
-        a[3] = on[2][1] | (on[3][1] << 16);
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) mma_step(c[g], a, p[g]);
-    }
-    // C: c0, c1 at (gid, 2*tig + {0, 1}); c2, c3 at (gid + 8, 2*tig + {0, 1})
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t row = row0 + gid + 8 * h;
-      if (row >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int fo = f0 + 2 * tig + j;
-        if (fo >= feat) continue;
-#pragma unroll
-        for (int g = 0; g < G; ++g) out[g * out_gstride + row * feat + fo] = c[g][2 * h + j];
-      }
-    }
-  }
-}
-
-// --- K4: staged gather, one pass per tile, all groups in one product ---------
+// --- K4 and K5's MXU body: staged gather, one pass per tile -----------------
 
 constexpr int kOneHotWarps = 8;  // warps a block, each with its own ring
 
@@ -303,13 +240,15 @@ struct OneHotShape {
 };
 
 // out[g, r, :] = sum over the slots k of row r of (x[cols[k]] * wg[k, g]),
-// the product rounded to T, as (one-hot A) @ B with B = the G products of a
-// slot side by side: each slot's index, weights and x row are read once.
-template <typename T, int G, int F>
+// the product rounded to T (x itself without weights), as (one-hot A) @ B
+// with B = the G products of a slot side by side: each slot's index,
+// weights and x row are read once.  Output rows out_rstride floats apart
+// (8-byte aligned).
+template <typename T, int G, int F, bool kWeighted>
 __global__ void __launch_bounds__(kOneHotWarps * kWarp, 2)
 ld_onehot_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
                         const T* __restrict__ wg, float* __restrict__ out, int64_t rows,
-                        int ld2, int64_t out_gstride) {
+                        int ld2, int64_t out_gstride, int64_t out_rstride) {
   using M = Mma<T>;
   using S = OneHotShape<G, F>;
   using Ring = groot::Ring<T, G>;
@@ -329,9 +268,9 @@ ld_onehot_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ col
 #pragma unroll
   for (int nt = 0; nt < S::kTiles; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
 
-  groot::run_walk<T, F>(ring, walk, cols, wg, x, lane, key, [&](const groot::Chunk& c,
-                                                               const unsigned char* staged,
-                                                               const T* ws) {
+  groot::run_walk<T, F, kWeighted>(ring, walk, cols, wg, x, lane, key,
+                                   [&](const groot::Chunk& c, const unsigned char* staged,
+                                       const T* ws) {
     for (int k0 = 0; k0 < c.n; k0 += M::kK) {
       // A: tile row r owns tile slots [r*d, (r+1)*d); this lane holds rows
       // gid and gid + 8 at its slot columns (shifts: d is a power of two)
@@ -352,7 +291,8 @@ ld_onehot_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ col
                           : groot::zero<T>();
         }
 #pragma unroll
-        for (int g = 0; g < G; ++g) wv[i][g] = live ? ws[p * G + g] : groot::zero<T>();
+        for (int g = 0; g < G; ++g)
+          wv[i][g] = kWeighted && live ? ws[p * G + g] : groot::zero<T>();
       }
       uint32_t a[4];
       if constexpr (M::kPer == 2) {  // m16n8k8: a0 (gid, k_0) a1 (gid+8, k_0) a2 (gid, k_1) a3 (gid+8, k_1)
@@ -371,7 +311,9 @@ ld_onehot_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ col
         T pr[M::kPer];
 #pragma unroll
         for (int i = 0; i < M::kPer; ++i) {
-          if constexpr (F >= 8) {
+          if constexpr (!kWeighted) {  // one group: x itself (F = 4: columns past 4 are padding)
+            pr[i] = F >= 8 || gid < 4 ? xv[i][F >= 8 ? nt % S::kXF : 0] : groot::zero<T>();
+          } else if constexpr (F >= 8) {
             pr[i] = groot::mul_round(xv[i][nt % S::kXF], wv[i][nt / S::kXF]);
           } else {  // group 2 nt + gid / 4; past G the column is padding
             const T w0 = 2 * nt < G ? wv[i][2 * nt < G ? 2 * nt : 0] : groot::zero<T>();
@@ -393,7 +335,7 @@ ld_onehot_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ col
           const int g = F >= 8 ? nt / S::kXF : 2 * nt + (tig >> 1);
           const int f = F >= 8 ? 8 * (nt % S::kXF) + 2 * tig : 2 * (tig & 1);
           if (g < G)
-            *reinterpret_cast<float2*>(out + g * out_gstride + row * F + f) =
+            *reinterpret_cast<float2*>(out + g * out_gstride + row * out_rstride + f) =
                 make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
         }
       }
@@ -403,13 +345,97 @@ ld_onehot_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ col
   });
 }
 
+// --- K5's VPU body (and K1 at one group): staged rows, f32 adds --------------
+
+constexpr int kSumWarps = 8;  // warps a block, each with its own ring
+
+// How a warp's lanes share a 16-row tile of rows of F T: each lane reads
+// kVec consecutive features (16 bytes, or the whole row when narrower), so
+// kLanes lanes cover a row and one pass covers kAtOnce rows; a lane owns
+// kRows rows of the tile (rows r0, r0 + kAtOnce, ...; none when r0 >= 16).
+template <typename T, int F>
+struct SumShape {
+  static_assert(F == 4 || F == 8 || F == 16 || F == 32, "F in {4, 8, 16, 32}");
+  static constexpr int kRowBytes = F * static_cast<int>(sizeof(T));
+  static constexpr int kVecBytes = kRowBytes < 16 ? kRowBytes : 16;
+  static constexpr int kVec = kVecBytes / static_cast<int>(sizeof(T));
+  static constexpr int kLanes = kRowBytes / kVecBytes;
+  static constexpr int kAtOnce = kWarp / kLanes;
+  static constexpr int kRows = kAtOnce >= groot::kTile ? 1 : groot::kTile / kAtOnce;
+};
+
+// out[r, :] = sum over the slots k of row r (ascending) of x[cols[k]] * w[k]
+// (kRound: the product rounded to T; else widened and fused, K1's
+// rounding), or of x[cols[k]] alone without weights; f32 sums, stored 16
+// bytes at a time (output rows out_rstride floats, 16-byte aligned).  Three
+// blocks an SM, as their rings' shared memory allows.
+template <typename T, int F, bool kWeighted, bool kRound>
+__global__ void __launch_bounds__(kSumWarps * kWarp, 3)
+ld_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
+                 const T* __restrict__ w, float* __restrict__ out, int64_t rows, int ld2,
+                 int64_t out_rstride) {
+  using S = SumShape<T, F>;
+  using Ring = groot::Ring<T, 1>;
+  extern __shared__ __align__(128) unsigned char staged_smem[];
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  const int v = lane % S::kLanes, r0 = lane / S::kLanes;
+  Ring& ring = reinterpret_cast<Ring*>(staged_smem)[warp];
+  const int64_t wid = static_cast<int64_t>(blockIdx.x) * kSumWarps + warp;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kSumWarps;
+  const groot::Walk walk(rows, ld2, wid, warps, groot::walk_steps(rows, 1, wid, warps));
+  // a quarter warp (16-byte loads) reads 8 / kLanes rows at once, kLanes
+  // units each: row r's units move by r * kLanes, so they hit distinct banks
+  const auto key = [ld2](int, int t) { return ((t >> ld2) * S::kLanes) & 7; };
+
+  float acc[S::kRows][S::kVec];
+#pragma unroll
+  for (int i = 0; i < S::kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < S::kVec; ++j) acc[i][j] = 0.f;
+
+  groot::run_walk<T, F, kWeighted>(ring, walk, cols, w, x, lane, key,
+                                   [&](const groot::Chunk& c, const unsigned char* staged,
+                                       const T* ws) {
+#pragma unroll
+    for (int i = 0; i < S::kRows; ++i) {
+      const int r = r0 + i * S::kAtOnce;
+      if (r >= groot::kTile) continue;
+      const int lo = max(r << ld2, c.begin) - c.begin;
+      const int hi = min((r + 1) << ld2, c.begin + c.n) - c.begin;
+      for (int p = lo; p < hi; ++p) {
+        T xv[S::kVec];
+        groot::load_line(xv, staged + p * groot::kLine, v * S::kVecBytes, key(p, c.begin + p));
+        const T wp = kWeighted ? ws[p] : groot::zero<T>();
+#pragma unroll
+        for (int j = 0; j < S::kVec; ++j)
+          acc[i][j] = groot::accumulate<kWeighted, kRound>(acc[i][j], xv[j], wp);
+      }
+    }
+  }, [&](int64_t tile) {
+#pragma unroll
+    for (int i = 0; i < S::kRows; ++i) {
+      const int r = r0 + i * S::kAtOnce;
+      const int64_t row = tile * groot::kTile + r;
+      if (r < groot::kTile && row < rows) {
+        float* dst = out + row * out_rstride + v * S::kVec;
+#pragma unroll
+        for (int j = 0; j < S::kVec; j += 4)
+          *reinterpret_cast<float4*>(dst + j) =
+              make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+      }
+#pragma unroll
+      for (int j = 0; j < S::kVec; ++j) acc[i][j] = 0.f;
+    }
+  });
+}
+
 // --- launchers ----------------------------------------------------------------
 
-template <typename T, int G, bool kWeighted, bool kRound>
+template <typename T, int G>
 int launch_ld(const void* x, const void* cols, const void* wg, void* out, int64_t rows,
               int deg, int feat, int64_t out_gstride, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((rows + kLdWarps - 1) / kLdWarps));
-  ld_kernel<T, G, kWeighted, kRound><<<grid, kLdWarps * kWarp, 0, stream>>>(
+  ld_kernel<T, G><<<grid, kLdWarps * kWarp, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const int32_t*>(cols), static_cast<const T*>(wg),
       static_cast<float*>(out), rows, deg, feat, out_gstride);
   return static_cast<int>(cudaGetLastError());
@@ -426,25 +452,13 @@ int launch_hd(const void* x, const void* cols, const void* wg, const void* row_c
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int G, bool kWeighted>
-int launch_mma(const void* x, const void* cols, const void* wg, void* out, int64_t rows,
-               int deg, int feat, int64_t out_gstride, cudaStream_t stream) {
-  const int64_t tiles = (rows + kTileRows - 1) / kTileRows;
-  const dim3 grid(static_cast<unsigned>((tiles + kMmaWarps - 1) / kMmaWarps));
-  ld_mma_kernel<T, G, kWeighted><<<grid, kMmaWarps * kWarp, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(cols), static_cast<const T*>(wg),
-      static_cast<float*>(out), rows, deg, feat, out_gstride);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int dispatch_ld(int groups, const void* x, const void* cols, const void* wg, void* out,
                 int64_t rows, int deg, int feat, int64_t out_gstride, cudaStream_t stream) {
-  switch (groups) {
-    case 1: return launch_ld<T, 1, true, false>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
-    case 2: return launch_ld<T, 2, true, false>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
-    case 3: return launch_ld<T, 3, true, false>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
-    case 4: return launch_ld<T, 4, true, false>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
+  switch (groups) {  // one group: ld_staged_kernel (groot_ld_bucket, round = 0)
+    case 2: return launch_ld<T, 2>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
+    case 3: return launch_ld<T, 3>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
+    case 4: return launch_ld<T, 4>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -462,65 +476,110 @@ int dispatch_hd(int groups, const void* x, const void* cols, const void* wg,
   }
 }
 
-template <typename T, int G, int F>
-int launch_onehot(const void* x, const void* cols, const void* wg, void* out, int64_t rows,
-                  int ld2, int64_t out_gstride, cudaStream_t stream) {
-  const size_t smem = kOneHotWarps * sizeof(groot::Ring<T, G>);
-  auto kernel = ld_onehot_staged_kernel<T, G, F>;
+// One staged launch's shape: output rows out_rstride floats apart (groups
+// out_gstride).
+struct StagedArgs {
+  const void* x;
+  const void* cols;
+  const void* w;  // G weights a slot, or null
+  void* out;
+  int64_t rows;
+  int ld2;
+  int64_t out_gstride, out_rstride;
+};
+
+// Launch a persistent staged kernel of ``warps`` warps a block, each with
+// its own ring of Ring bytes, over the bucket's 16-row tiles.
+template <typename Ring, typename Kernel, typename... Args>
+int launch_persistent(Kernel kernel, int warps, int64_t rows, cudaStream_t stream,
+                      Args... args) {
+  const size_t smem = warps * sizeof(Ring);
   dim3 grid;
-  const int64_t units = ((rows + groot::kTile - 1) / groot::kTile + kOneHotWarps - 1) / kOneHotWarps;
-  const cudaError_t err = groot::persistent_grid(kernel, kOneHotWarps * kWarp, smem, units, grid);
+  const int64_t units = ((rows + groot::kTile - 1) / groot::kTile + warps - 1) / warps;
+  const cudaError_t err = groot::persistent_grid(kernel, warps * kWarp, smem, units, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kOneHotWarps * kWarp, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(cols), static_cast<const T*>(wg),
-      static_cast<float*>(out), rows, ld2, out_gstride);
+  kernel<<<grid, warps * kWarp, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int G>
-int dispatch_onehot_feat(int feat, const void* x, const void* cols, const void* wg, void* out,
-                         int64_t rows, int ld2, int64_t out_gstride, cudaStream_t stream) {
+template <typename T, int G, int F, bool kWeighted>
+int launch_onehot(const StagedArgs& a, cudaStream_t stream) {
+  return launch_persistent<groot::Ring<T, G>>(
+      ld_onehot_staged_kernel<T, G, F, kWeighted>, kOneHotWarps, a.rows, stream,
+      static_cast<const T*>(a.x), static_cast<const int32_t*>(a.cols),
+      static_cast<const T*>(a.w), static_cast<float*>(a.out), a.rows, a.ld2, a.out_gstride,
+      a.out_rstride);
+}
+
+template <typename T, int F, bool kWeighted, bool kRound>
+int launch_sum(const StagedArgs& a, cudaStream_t stream) {
+  return launch_persistent<groot::Ring<T, 1>>(
+      ld_staged_kernel<T, F, kWeighted, kRound>, kSumWarps, a.rows, stream,
+      static_cast<const T*>(a.x), static_cast<const int32_t*>(a.cols),
+      static_cast<const T*>(a.w), static_cast<float*>(a.out), a.rows, a.ld2, a.out_rstride);
+}
+
+// The staged bodies at one of their widths: Launch<F>::run(args...).
+template <template <int> class Launch, typename... Args>
+int by_feat(int feat, Args&&... args) {
   switch (feat) {
-    case 4: return launch_onehot<T, G, 4>(x, cols, wg, out, rows, ld2, out_gstride, stream);
-    case 8: return launch_onehot<T, G, 8>(x, cols, wg, out, rows, ld2, out_gstride, stream);
-    case 16: return launch_onehot<T, G, 16>(x, cols, wg, out, rows, ld2, out_gstride, stream);
-    case 32: return launch_onehot<T, G, 32>(x, cols, wg, out, rows, ld2, out_gstride, stream);
+    case 4: return Launch<4>::run(args...);
+    case 8: return Launch<8>::run(args...);
+    case 16: return Launch<16>::run(args...);
+    case 32: return Launch<32>::run(args...);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <typename T, int G>
+struct OneHotAt {
+  template <int F>
+  struct W {
+    static int run(const StagedArgs& a, cudaStream_t st) { return launch_onehot<T, G, F, true>(a, st); }
+  };
+};
+
 template <typename T>
-int dispatch_onehot(int groups, int feat, const void* x, const void* cols, const void* wg,
-                    void* out, int64_t rows, int ld2, int64_t out_gstride, cudaStream_t stream) {
+struct OneHotPlain {  // one group, no weights
+  template <int F>
+  struct W {
+    static int run(const StagedArgs& a, cudaStream_t st) { return launch_onehot<T, 1, F, false>(a, st); }
+  };
+};
+
+template <typename T, bool kWeighted, bool kRound>
+struct SumAt {
+  template <int F>
+  struct W {
+    static int run(const StagedArgs& a, cudaStream_t st) {
+      return launch_sum<T, F, kWeighted, kRound>(a, st);
+    }
+  };
+};
+
+template <typename T>
+int dispatch_onehot(int groups, int feat, const StagedArgs& a, cudaStream_t st) {
   switch (groups) {
-    case 1: return dispatch_onehot_feat<T, 1>(feat, x, cols, wg, out, rows, ld2, out_gstride, stream);
-    case 2: return dispatch_onehot_feat<T, 2>(feat, x, cols, wg, out, rows, ld2, out_gstride, stream);
-    case 3: return dispatch_onehot_feat<T, 3>(feat, x, cols, wg, out, rows, ld2, out_gstride, stream);
-    case 4: return dispatch_onehot_feat<T, 4>(feat, x, cols, wg, out, rows, ld2, out_gstride, stream);
+    case 1: return by_feat<OneHotAt<T, 1>::template W>(feat, a, st);
+    case 2: return by_feat<OneHotAt<T, 2>::template W>(feat, a, st);
+    case 3: return by_feat<OneHotAt<T, 3>::template W>(feat, a, st);
+    case 4: return by_feat<OneHotAt<T, 4>::template W>(feat, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int onehot_call(const void* x, const void* cols, const void* wg, void* out, int64_t rows, int deg,
-                int groups, int feat, int64_t out_gstride, int bf16, cudaStream_t stream) {
-  if (deg < 1 || (deg & (deg - 1))) return static_cast<int>(cudaErrorInvalidValue);
-  const int ld2 = __builtin_ctz(static_cast<unsigned>(deg));
-  return bf16 ? dispatch_onehot<__nv_bfloat16>(groups, feat, x, cols, wg, out, rows, ld2,
-                                               out_gstride, stream)
-              : dispatch_onehot<float>(groups, feat, x, cols, wg, out, rows, ld2, out_gstride,
-                                       stream);
-}
-
-// K5: ungrouped bucket, optional weight, VPU or MXU body
+// K5 (and K1 at one group): the MXU body (d > 1) or the VPU body, with or
+// without a weight; ``round``: K5's product rounded to T, else K1's fmaf
 template <typename T>
-int dispatch_bucket(const void* x, const void* cols, const void* w, void* out, int64_t rows,
-                    int deg, int feat, int mxu, cudaStream_t stream) {
+int dispatch_bucket(int feat, int mxu, int round_product, const StagedArgs& a, cudaStream_t st) {
   if (mxu) {
-    return w ? launch_mma<T, 1, true>(x, cols, w, out, rows, deg, feat, 0, stream)
-             : launch_mma<T, 1, false>(x, cols, w, out, rows, deg, feat, 0, stream);
+    if (a.ld2 == 0 || !round_product) return static_cast<int>(cudaErrorInvalidValue);
+    return a.w ? by_feat<OneHotAt<T, 1>::template W>(feat, a, st)
+               : by_feat<OneHotPlain<T>::template W>(feat, a, st);
   }
-  return w ? launch_ld<T, 1, true, true>(x, cols, w, out, rows, deg, feat, 0, stream)
-           : launch_ld<T, 1, false, true>(x, cols, w, out, rows, deg, feat, 0, stream);
+  if (!a.w) return by_feat<SumAt<T, false, true>::template W>(feat, a, st);
+  return round_product ? by_feat<SumAt<T, true, true>::template W>(feat, a, st)
+               : by_feat<SumAt<T, true, false>::template W>(feat, a, st);
 }
 
 // K6: ungrouped HD rows, optional weight
@@ -529,6 +588,11 @@ int dispatch_hd_ungrouped(const void* x, const void* cols, const void* w, const 
                           void* out, int64_t n_hd, int e_t, int feat, cudaStream_t stream) {
   return w ? launch_hd<T, 1, true, true>(x, cols, w, row_chunks, out, n_hd, e_t, feat, 0, stream)
            : launch_hd<T, 1, false, true>(x, cols, w, row_chunks, out, n_hd, e_t, feat, 0, stream);
+}
+
+// log2 of a power-of-two degree, or -1
+int log2_deg(int deg) {
+  return deg < 1 || (deg & (deg - 1)) ? -1 : __builtin_ctz(static_cast<unsigned>(deg));
 }
 
 }  // namespace
@@ -554,22 +618,32 @@ extern "C" int groot_hd_grouped(const void* x, const void* cols, const void* wg,
                                    out_gstride, st);
 }
 
+// feat: x's staged width (4, 8, 16 or 32); all feat columns are stored
 extern "C" int groot_ld_grouped_mxu(const void* x, const void* cols, const void* wg, void* out,
                                     int64_t rows, int deg, int groups, int feat,
-                                    int64_t out_gstride, int bf16, void* stream) {
+                                    int64_t out_gstride, int64_t out_rstride, int bf16,
+                                    void* stream) {
   if (rows <= 0) return 0;
-  return onehot_call(x, cols, wg, out, rows, deg, groups, feat, out_gstride, bf16,
-                     static_cast<cudaStream_t>(stream));
+  const int ld2 = log2_deg(deg);
+  if (ld2 < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const StagedArgs a{x, cols, wg, out, rows, ld2, out_gstride, out_rstride};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? dispatch_onehot<__nv_bfloat16>(groups, feat, a, st)
+              : dispatch_onehot<float>(groups, feat, a, st);
 }
 
-// w may be null (no weights: the plain A @ x)
+// w may be null (no weights: the plain A @ x); feat as for
+// groot_ld_grouped_mxu
 extern "C" int groot_ld_bucket(const void* x, const void* cols, const void* w, void* out,
-                               int64_t rows, int deg, int feat, int mxu, int bf16,
-                               void* stream) {
+                               int64_t rows, int deg, int feat, int64_t out_rstride, int mxu,
+                               int round_product, int bf16, void* stream) {
   if (rows <= 0) return 0;
+  const int ld2 = log2_deg(deg);
+  if (ld2 < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const StagedArgs a{x, cols, w, out, rows, ld2, 0, out_rstride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_bucket<__nv_bfloat16>(x, cols, w, out, rows, deg, feat, mxu, st)
-              : dispatch_bucket<float>(x, cols, w, out, rows, deg, feat, mxu, st);
+  return bf16 ? dispatch_bucket<__nv_bfloat16>(feat, mxu, round_product, a, st)
+              : dispatch_bucket<float>(feat, mxu, round_product, a, st);
 }
 
 extern "C" int groot_hd(const void* x, const void* cols, const void* w, const void* row_chunks,

@@ -1,13 +1,15 @@
 // A warp's walk over the 16-row tiles of one ELL bucket, its gather staged
-// through shared memory by cp.async (K3 fused_sage.cu, K4 groot_spmm.cu).
+// through shared memory by cp.async (K3 and K7 fused_sage.cu; K4 and both
+// K5 bodies groot_spmm.cu).
 //
 // A tile's 16 * d edge slots are cut into chunks of kChunk slots, and each
 // warp walks the chunks of its tiles in order (tiles strided over every warp
 // of the grid).  Per chunk, two copies run ahead of the arithmetic:
-//  * meta: the chunk's column indices and its G weights a slot, straight
-//    from the bucket's contiguous slabs (16-byte copies), two chunks ahead;
-//  * rows: each slot's x row, gathered through its column index, one chunk
-//    ahead (16-byte copies, or one 8-byte copy for an 8-byte row).
+//  * meta: the chunk's column indices and its G weights a slot (none for a
+//    stream without weights), straight from the bucket's contiguous slabs
+//    (16-byte copies), two chunks ahead;
+//  * rows: each slot's x row (F of T), gathered through its column index,
+//    one chunk ahead (16-byte copies, or one 8-byte copy for an 8-byte row).
 // So while a warp computes chunk q, chunk q + 1's rows and chunk q + 2's
 // indices are in flight (a deeper ring of rows measured no faster).  Each staged row takes a 128-byte line of shared
 // memory; its 16-byte units are permuted by an XOR with a key the kernel
@@ -135,8 +137,8 @@ __device__ __forceinline__ int64_t walk_steps(int64_t rows, int group, int64_t f
   return first < units ? (units - 1 - first) / stride + 1 : 0;
 }
 
-// Copies of a chunk's column indices and weights into meta stage m.
-template <typename T, int G>
+// Copies of a chunk's column indices and (kWeights) weights into meta stage m.
+template <bool kWeights, typename T, int G>
 __device__ __forceinline__ void issue_meta(Ring<T, G>& ring, int m, const Chunk& c,
                                            const int32_t* __restrict__ cols,
                                            const T* __restrict__ wg, int lane) {
@@ -144,13 +146,15 @@ __device__ __forceinline__ void issue_meta(Ring<T, G>& ring, int m, const Chunk&
   if (lane * 16 < col_bytes)
     cp_async<16>(smem_u32(&ring.cols[m][0]) + lane * 16, cols + c.start + lane * 4,
                  min(16, col_bytes - lane * 16));
-  constexpr int kWBytes = kChunk * G * static_cast<int>(sizeof(T));
-  const int w_bytes = c.n * G * static_cast<int>(sizeof(T));
-  const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(wg + c.start * G);
+  if constexpr (kWeights) {
+    constexpr int kWBytes = kChunk * G * static_cast<int>(sizeof(T));
+    const int w_bytes = c.n * G * static_cast<int>(sizeof(T));
+    const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(wg + c.start * G);
 #pragma unroll
-  for (int off = lane * 16; off < kWBytes; off += kWarp * 16)
-    if (off < w_bytes)
-      cp_async<16>(smem_u32(&ring.w[m][0]) + off, wsrc + off, min(16, w_bytes - off));
+    for (int off = lane * 16; off < kWBytes; off += kWarp * 16)
+      if (off < w_bytes)
+        cp_async<16>(smem_u32(&ring.w[m][0]) + off, wsrc + off, min(16, w_bytes - off));
+  }
 }
 
 // Copies of a chunk's gathered x rows (F of T each) into row stage s; the
@@ -177,17 +181,19 @@ __device__ __forceinline__ void issue_rows(Ring<T, G>& ring, int s, int m, const
 // chunk in order, once its copies have landed, and on_tile(tile) after a
 // tile's last chunk (outside any branch: it may hold warpgroup-wide MMAs).
 // Each step q commits two copy groups, meta q + 2 and rows q + 1; at the top
-// of step q the groups in flight are meta q + 1 and rows q.
-template <typename T, int F, int G, typename Key, typename OnChunk, typename OnTile>
+// of step q the groups in flight are meta q + 1 and rows q.  kWeights: the
+// stream has weights (wg), else none are copied.
+template <typename T, int F, bool kWeights, int G, typename Key, typename OnChunk,
+          typename OnTile>
 __device__ __forceinline__ void run_walk(Ring<T, G>& ring, const Walk& walk,
                                          const int32_t* __restrict__ cols,
                                          const T* __restrict__ wg, const T* __restrict__ x,
                                          int lane, Key key, OnChunk on_chunk, OnTile on_tile) {
   if (walk.count == 0) return;
   const Chunk first = walk.at(0);
-  issue_meta(ring, 0, first, cols, wg, lane);
+  issue_meta<kWeights>(ring, 0, first, cols, wg, lane);
   cp_async_commit();
-  if (walk.count > 1) issue_meta(ring, 1, walk.at(1), cols, wg, lane);
+  if (walk.count > 1) issue_meta<kWeights>(ring, 1, walk.at(1), cols, wg, lane);
   cp_async_commit();
   cp_async_wait<1>();  // meta 0 has landed
   __syncwarp();
@@ -199,7 +205,8 @@ __device__ __forceinline__ void run_walk(Ring<T, G>& ring, const Walk& walk,
     for (int cc = 0; cc < walk.per_tile; ++cc, ++q) {
       c = walk.at(q);
       __syncwarp();  // every lane is done with the stages the next copies overwrite
-      if (q + 2 < walk.count) issue_meta(ring, (ms + 2) % 3, walk.at(q + 2), cols, wg, lane);
+      if (q + 2 < walk.count)
+        issue_meta<kWeights>(ring, (ms + 2) % 3, walk.at(q + 2), cols, wg, lane);
       cp_async_commit();
       cp_async_wait<1>();  // meta q + 1 and rows q have landed
       __syncwarp();

@@ -42,20 +42,22 @@ SIGNATURES = {
         # x, cols, wg, row_chunks, out, n_hd, e_t, groups, feat, out_gstride,
         # bf16, stream
         "groot_hd_grouped": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I32, _P),
-        # x, cols, wg, out, rows, deg, groups, feat, out_gstride, bf16, stream
-        "groot_ld_grouped_mxu": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I32, _P),
-        # x, cols, w (or null), out, rows, deg, feat, mxu, bf16, stream
-        "groot_ld_bucket": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P),
+        # x, cols, wg, out, rows, deg, groups, feat, out_gstride, out_rstride,
+        # bf16, stream
+        "groot_ld_grouped_mxu": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I64, _I32, _P),
+        # x, cols, w (or null), out, rows, deg, feat, out_rstride, mxu, round,
+        # bf16, stream
+        "groot_ld_bucket": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32, _I32, _I32, _P),
         # x, cols, w (or null), row_chunks, out, n_hd, e_t, feat, bf16, stream
         "groot_hd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
     },
     "fused_sage": {
-        # x, cols, wg, w_stack, out, rows, deg, groups, feat, hid, bf16, stream
-        "fused_ld_grouped": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P),
-        # groups, feat, hid, bf16 -> dynamic shared memory of one K3 block (-1: none)
-        "fused_ld_grouped_smem": (_I32, _I32, _I32, _I32),
-        # x, cols, w (or null), w_mat, out, rows, deg, feat, hid, bf16, stream
-        "fused_ld": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P),
+        # x, cols, wg (or null), w, out, rows, deg, groups, feat, w_gstride, hp,
+        # out_stride, mode, bf16, stream
+        "fused_ld_staged": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I32, _I64, _I32,
+                            _I32, _P),
+        # groups, feat, hp, mode, bf16 -> dynamic shared memory of one block (-1: none)
+        "fused_ld_staged_smem": (_I32, _I32, _I32, _I32, _I32),
     },
     "flash_attention": {
         # q, k, v, o, bh, s, t, hd, group, causal, window, scale, softcap,

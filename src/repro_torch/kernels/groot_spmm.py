@@ -21,15 +21,18 @@ the reference's, ``rows_per_tile`` included.  The device walks run the SpMM
      the tensor cores (``ld_grouped_apply(mxu=True)`` for d > 1); replaces
      ``_ld_kernel_grouped_mxu``.
   K5 ``ld_bucket_apply``       ungrouped LD rows, optional weight, VPU body or
-     (``mxu=True``, d > 1) tensor-core body; replaces ``_ld_kernel`` and
-     ``_ld_kernel_mxu``.
+     (``mxu=True``, d > 1) tensor-core body, both gathering through K4's
+     staged ring; replaces ``_ld_kernel`` and ``_ld_kernel_mxu``.
   K6 ``hd_apply``              ungrouped HD rows; replaces ``_hd_kernel``.
 
 Unlike the TPU walk, the kernels gather ``x_p[cols]`` themselves (no message
 slab in device memory) and the feature axis is not padded to a 128-lane
 quantum: ``x_p`` is ``(N + 1, F)`` with one zero row at index N, the target of
-every pad column.  Each wrapper runs its plain PyTorch version on a CPU tensor
-and its kernel on a CUDA tensor, and counts its kernel launches.
+every pad column.  The staged bodies (K3, K4, K5, K7) are built for rows of
+4, 8, 16 or 32 features; other widths are zero-padded to the next of these,
+or run as 32-column slices (:func:`staged_slices`).  Each wrapper runs its
+plain PyTorch version on a CPU tensor and its kernel on a CUDA tensor, and
+counts its kernel launches.
 
 Where the product of a message and its weight is rounded follows the
 reference: the grouped VPU kernels (K1, K2) widen both to f32 and multiply
@@ -408,27 +411,91 @@ def ptr(t: Optional[torch.Tensor]):
 
 #: shared memory a block may use (H100: 227 KB)
 MAX_SMEM = 227 * 1024
-#: the feature widths K3's and K4's staged bodies are built for
+#: the row widths (features) the staged bodies of K3, K4, K5 and K7 are built for
 STAGED_FEATS = (4, 8, 16, 32)
+#: wider rows run as slices of the widest
+SLICE = STAGED_FEATS[-1]
 
 
-def check_staged(name: str, x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor, deg: int,
-                 out: torch.Tensor, smem: int = 0) -> None:
-    """Reject, before a K3 or K4 launch, what their staged bodies do not
-    take: a degree that is not a power of two, a feature width outside
-    :data:`STAGED_FEATS`, inputs off 16-byte boundaries (the gather copies
-    16 bytes at a time), an output off 8-byte boundaries (two floats a
-    store), or a block over the shared memory one may use (``smem``, K3's,
-    which grows with H; < 0: no body for this shape)."""
+def staged_slices(feat: int) -> tuple[int, tuple]:
+    """How the staged bodies cover rows of ``feat`` features: the width x is
+    zero-padded to (the next of :data:`STAGED_FEATS`, or else the next
+    multiple of :data:`SLICE`), and one launch per slice ``(first column,
+    staged width, columns stored)``.  Zero columns add zero terms to every
+    sum, so each slice's stored columns are the unpadded result's."""
+    if feat < 1:
+        raise ValueError(f"a row of {feat} features")
+    if feat <= SLICE:
+        width = next(f for f in STAGED_FEATS if f >= feat)
+        return width, ((0, width, feat),)
+    width = -(-feat // SLICE) * SLICE
+    return width, tuple((c, SLICE, min(SLICE, feat - c)) for c in range(0, width, SLICE))
+
+
+def pad_columns(t: torch.Tensor, width: int, dim: int = -1) -> torch.Tensor:
+    """``t`` with zero columns appended along ``dim`` up to ``width``; ``t``
+    itself (nothing copied) when it has that width already."""
+    extra = width - t.shape[dim]
+    if extra == 0:
+        return t
+    shape = list(t.shape)
+    shape[dim] = extra
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+def stage_width(x_p: torch.Tensor, w_stack: Optional[torch.Tensor] = None) -> tuple:
+    """The staged bodies' width handling, in plain PyTorch: ``(xs, slices,
+    ws)`` with ``xs`` x_p zero-padded to its staged width, ``slices`` the
+    launches of :func:`staged_slices`, and, for a fused body, ``ws`` its
+    (G, F, H) weight stack zero-padded to match: rows to xs's width, columns
+    to a multiple of :data:`SLICE` (the body's wgmma chunks).  Nothing is
+    copied where no padding is needed (F = H = 32 and F = 4 at the model's
+    width).  Each slice of a wider row goes to its kernel as a contiguous
+    copy (:func:`staged_slice`: x itself for one slice), so the kernels
+    read rows of their staged width alone; they store every column of a
+    slice (:func:`staged_out`).  The sum bodies' slices lie side
+    by side, the fused bodies' add up."""
+    width, slices = staged_slices(x_p.shape[1])
+    xs = pad_columns(x_p, width)
+    if w_stack is None:
+        return xs, slices, None
+    hp = -(-w_stack.shape[2] // SLICE) * SLICE
+    return xs, slices, pad_columns(pad_columns(w_stack, hp), width, dim=1)
+
+
+def staged_out(out: torch.Tensor, c0: int, width: int, valid: int, align: int) -> tuple:
+    """Where a staged launch stores its ``width`` columns, ``out``'s from
+    ``c0`` on: ``(dst, scratch)``, with ``dst`` those columns themselves
+    when all ``width`` are real (``valid == width``) and the kernel's
+    ``align``-byte vector stores reach every row, else an f32 scratch of
+    the slice's shape, whose ``valid`` columns the caller then puts into
+    ``out`` (an extra pass, at widths that need padding)."""
+    if valid == width and (out.data_ptr() + 4 * c0) % align == 0 and all(
+            s * 4 % align == 0 for s in out.stride()[:-1]):
+        return (out if width == out.shape[-1] else out[..., c0:c0 + width]), False
+    return torch.empty(out.shape[:-1] + (width,), dtype=torch.float32, device=out.device), True
+
+
+def staged_slice(xs: torch.Tensor, c0: int, width: int) -> torch.Tensor:
+    """The x a slice's launch reads: ``xs`` itself when one slice covers the
+    row, else that slice's columns as a contiguous copy (held by the caller
+    until the launch is queued)."""
+    return xs if width == xs.shape[1] else xs[:, c0:c0 + width].contiguous()
+
+
+def check_staged(name: str, x_p: torch.Tensor, cols: torch.Tensor, w: Optional[torch.Tensor],
+                 deg: int, smem: int = 0) -> None:
+    """Reject, before a launch of a staged body (K3, K4, K5, K7; ``x_p``
+    already padded to its staged width), what no body takes: a degree that
+    is not a power of two, inputs off 16-byte boundaries (the gather copies
+    16 bytes at a time), or a block over the shared memory one may use
+    (``smem``: K3's and K7's grows with W's columns, which run in blocks
+    that fit; < 0: no body for this shape)."""
     if deg & (deg - 1):
         raise ValueError(f"{name}: degree {deg} is not a power of two")
-    if x_p.shape[1] not in STAGED_FEATS:
-        raise ValueError(f"{name}: feature width {x_p.shape[1]} not in {STAGED_FEATS}")
-    for label, t in (("x_p", x_p), ("cols", cols), ("wg", wg)):
-        if t.data_ptr() % 16:
+    for label, t in (("x_p", x_p), ("cols", cols), ("w", w)):
+        if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} must start on a 16-byte boundary")
-    if out.data_ptr() % 8 or out.stride(0) % 2:
-        raise ValueError(f"{name}: out must start on an 8-byte boundary, rows of even stride")
     if not 0 <= smem <= MAX_SMEM:
         raise ValueError(f"{name}: a block would need {smem} B of shared memory, "
                          f"over the {MAX_SMEM} B it may use")
@@ -482,15 +549,20 @@ def ld_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor, de
     x_p (N + 1, F) f32/bf16, cols (R * deg,) int32, wg (R * deg, G) of
     x_p's dtype -> ``out`` (G, R, F) f32, which may be a row slice of a
     larger buffer (rows contiguous, any group stride).  CPU tensors run
-    :func:`ld_grouped_plain`; CUDA tensors launch the kernel.  ``mxu`` sends
-    buckets of degree > 1 to K4 (:func:`ld_grouped_mxu_apply`), as the
-    reference's ``groot_mxu`` backend does.
+    :func:`ld_grouped_plain`; CUDA tensors launch the kernel (one group:
+    K5's staged VPU body with K1's rounding, a power-of-two degree).
+    ``mxu`` sends buckets of degree > 1 to K4 (:func:`ld_grouped_mxu_apply`),
+    as the reference's ``groot_mxu`` backend does.
     """
     if mxu and deg > 1:
         return ld_grouped_mxu_apply(x_p, cols, wg, deg, out)
     g, rows, feat, out = _grouped_ld_io("ld_grouped_apply", x_p, cols, wg, deg, out)
     if not on_cuda("ld_grouped_apply", x_p):
         out.copy_(ld_grouped_plain(x_p, cols, wg, deg))
+        return out
+    if g == 1:  # K5's VPU body with K1's rounding (widen, then fmaf)
+        ld_grouped_apply.launches += _staged_ld("ld_grouped_apply", x_p, cols, wg, deg, out[0],
+                                                mxu=False, round_product=False)
         return out
     rc = build.library("groot_spmm").groot_ld_grouped(
         x_p.data_ptr(), cols.data_ptr(), wg.data_ptr(), out.data_ptr(),
@@ -525,19 +597,27 @@ def ld_grouped_mxu_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor
     """K4: K1's grouped LD row sums as one-hot block-diagonal matrix
     products on the tensor cores.  Same shapes and layout as
     :func:`ld_grouped_apply`.  CPU tensors run :func:`ld_grouped_mxu_plain`;
-    CUDA tensors launch the kernel, which takes power-of-two degrees and
-    feature widths in :data:`STAGED_FEATS` (:func:`check_staged`)."""
+    CUDA tensors launch the kernel, which takes power-of-two degrees, once
+    per slice of :func:`staged_slices` (x zero-padded to its staged width:
+    nothing copied at 4, 8, 16, 32 or a multiple of 32 features)."""
     g, rows, feat, out = _grouped_ld_io("ld_grouped_mxu_apply", x_p, cols, wg, deg, out)
     if not on_cuda("ld_grouped_mxu_apply", x_p):
         out.copy_(ld_grouped_mxu_plain(x_p, cols, wg, deg))
         return out
-    check_staged("ld_grouped_mxu_apply", x_p, cols, wg, deg, out)
-    rc = build.library("groot_spmm").groot_ld_grouped_mxu(
-        x_p.data_ptr(), cols.data_ptr(), wg.data_ptr(), out.data_ptr(),
-        rows, deg, g, feat, out.stride(0), int(x_p.dtype == torch.bfloat16), stream(x_p),
-    )
-    build.check(rc, "ld_grouped_mxu_apply")
-    ld_grouped_mxu_apply.launches += 1
+    xs, slices, _ = stage_width(x_p)
+    check_staged("ld_grouped_mxu_apply", xs, cols, wg, deg)
+    lib = build.library("groot_spmm")
+    for c0, sw, valid in slices:
+        xc = staged_slice(xs, c0, sw)
+        dst, scratch = staged_out(out, c0, sw, valid, 8)
+        rc = lib.groot_ld_grouped_mxu(
+            xc.data_ptr(), cols.data_ptr(), wg.data_ptr(), dst.data_ptr(), rows, deg, g, sw,
+            dst.stride(0), dst.stride(1), int(xs.dtype == torch.bfloat16), stream(xs),
+        )
+        build.check(rc, "ld_grouped_mxu_apply")
+        ld_grouped_mxu_apply.launches += 1
+        if scratch:
+            out[..., c0:c0 + valid].copy_(dst[..., :valid])
     return out
 
 
@@ -616,12 +696,47 @@ def weighted_msgs(x_p: torch.Tensor, cols: torch.Tensor,
     return msgs if w is None else msgs * w[:, None]
 
 
+def ordered_rowsum(terms: torch.Tensor, deg: int) -> torch.Tensor:
+    """ELL row sums of (R * deg, F) f32 terms -> (R, F), each row's slots
+    added one after another in ascending order, as K5's VPU body and K7 add
+    them (another order moves a sum of cancelling terms by more than the
+    card tests' tolerance of its result)."""
+    t = terms.reshape(-1, deg, terms.shape[1])
+    out = t[:, 0].clone()
+    for k in range(1, deg):
+        out += t[:, k]
+    return out
+
+
 def ld_bucket_plain(x_p: torch.Tensor, cols: torch.Tensor, deg: int,
                     w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of K5 (both bodies): weighted messages, then
-    the f32 reshape-sum.  x_p (N + 1, F), cols (R * deg,), w (R * deg,) or
-    None -> (R, F) f32."""
-    return kref.ell_block_reduce_ref(weighted_msgs(x_p, cols, w).float(), None, deg)
+    f32 row sums in slot order (:func:`ordered_rowsum`).  x_p (N + 1, F),
+    cols (R * deg,), w (R * deg,) or None -> (R, F) f32."""
+    return ordered_rowsum(weighted_msgs(x_p, cols, w).float(), deg)
+
+
+def _staged_ld(name: str, x_p: torch.Tensor, cols: torch.Tensor, w: Optional[torch.Tensor],
+               deg: int, out: torch.Tensor, *, mxu: bool, round_product: bool) -> int:
+    """Launch K5's staged VPU body, or its MXU body when ``mxu``, over one
+    bucket, once per slice of :func:`staged_slices`; ``round_product``: the
+    product x * w rounded to the stream dtype (K5), else widened and fused
+    (K1 at one group).  Returns the number of launches."""
+    xs, slices, _ = stage_width(x_p)
+    check_staged(name, xs, cols, w, deg)
+    lib, rows = build.library("groot_spmm"), cols.shape[0] // deg
+    for c0, sw, valid in slices:
+        xc = staged_slice(xs, c0, sw)
+        # the VPU body stores 16 bytes at a time, the MXU body 8
+        dst, scratch = staged_out(out, c0, sw, valid, 8 if mxu else 16)
+        rc = lib.groot_ld_bucket(
+            xc.data_ptr(), cols.data_ptr(), ptr(w), dst.data_ptr(), rows, deg, sw, dst.stride(0),
+            int(mxu), int(round_product), int(xs.dtype == torch.bfloat16), stream(xs),
+        )
+        build.check(rc, name)
+        if scratch:
+            out[:, c0:c0 + valid].copy_(dst[:, :valid])
+    return len(slices)
 
 
 def ld_bucket_apply(x_p: torch.Tensor, cols: torch.Tensor, deg: int,
@@ -632,9 +747,12 @@ def ld_bucket_apply(x_p: torch.Tensor, cols: torch.Tensor, deg: int,
     x_p (N + 1, F) f32/bf16, cols (R * deg,) int32, w (R * deg,) of x_p's
     dtype or None (no weight bytes read: the plain ``A @ x``) -> ``out``
     (R, F) f32 (contiguous rows; may be a row slice of a larger buffer).
-    ``mxu`` and deg > 1 run the tensor-core body (K4's code at one group),
-    else the VPU body.  CPU tensors run :func:`ld_bucket_plain`; CUDA
-    tensors launch the kernel.
+    ``mxu`` and deg > 1 run the tensor-core body (K4's staged body at one
+    group), else the VPU body (staged rows summed on the f32 units).  CPU
+    tensors run :func:`ld_bucket_plain`; CUDA tensors launch the kernel,
+    which takes power-of-two degrees, once per slice of
+    :func:`staged_slices`.  ``ld_bucket_apply.body_launches`` counts the
+    launches by body.
     """
     rows = check_deg("ld_bucket_apply", cols.shape[0], deg)
     check_weight("ld_bucket_apply", x_p, cols, w, cols.shape[0])
@@ -645,15 +763,15 @@ def ld_bucket_apply(x_p: torch.Tensor, cols: torch.Tensor, deg: int,
     if not on_cuda("ld_bucket_apply", x_p):
         out.copy_(ld_bucket_plain(x_p, cols, deg, w))
         return out
-    rc = build.library("groot_spmm").groot_ld_bucket(
-        x_p.data_ptr(), cols.data_ptr(), ptr(w), out.data_ptr(), rows, deg, feat,
-        int(mxu and deg > 1), int(x_p.dtype == torch.bfloat16), stream(x_p),
-    )
-    build.check(rc, "ld_bucket_apply")
-    ld_bucket_apply.launches += 1
+    body = "mxu" if mxu and deg > 1 else "vpu"
+    n = _staged_ld("ld_bucket_apply", x_p, cols, w, deg, out, mxu=body == "mxu",
+                   round_product=True)
+    ld_bucket_apply.launches += n
+    ld_bucket_apply.body_launches[body] += n
     return out
 
 
+ld_bucket_apply.body_launches = {"vpu": 0, "mxu": 0}
 ld_bucket_apply.launches = 0
 
 

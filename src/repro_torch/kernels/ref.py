@@ -3,9 +3,10 @@
     out[r] = sum over edges e with dst[e] == r of  w[e] * x[src[e]]
 
 which is SpMM ``A @ x`` with ``A[dst, src] = w`` in COO form.  The ``ref``
-backend runs on :func:`spmm_ref` and calls no kernel; the kernels' plain
-versions reduce through :func:`ell_block_reduce_ref` and
-:func:`hd_chunk_reduce_ref`.
+backend runs on :func:`spmm_ref` and calls no kernel; the HD kernels'
+plain versions reduce through :func:`hd_chunk_reduce_ref`, the ungrouped LD
+ones through ``groot_spmm.ordered_rowsum`` (:func:`ell_block_reduce_ref`'s
+sums in the kernels' slot order).
 """
 from __future__ import annotations
 

@@ -8,10 +8,12 @@ without one.  The file imports nothing of JAX, so it runs where the card is:
 The kernels and their plain versions round each message-weight product the
 same way (K1-K3 widen bf16 inputs to f32 exactly; K4-K7 round the product to
 the stream dtype) and accumulate in f32, so only the order of the sums
-differs, plus what the TF32 splits drop: K4's two-term split of an f32
-product at most 2^-22 of it, K3's three-term contraction at most 2 * 2^-21 of
-each aggregate-weight product (tests/test_torch_numerics.py): a tolerance of
-1e-5 relative to max(1, max|plain|) holds for f32 and bf16 streams alike.
+differs (K5's VPU body and K7 add a row's slots in the order their plain
+version does), plus what the TF32 splits drop: K4's and K5's MXU two-term
+split of an f32 product at most 2^-22 of it, K3's and K7's three-term
+contraction at most 2 * 2^-21 of each aggregate-weight product
+(tests/test_torch_numerics.py): a tolerance of 1e-5 relative to
+max(1, max|plain|) holds for f32 and bf16 streams alike.
 
 K8 (flash attention) and its plain version round at the same points (f32
 scores, p rounded to the stream dtype, f32 accumulator) and walk the same
@@ -148,55 +150,96 @@ def test_kernels_match_plain_versions(cuda, case, groups, dtype):
                    gs.hd_plain(x_p, dp.hd_cols, dp.hd_meta, e_t, w))
 
 
-# K3's and K4's staged bodies at their edges: row counts around the 16-row
-# tile and K3's 64-row warpgroup tile, and walks long enough that every warp
-# of the persistent grid takes several tiles, except at degree 512, where the
-# plain version's (G, R * deg, F) products would grow large
+# The staged bodies (K3, K4, K5's two, K7) at their edges: row counts around
+# the 16-row tile and K3's and K7's 64-row warpgroup tile, and walks long
+# enough that every warp of the persistent grid takes several tiles, except
+# at degrees 64 and 512, where the plain versions' (G, R * deg, F) products
+# would grow large.  Widths the bodies are built for (4, 8, 16, 32), ones
+# they pad (1, 24) and ones they slice (48, 64).
 EDGE_ROWS = {1: (1, 15, 63, 65, 64 * 37 + 1, 64 * 1500 + 1),
              2: (1, 15, 63, 65, 64 * 37 + 1, 64 * 1500 + 1),
-             4: (1, 15, 63, 65, 64 * 9 + 1, 64 * 1500 + 1), 512: (1, 15, 65)}
+             4: (1, 15, 63, 65, 64 * 9 + 1, 64 * 1500 + 1), 64: (1, 15, 65, 64 * 9 + 1),
+             512: (1, 15, 65)}
+EDGE_FEATS = (1, 4, 8, 16, 24, 32, 48, 64)
+EDGE_HIDS = (8, 24, 32, 40, 64)
+
+
+def _into_slice(run, shape, rows):
+    """``run(out)`` into a row slice of a larger buffer (the last axis but
+    one is rows), asserting that the other rows stay as they were."""
+    big = torch.full(shape[:-1] + (rows + 7, shape[-1]), 7.0, device="cuda")
+    got = run(big[..., 3:3 + rows, :])
+    assert (big[..., :3, :] == 7.0).all() and (big[..., 3 + rows:, :] == 7.0).all()
+    return got
 
 
 @pytest.mark.parametrize("deg", sorted(EDGE_ROWS))
-@pytest.mark.parametrize("feat", [4, 32])
+@pytest.mark.parametrize("feat", EDGE_FEATS)
 @pytest.mark.parametrize("groups", [1, 2, 3, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_staged_bodies_at_their_edges(cuda, dtype, groups, feat, deg):
-    """K3 (H = 24 and 32) and K4 (degree > 1) against their plain versions,
-    each launch counted, written into a row slice of a larger buffer whose
+    """K3 (every H of EDGE_HIDS) and K4 (degree > 1) against their plain
+    versions, and at one group K1, K5 (VPU body; MXU body at degree > 1) and
+    K7 (every H), with and without a weight, each launch counted (one a
+    32-column slice), written into a row slice of a larger buffer whose
     other rows stay as they were.  At degree 512 a tile's 8,192 slots span
     256 ring stages."""
     rng = np.random.default_rng(groups * 1000 + feat * 10 + deg)
     n = 3000
     x = torch.as_tensor(rng.standard_normal((n, feat)), dtype=torch.float32, device=cuda)
     x_p = gs.pad_features(x).to(dtype)
-    for rows in EDGE_ROWS[deg]:
+    slices = len(gs.staged_slices(feat)[1])
+    rows_list = EDGE_ROWS[deg] if feat in (4, 32) else EDGE_ROWS[deg][:-1]
+    for rows in rows_list:
         slots = rows * deg
         # some slots hit the zero pad row n, as a bucket's padding does
         cols = torch.as_tensor(rng.integers(0, n + 1, slots), dtype=torch.int32, device=cuda)
         wg = torch.as_tensor(rng.standard_normal((slots, groups)), dtype=torch.float32,
                              device=cuda).to(dtype)
-        for hid in (24, 32):
+        for hid in EDGE_HIDS:
             w_stack = torch.as_tensor(rng.standard_normal((groups, feat, hid)),
                                       dtype=torch.float32, device=cuda)
-            big = torch.full((rows + 7, hid), 7.0, device=cuda)
             before = fs.fused_ld_matmul_grouped.launches
-            got = fs.fused_ld_matmul_grouped(x_p, cols, wg, w_stack, deg, out=big[3:3 + rows])
-            assert fs.fused_ld_matmul_grouped.launches == before + 1
+            got = _into_slice(lambda o: fs.fused_ld_matmul_grouped(x_p, cols, wg, w_stack, deg,
+                                                                   out=o), (hid,), rows)
+            assert fs.fused_ld_matmul_grouped.launches == before + slices
             _close(got, fs.fused_ld_grouped_plain(x_p, cols, wg, w_stack, deg))
-            assert (big[:3] == 7.0).all() and (big[3 + rows:] == 7.0).all()
+            if groups == 1:
+                for w in (wg[:, 0].contiguous(), None):
+                    before = fs.fused_ld_matmul.launches
+                    got = _into_slice(lambda o: fs.fused_ld_matmul(x_p, cols, w_stack[0], deg, w,
+                                                                   out=o), (hid,), rows)
+                    assert fs.fused_ld_matmul.launches == before + slices
+                    _close(got, fs.fused_ld_plain(x_p, cols, w_stack[0], deg, w))
         if deg > 1:
-            big = torch.full((groups, rows + 7, feat), 7.0, device=cuda)
             before = gs.ld_grouped_mxu_apply.launches
-            got = gs.ld_grouped_apply(x_p, cols, wg, deg, out=big[:, 3:3 + rows], mxu=True)
-            assert gs.ld_grouped_mxu_apply.launches == before + 1
+            got = _into_slice(lambda o: gs.ld_grouped_apply(x_p, cols, wg, deg, out=o, mxu=True),
+                              (groups, feat), rows)
+            assert gs.ld_grouped_mxu_apply.launches == before + slices
             _close(got, gs.ld_grouped_mxu_plain(x_p, cols, wg, deg))
-            assert (big[:, :3] == 7.0).all() and (big[:, 3 + rows:] == 7.0).all()
+        if groups == 1:
+            before = gs.ld_grouped_apply.launches
+            got = _into_slice(lambda o: gs.ld_grouped_apply(x_p, cols, wg, deg, out=o),
+                              (1, feat), rows)
+            assert gs.ld_grouped_apply.launches == before + slices
+            _close(got, gs.ld_grouped_plain(x_p, cols, wg, deg))
+            for w in (wg[:, 0].contiguous(), None):
+                for mxu in (False, True):
+                    body = "mxu" if mxu and deg > 1 else "vpu"
+                    before = dict(gs.ld_bucket_apply.body_launches)
+                    got = _into_slice(lambda o: gs.ld_bucket_apply(x_p, cols, deg, w, mxu=mxu,
+                                                                   out=o), (feat,), rows)
+                    assert gs.ld_bucket_apply.body_launches == {
+                        **before, body: before[body] + slices}
+                    _close(got, gs.ld_bucket_plain(x_p, cols, deg, w))
 
 
 def test_staged_bodies_refuse_what_they_cannot_take(cuda):
-    """K3 and K4 raise on a CUDA shape their staged bodies do not take,
-    rather than run the plain version."""
+    """The staged bodies raise on a CUDA shape none of them takes (a
+    degree that is not a power of two, an input off a 16-byte boundary)
+    rather than run the plain version, and take every width and H: here
+    F = 12, H = 20, and K3's and K7's W too wide for one block's shared
+    memory, which runs in blocks of its columns."""
     x_p = torch.zeros((11, 32), device=cuda)
     cols = torch.zeros(30, dtype=torch.int32, device=cuda)
     wg = torch.ones((30, 2), device=cuda)
@@ -205,14 +248,68 @@ def test_staged_bodies_refuse_what_they_cannot_take(cuda):
         fs.fused_ld_matmul_grouped(x_p, cols, wg, w_stack, 3)
     with pytest.raises(ValueError, match="power of two"):
         gs.ld_grouped_mxu_apply(x_p, cols, wg, 3)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        fs.fused_ld_matmul_grouped(x_p, cols, wg, torch.ones((2, 32, 20), device=cuda), 2)
-    x12 = torch.zeros((11, 12), device=cuda)
-    with pytest.raises(ValueError, match="feature width"):
-        gs.ld_grouped_mxu_apply(x12, cols, wg, 2)
+    with pytest.raises(ValueError, match="power of two"):
+        gs.ld_bucket_apply(x_p, cols, 3)
+    with pytest.raises(ValueError, match="power of two"):
+        fs.fused_ld_matmul(x_p, cols, w_stack[0], 3)
+    off = torch.zeros(11 * 32 + 1, device=cuda)[1:].view(11, 32)
     with pytest.raises(ValueError, match="16-byte"):
-        gs.ld_grouped_mxu_apply(torch.zeros(11 * 32 + 1, device=cuda)[1:].view(11, 32), cols,
-                                wg, 2)
+        gs.ld_grouped_mxu_apply(off, cols, wg, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        gs.ld_bucket_apply(off, cols, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        gs.ld_bucket_apply(x_p, torch.zeros(31, dtype=torch.int32, device=cuda)[1:], 2)
+    x12 = torch.ones((11, 12), device=cuda)
+    _close(gs.ld_grouped_mxu_apply(x12, cols, wg, 2), gs.ld_grouped_mxu_plain(x12, cols, wg, 2))
+    w20 = torch.ones((2, 12, 20), device=cuda)
+    _close(fs.fused_ld_matmul_grouped(x12, cols, wg, w20, 2),
+           fs.fused_ld_grouped_plain(x12, cols, wg, w20, 2))
+    gen = torch.Generator(cuda).manual_seed(0)
+    xr = torch.randn((11, 32), generator=gen, device=cuda)
+    colr = torch.randint(0, 11, (30,), generator=gen, device=cuda, dtype=torch.int32)
+    wide = torch.randn((2, 32, 1000), generator=gen, device=cuda)
+    before = fs.fused_ld_matmul_grouped.launches
+    _close(fs.fused_ld_matmul_grouped(xr, colr, wg, wide, 2),
+           fs.fused_ld_grouped_plain(xr, colr, wg, wide, 2))
+    assert fs.fused_ld_matmul_grouped.launches - before > 1
+    before = fs.fused_ld_matmul.launches
+    _close(fs.fused_ld_matmul(xr, colr, wide[0], 2), fs.fused_ld_plain(xr, colr, wide[0], 2))
+    assert fs.fused_ld_matmul.launches - before > 1
+
+
+def _random_params(hidden: int, seed: int) -> dict:
+    """A GNNConfig(hidden=hidden) params tree from a seeded numpy generator,
+    each matrix scaled by 1 / sqrt(its fan-in)."""
+    rng = np.random.default_rng(seed)
+    cfg = gnn.GNNConfig(hidden=hidden)
+    dims = [cfg.in_features] + [hidden] * cfg.num_layers
+
+    def mat(a, b):
+        return (rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32)
+
+    return {"layers": [{**{nm: mat(a, b) for nm in gnn.LAYER_WEIGHTS},
+                        "b": (0.1 * rng.standard_normal(b)).astype(np.float32)}
+                       for a, b in zip(dims, dims[1:])],
+            "head": {"w": mat(hidden, cfg.num_classes),
+                     "b": np.zeros(cfg.num_classes, np.float32)}}
+
+
+@pytest.mark.parametrize("hidden", [24, 64])
+def test_session_at_other_hidden_widths_matches_ref(cuda, hidden):
+    """groot_fused and groot_mxu run a hidden width the staged bodies pad
+    (24) or slice (64) on the card and give ref's verdict and predictions
+    on the same params."""
+    params = gnn.params_from_numpy(_random_params(hidden, hidden), device=cuda)
+    want = Session(params, backend="ref").verify(dataset="csa", bits=16,
+                                                 return_predictions=True)
+    for backend, kernel in (("groot_fused", fs.fused_ld_matmul_grouped),
+                            ("groot_mxu", gs.ld_grouped_mxu_apply)):
+        before = kernel.launches
+        got = Session(params, backend=backend).verify(dataset="csa", bits=16,
+                                                      return_predictions=True)
+        assert kernel.launches > before
+        assert got.verdict == want.verdict
+        np.testing.assert_array_equal(got.predictions, want.predictions)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

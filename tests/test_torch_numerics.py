@@ -1,4 +1,5 @@
-"""The numerics argument behind K3's and K4's tensor-core bodies, on the CPU.
+"""The numerics argument behind the tensor-core bodies (K3 and K7, K4 and
+K5's MXU body), on the CPU.
 
 The card's TF32 tensor cores see 10 explicit mantissa bits.  The kernels keep
 f32 accuracy by splitting an f32 value v into hi = tf32(v) and lo =
@@ -9,8 +10,10 @@ from zero, on the 13 dropped bits), so v = hi + lo + e with |e| <= 2^-22 |v|.
   three products a_hi w_hi + a_hi w_lo + a_lo w_hi; what that drops is at
   most 3 * 2^-22 (1 + 2^-10) of each |a w|, so per output
       |approx - a @ W| <= 2 * 2^-21 * sum_k |a_k w_k|.
+  K7 is the same body at one group: a is one group's (row, F) aggregate.
 * K4 splits each rounded product p = x * w into hi + lo and sums both with
   the exact one-hot A: per output |approx - sum p| <= 2^-21 / 2 * sum |p|.
+  K5's MXU body is the same at one group.
 
 Both are held here against an f64 product with torch's own model of the
 rounding, and shown to stay under the card tests' and ``chip_smoke.py``'s
@@ -116,17 +119,29 @@ def test_tf32_model_rounds_to_nearest_ties_away():
     assert ((v.double() - hi.double() - lo.double()).abs() <= 2.0**-22 * v.double().abs()).all()
 
 
-@pytest.mark.parametrize("layer", range(4))
-def test_k3_split_holds_its_bound_under_the_tolerance_at_the_path(layers, layer):
-    agg, w, *_ = layers[layer]
-    worst, scale = check_three_term(agg, w)
+# the grouped bodies at the fanin's four groups, the ungrouped ones at one
+BODY_GROUPS = {"K3": 4, "K7": 1, "K4": 4, "K5": 1}
+
+
+def _layer_bodies(grouped: str, ungrouped: str) -> list:
+    """(layer, body) cases: the grouped body's keep their ids, the
+    ungrouped body's add its name."""
+    return ([pytest.param(i, grouped, id=str(i)) for i in range(4)]
+            + [pytest.param(i, ungrouped, id=f"{i}-{ungrouped}") for i in range(4)])
+
+
+@pytest.mark.parametrize("layer, body", _layer_bodies("K3", "K7"))
+def test_k3_split_holds_its_bound_under_the_tolerance_at_the_path(layers, layer, body):
+    agg, w, msgs, *_ = layers[layer]
+    k = BODY_GROUPS[body] * msgs.shape[2]          # group-major: the first groups' columns
+    worst, scale = check_three_term(agg[:, :k], w[:k])
     assert worst <= TOL * max(1.0, scale), (worst, scale)
 
 
-@pytest.mark.parametrize("layer", range(4))
-def test_k4_split_holds_its_bound_under_the_tolerance_at_the_path(layers, layer):
+@pytest.mark.parametrize("layer, body", _layer_bodies("K4", "K5"))
+def test_k4_split_holds_its_bound_under_the_tolerance_at_the_path(layers, layer, body):
     *_, msgs, dst, n = layers[layer]
-    p = msgs.float()                                    # x * w rounded to f32, as K4 takes it
+    p = msgs[:, :BODY_GROUPS[body]].float()             # x * w rounded to f32, as K4 takes it
     hi, lo = split(p)
     exact = torch.zeros((n,) + p.shape[1:], dtype=torch.float64).index_add_(0, dst, p.double())
     approx = torch.zeros_like(exact).index_add_(0, dst, hi.double() + lo.double())
