@@ -9,12 +9,12 @@ Phases (any failure raises and the script exits non-zero):
  2. build     the CUDA kernels, compiled from ``src/repro_torch/csrc`` (timed);
               the compiler's report for the staged bodies (K3 and K7
               ``fused_staged_kernel``, K4 and K5's MXU body
-              ``ld_onehot_staged_kernel``, K5's VPU body ``ld_staged_kernel``:
-              registers, spills and warnings of each instantiation) and their
-              HGMMA (K3, K7) or HMMA (K4, K5 MXU) and LDGSTS counts by
-              ``cuobjdump`` (none fails, as does any instantiation of the
-              bodies they replaced: ``fused_kernel``, ``ld_mma_kernel``,
-              ``ld_kernel`` at one group)
+              ``ld_onehot_staged_kernel``, K5's VPU body ``ld_staged_kernel``,
+              K2 and K6 ``hd_staged_kernel``: registers, spills and warnings
+              of each instantiation) and their HGMMA (K3, K7) or HMMA (K4, K5
+              MXU) and LDGSTS counts by ``cuobjdump`` (none fails, as does any
+              instantiation of the bodies they replaced: ``fused_kernel``,
+              ``ld_mma_kernel``, ``ld_kernel`` at one group, ``hd_kernel``)
  3. parity    every kernel against its plain PyTorch version at the
               csa-<bits> shapes, f32 and bf16 streams, hidden width 32 and
               the 4-wide first layer: K1 grouped LD, K2 grouped HD, K3
@@ -23,9 +23,12 @@ Phases (any failure raises and the script exits non-zero):
               > 1); K5 ungrouped LD (every bucket, with and without a
               weight, VPU and MXU bodies), K6 ungrouped HD, K7 ungrouped
               fused LD (the fanin buckets, with and without a weight).
-              Kernel, plain and library (``torch.sparse.mm``) times by CUDA
-              events; K3's and K4's bf16 times at F=32 beside their f32
-              times; K5's VPU and MXU bodies timed apart.  Then K3, K4, K5
+              Kernel, plain and library (``torch.sparse.mm``; for K2 and K6
+              over the HD rows alone) times by CUDA events; K3's and K4's
+              bf16 times at F=32 beside their f32 times; K5's VPU and MXU
+              bodies timed apart; K2 and K6 timed at F=32 and F=4, f32 and
+              bf16, one call and calls back to back, beside their bound and
+              their floor without L2 reuse.  Then K3, K4, K5
               and K7 at the widths the staged bodies pad or slice (F = H =
               24 and 64) on the first WIDTH_ROWS rows of every bucket.
  4. spmm      the paper's single SpMM, ``ops.groot_spmm(x, src, dst, n, w)``
@@ -40,7 +43,11 @@ Phases (any failure raises and the script exits non-zero):
               ``groot_mxu`` forward counted (one a bucket a layer), and
               every K5 launch (by body) of phase 4 and of the per-group
               forwards and every K7 launch of the per-group ``groot_fused``
-              forward (one a bucket a group a layer); the
+              forward (one a bucket a group a layer), and every K2 and K6
+              launch of every path that runs them (K2 one a layer of a
+              grouped forward and of a ``Session.verify``, K6 one a fanout
+              group a layer of a per-group forward and one a fanout
+              ``groot_spmm``), all on ``hd_staged_kernel``; the
               ``groot``, ``groot_fused`` and ``groot_mxu`` forwards
               profiled (device time by kernel, idle share).  ``onehot``
               against ``ref`` at csa-32 (its (E, N) one-hot cannot exist at
@@ -186,6 +193,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def back_to_back_ms(fn, reps: int) -> float:
+    """Milliseconds a call of ``fn`` with ``reps`` calls queued back to back
+    between two CUDA events: the card's time a call wherever the host
+    queues them faster than the card runs them (no host time before the
+    first launch, unlike :func:`cuda_ms`)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(bytes_: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -304,15 +330,17 @@ def k8_build_report() -> dict:
 # the staged bodies: kernel -> (library, its tensor-core opcode or None)
 STAGED_BODIES = {"fused_staged_kernel": ("fused_sage", "HGMMA"),
                  "ld_onehot_staged_kernel": ("groot_spmm", "HMMA"),
-                 "ld_staged_kernel": ("groot_spmm", None)}
+                 "ld_staged_kernel": ("groot_spmm", None),
+                 "hd_staged_kernel": ("groot_spmm", None)}
 # each staged kernel of the summary: its body (K5: the VPU body's; its MXU
 # body is K4's at one group)
 STAGED_KERNELS = {"fused_ld_grouped": "fused_staged_kernel",
                   "ld_grouped_mxu": "ld_onehot_staged_kernel",
                   "ld_bucket": "ld_staged_kernel", "fused_ld": "fused_staged_kernel"}
 # instantiations of the bodies the staged ones replaced (none may remain):
-# the first K3's and K7's fused_kernel, K5's ld_mma_kernel, ld_kernel at one group
-REPLACED = r"(fused_kernelI|ld_mma_kernelI|ld_kernelI(?:f|13__nv_bfloat16)Li1E)"
+# the first K3's and K7's fused_kernel, K5's ld_mma_kernel, ld_kernel at one
+# group, K2's and K6's hd_kernel (one block a row)
+REPLACED = r"(fused_kernelI|ld_mma_kernelI|ld_kernelI(?:f|13__nv_bfloat16)Li1E|\dhd_kernelI)"
 
 
 def sass_by_function(lib: str) -> dict:
@@ -351,6 +379,8 @@ def staged_label(mangled: str):
         "ld_onehot_staged_kernel": dt + r"Li(\d)ELi(\d+)ELb([01])E",
         # <T, F, kWeighted, kRound>: K5 (round), K1 at one group (fmaf)
         "ld_staged_kernel": dt + r"Li(\d+)ELb([01])ELb([01])E",
+        # <T, G, F, kWeighted, kRound>: K2 (1, 0), K6 with a weight (1, 1), K6 (0, 1)
+        "hd_staged_kernel": dt + r"Li(\d)ELi(\d+)ELb([01])ELb([01])E",
     }
     for kern, pat in pats.items():
         m = re.search(r"\d" + kern + pat, mangled)
@@ -358,8 +388,9 @@ def staged_label(mangled: str):
             continue
         g = m.groups()
         t = "f32" if g[0] == "f" else "bf16"
-        if kern == "fused_staged_kernel":
-            mode = {("1", "0"): "K3", ("1", "1"): "K7 w", ("0", "1"): "K7"}.get(g[3:], "?")
+        if kern in ("fused_staged_kernel", "hd_staged_kernel"):
+            k = ("K3", "K7") if kern == "fused_staged_kernel" else ("K2", "K6")
+            mode = {("1", "0"): k[0], ("1", "1"): f"{k[1]} w", ("0", "1"): k[1]}.get(g[3:], "?")
             return kern, f"{t} G={g[1]} F={g[2]} {mode}"
         if kern == "ld_onehot_staged_kernel":
             return kern, f"{t} G={g[1]} F={g[2]}{' w' if g[3] == '1' else ''}"
@@ -369,7 +400,8 @@ def staged_label(mangled: str):
 
 
 def staged_build_report() -> dict:
-    """What the compiler made of the staged bodies (K3, K4, K5's two, K7):
+    """What the compiler made of the staged bodies (K3, K4, K5's two, K7;
+    K2 and K6's HD body):
     each instantiation's registers and spills (``-Xptxas=-v``), the
     compiler's warnings, and its tensor-core (fused_staged_kernel HGMMA:
     wgmma; ld_onehot_staged_kernel HMMA: mma.sync) and LDGSTS (cp.async)
@@ -414,7 +446,10 @@ def staged_build_report() -> dict:
             "ld_onehot_staged_kernel": ("f32 G=4 F=32 w", "f32 G=2 F=32 w", "bf16 G=4 F=32 w",
                                         "f32 G=1 F=32 w", "f32 G=1 F=32", "bf16 G=1 F=32 w"),
             "ld_staged_kernel": ("f32 F=32 K5 w", "f32 F=4 K5 w", "f32 F=32 K5",
-                                 "bf16 F=32 K5 w")}
+                                 "bf16 F=32 K5 w"),
+            "hd_staged_kernel": ("f32 G=2 F=32 K2", "f32 G=2 F=4 K2", "bf16 G=2 F=32 K2",
+                                 "bf16 G=2 F=4 K2", "f32 G=1 F=32 K6 w", "f32 G=1 F=4 K6 w",
+                                 "f32 G=1 F=32 K6", "bf16 G=1 F=32 K6 w")}
     for kern, keys in path.items():
         rep = report[kern]
         for key in keys:
@@ -953,26 +988,54 @@ def main() -> int:
                                   ops_ms=(agg_flops / PEAK_F32_FLOPS
                                           + mma_flops / (PEAK_TF32_FLOPS / F32_MMAS)) * 1e3)
                 if plan.hd is not None:
+                    # K2 and K6 timed at both widths and dtypes, beside their
+                    # bound and their floor without L2 reuse: each HD row
+                    # reading its own copy of each of its real slots' x rows
                     hd = plan.hd
                     n_hd, slots = hd.rows.shape[0], dp.hd_cols.numel()
                     what = f"{direction} HD rows={n_hd} chunks={hd.num_chunks} G={grp} F={feat} {tag}"
                     cols_rows = distinct_row_bytes(dp.hd_cols, xs)
-                    check("hd_grouped", what,
-                          lambda o: gs.hd_grouped_apply(xs, dp.hd_cols, sw.hd, dp.hd_meta,
-                                                        dp.hd_row_chunks, plan.e_t, out=o),
-                          lambda: gs.hd_grouped_plain(xs, dp.hd_cols, sw.hd, dp.hd_meta, n_hd,
-                                                      plan.e_t),
-                          lambda o: cols_rows + nbytes(sw.hd, dp.hd_cols, dp.hd_row_chunks, o),
-                          2.0 * slots * grp * feat, timed, reps)
+                    real_rows = int((dp.hd_cols != n).sum()) * feat * xs.element_size()
+
+                    def hd_times(kname, what, ms, bound_ms, w, run):
+                        groups = 1 if w is None or w.dim() == 1 else w.shape[1]
+                        floor = (real_rows + nbytes(w, dp.hd_cols, dp.hd_row_chunks)
+                                 + 4 * groups * n_hd * feat) / PEAK_BYTES_PER_S * 1e3
+                        out = run(None)
+                        queued = back_to_back_ms(lambda: run(out), 4 * args.reps)
+                        report.setdefault("hd_times", []).append(dict(
+                            kernel=kname, what=what, ms=ms, back_to_back_ms=queued,
+                            bound_ms=bound_ms, floor_ms=floor))
+                        log(f"hd     {kname:17s} {what:44s} kernel {ms:.4f} ms, back to back "
+                            f"{queued:.4f} ms; bound {bound_ms:.4f} ms, without L2 reuse "
+                            f"{floor:.4f} ms")
+
+                    def k2(o):
+                        return gs.hd_grouped_apply(xs, dp.hd_cols, sw.hd, dp.hd_meta,
+                                                   dp.hd_row_chunks, plan.e_t, out=o)
+
+                    ms, b_ms = check(
+                        "hd_grouped", what, k2,
+                        lambda: gs.hd_grouped_plain(xs, dp.hd_cols, sw.hd, dp.hd_meta, n_hd,
+                                                    plan.e_t),
+                        lambda o: cols_rows + nbytes(sw.hd, dp.hd_cols, dp.hd_row_chunks, o),
+                        2.0 * slots * grp * feat, timed, args.reps)
+                    hd_times("hd_grouped", what, ms, b_ms, sw.hd, k2)
                     for w in (w_hd, None):
-                        check("hd", f"{direction} HD rows={n_hd} chunks={hd.num_chunks} F={feat} "
-                                    f"{tag}{'' if w is None else ' w'}",
-                              lambda o: gs.hd_apply(xs, dp.hd_cols, dp.hd_meta, dp.hd_row_chunks,
-                                                    plan.e_t, w, out=o),
-                              lambda: gs.hd_plain(xs, dp.hd_cols, dp.hd_meta, plan.e_t, w),
-                              lambda o: cols_rows + nbytes(w, dp.hd_cols, dp.hd_row_chunks, o),
-                              (2.0 if w is not None else 1.0) * slots * feat,
-                              timed and w is not None, reps)
+                        k6_what = (f"{direction} HD rows={n_hd} chunks={hd.num_chunks} F={feat} "
+                                   f"{tag}{'' if w is None else ' w'}")
+
+                        def k6(o):
+                            return gs.hd_apply(xs, dp.hd_cols, dp.hd_meta, dp.hd_row_chunks,
+                                               plan.e_t, w, out=o)
+
+                        ms, b_ms = check(
+                            "hd", k6_what, k6,
+                            lambda: gs.hd_plain(xs, dp.hd_cols, dp.hd_meta, plan.e_t, w),
+                            lambda o: cols_rows + nbytes(w, dp.hd_cols, dp.hd_row_chunks, o),
+                            (2.0 if w is not None else 1.0) * slots * feat,
+                            timed and w is not None, args.reps)
+                        hd_times("hd", k6_what, ms, b_ms, w, k6)
                 del w_buckets, w_hd
     torch.cuda.empty_cache()
     report["staged_ms_f32_bf16"] = staged_ms
@@ -1041,42 +1104,52 @@ def main() -> int:
         del xw, xs
         torch.cuda.empty_cache()
 
-    # library yardstick: one torch.sparse.mm over a (G*N, N) CSR computing
-    # the same (grouped) sums (cuSPARSE; the port never calls it)
+    # library yardstick: one torch.sparse.mm over a (G*rows, N) CSR computing
+    # the same (grouped) sums (cuSPARSE; the port never calls it): over every
+    # node's row, or for K2 and K6 over the HD rows alone (the rows their
+    # output holds, numbered as the plan numbers them)
     deg_in = torch.bincount(dst, minlength=n)
     deg_out = torch.bincount(src, minlength=n)
+    hd_nodes = torch.nonzero(deg_out > gs.E_T).squeeze(1)
+    hd_index = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    hd_index[hd_nodes] = torch.arange(hd_nodes.numel(), device=dev)
 
-    def csr(rows_of, cols_of, wg, keep):
+    def csr(rows_of, cols_of, wg, keep, n_rows=n):
         grp = wg.shape[1]
         e = torch.nonzero(keep).squeeze(1)
-        r = torch.cat([gi * n + rows_of[e] for gi in range(grp)])
+        r = torch.cat([gi * n_rows + rows_of[e] for gi in range(grp)])
         c = torch.cat([cols_of[e]] * grp)
         v = torch.cat([wg[e, gi] for gi in range(grp)])
-        return torch.sparse_coo_tensor(torch.stack([r, c]), v, (grp * n, n)).coalesce().to_sparse_csr()
+        return torch.sparse_coo_tensor(torch.stack([r, c]), v,
+                                       (grp * n_rows, n)).coalesce().to_sparse_csr()
 
     x32n = x32[:n]
     every = torch.ones_like(dst, dtype=torch.bool)
     ld_out, hd_out = deg_out[src] <= gs.E_T, deg_out[src] > gs.E_T
     lib = {}
-    for label, rows_of, cols_of, wg, keep in (
-        ("fanin_all", dst, src, wg_in, every),
-        ("fanout_all", src, dst, wg_out, every),
-        ("fanout_ld", src, dst, wg_out, ld_out),
-        ("fanout_hd", src, dst, wg_out, hd_out),
+    n_hd_rows = hd_nodes.numel()
+    for label, rows_of, cols_of, wg, keep, n_rows in (
+        ("fanin_all", dst, src, wg_in, every, n),
+        ("fanout_all", src, dst, wg_out, every, n),
+        ("fanout_ld", src, dst, wg_out, ld_out, n),
+        # K2: the (G * n_hd, N) CSR of the HD rows
+        ("fanout_hd", hd_index[src], dst, wg_out, hd_out, n_hd_rows),
         # K4's rows: the LD buckets of degree > 1
-        ("fanin_deg2+", dst, src, wg_in, deg_in[dst] > 1),
-        ("fanout_ld_deg2+", src, dst, wg_out, ld_out & (deg_out[src] > 1)),
-        # K5, K6: one weight column, (N, N)
-        ("fanin_1", dst, src, w_edge["fanin"][:, None], every),
-        ("fanout_ld_1", src, dst, w_edge["fanout"][:, None], ld_out),
-        ("fanout_hd_1", src, dst, w_edge["fanout"][:, None], hd_out),
+        ("fanin_deg2+", dst, src, wg_in, deg_in[dst] > 1, n),
+        ("fanout_ld_deg2+", src, dst, wg_out, ld_out & (deg_out[src] > 1), n),
+        # K5: one weight column, (N, N); K6: (n_hd, N)
+        ("fanin_1", dst, src, w_edge["fanin"][:, None], every, n),
+        ("fanout_ld_1", src, dst, w_edge["fanout"][:, None], ld_out, n),
+        ("fanout_hd_1", hd_index[src], dst, w_edge["fanout"][:, None], hd_out, n_hd_rows),
         # K5's MXU body: one weight column over the LD rows of degree > 1
-        ("fanin_deg2+_1", dst, src, w_edge["fanin"][:, None], deg_in[dst] > 1),
-        ("fanout_ld_deg2+_1", src, dst, w_edge["fanout"][:, None], ld_out & (deg_out[src] > 1)),
+        ("fanin_deg2+_1", dst, src, w_edge["fanin"][:, None], deg_in[dst] > 1, n),
+        ("fanout_ld_deg2+_1", src, dst, w_edge["fanout"][:, None],
+         ld_out & (deg_out[src] > 1), n),
     ):
-        a = csr(rows_of, cols_of, wg, keep)
+        a = csr(rows_of, cols_of, wg, keep, n_rows)
         lib[label] = cuda_ms(lambda: torch.sparse.mm(a, x32n), args.reps)
-        log(f"library torch.sparse.mm {label:15s} nnz={a.values().numel()} {lib[label]:.4f} ms")
+        log(f"library torch.sparse.mm {label:17s} rows={a.shape[0]} nnz={a.values().numel()} "
+            f"{lib[label]:.4f} ms")
         del a
     torch.cuda.empty_cache()
     # the port's whole grouped walk per direction (K1 + K2 + assembly)
@@ -1148,6 +1221,23 @@ def main() -> int:
                  f"{launches[path]['ld_bucket']} in all, expected {want}")
         return got
 
+    def hd_expect(path, kname, n_expect):
+        """Fail unless the path launched K2 (``hd_grouped``) or K6 (``hd``)
+        ``n_expect`` times; each launch runs their one body,
+        hd_staged_kernel (the build report holds no other)."""
+        got = launches[path][kname]
+        report.setdefault("hd_launches", {})[f"{path} {kname}"] = {
+            "hd_staged_kernel": got, "expected": n_expect}
+        log(f"{path}: {kname} launches by body {{hd_staged_kernel: {got}}} "
+            f"(expected {n_expect})")
+        if got != n_expect:
+            fail(f"{path}: {got} launches of {kname}, expected {n_expect}")
+
+    # HD launches a layer: K2 once per plan with HD rows (grouped walks), K6
+    # once per group of such a plan (4 fanin, 2 fanout; per-group walks)
+    hd_plans = [p.hd is not None for p in (in_plan, out_plan)]
+    k2_layer, k6_layer = sum(hd_plans), 4 * hd_plans[0] + 2 * hd_plans[1]
+
     # -- 4. the paper's single SpMM, both directions ----------------------------
     w_rand = torch.rand(g.num_edges, generator=gen, device=dev)
     x32n = x32[:n]
@@ -1162,6 +1252,7 @@ def main() -> int:
             path = f"groot_spmm {b} {direction}"
             got, _ = drive(path, lambda: ops.groot_spmm(x32n, a_src, a_dst, n, w_rand, backend=b))
             k5_expect(path, [(in_plan if direction == "fanin" else out_plan, 1)], b == "groot_mxu")
+            hd_expect(path, "hd", int(hd_plans[direction == "fanout"]))
             err = (got - want).abs().max().item()
             scale = max(1.0, want.abs().max().item())
             ok = bool(torch.isfinite(got).all()) and err <= TOL * scale
@@ -1244,6 +1335,9 @@ def main() -> int:
         f"{{fused_staged_kernel: {got}}} (a fanin bucket a group a layer: {k7_want})")
     if got != k7_want:
         fail(f"forward ungrouped groot_fused: {got} launches of fused_ld, expected {k7_want}")
+    for b in ("groot", "groot_mxu", "groot_fused"):
+        hd_expect(f"forward {b}", "hd_grouped", n_layers * k2_layer)
+        hd_expect(f"forward ungrouped {b}", "hd", n_layers * k6_layer)
     if any(launches["forward ref"].values()):
         fail(f"the ref forward launched kernels: {launches['forward ref']}")
     # where one groot forward's device time goes (kernel names by self time)
@@ -1302,6 +1396,8 @@ def main() -> int:
                           for b, r in results.items()}
     if any(launches["session.verify ref"].values()):
         fail(f"the ref backend launched kernels: {launches['session.verify ref']}")
+    for b in ("groot", "groot_mxu", "groot_fused"):
+        hd_expect(f"session.verify {b}", "hd_grouped", n_layers * k2_layer)
     mxu_launches = launches["session.verify groot_mxu"]
     for kn in ("ld_grouped_mxu", "ld_grouped", "hd_grouped"):
         if mxu_launches[kn] <= 0:

@@ -5,9 +5,9 @@
 //    src/repro/kernels/groot_spmm.py:_ld_kernel_grouped (launched by
 //    ld_grouped_apply).  For one ELL bucket of degree d:
 //        out[g, r, :] = sum_{k<d} wg[r*d+k, g] * x[cols[r*d+k], :]
-// K2 groot_hd_grouped replaces src/repro/kernels/groot_spmm.py:_hd_kernel_grouped
-//    (launched by hd_grouped_apply): the same sum over a high-degree row whose
-//    edges come as consecutive e_t-edge chunks.
+// K2 groot_hd (round_product = 0) replaces src/repro/kernels/groot_spmm.py:
+//    _hd_kernel_grouped (launched by hd_grouped_apply): the same sum over a
+//    high-degree (HD) row whose edges come as consecutive e_t-edge chunks.
 // K4 groot_ld_grouped_mxu replaces src/repro/kernels/groot_spmm.py:
 //    _ld_kernel_grouped_mxu (ld_grouped_apply(mxu=True) for d > 1): the K1 sum
 //    as one-hot block-diagonal (16, 16*d) @ (x[cols] * wg) products on the
@@ -21,18 +21,23 @@
 //    Both bodies gather through K4's staged ring at one group: the VPU body
 //    (ld_staged_kernel) sums the staged rows on the f32 units, the MXU body
 //    is K4's ld_onehot_staged_kernel at G = 1.
-// K6 groot_hd replaces src/repro/kernels/groot_spmm.py:_hd_kernel (launched by
-//    hd_apply): K5's sum over an HD row's chunks; K2's code at one group.
+// K6 groot_hd (round_product = 1) replaces src/repro/kernels/groot_spmm.py:
+//    _hd_kernel (launched by hd_apply): K5's sum over an HD row's chunks, K2's
+//    body at one group with K5's rounding.
 //
 // Bound on the H100: memory.  Each edge slot costs one F-wide row read of x
 // plus G weights and one index, for G*F multiply-adds: about 0.5-1 operation
 // per byte, far under the ~20 f32 operations per byte at which the card's
 // 67 TFLOP/s f32 rate would bind.  The least bytes are the distinct x rows the
 // bucket touches, the staged weights, the column indices and the f32 output,
-// each moved once, at 3.35 TB/s.  K4's one-hot products do 16x more tensor
-// core work than the sums need (a (16, 16*d) operand of which 1/16 is ones),
-// still far under the tensor cores' rate (495 TFLOP/s TF32, 989 bf16), so
-// what K4 reads decides its time: each slot's index, weights and x row once.
+// each moved once, at 3.35 TB/s.  K2/K6 at csa-1024 (2,048 HD rows of degree
+// 1,024, 4,096 chunks of 512): at F = 32 f32, G = 2, 160 MB or 0.048 ms;
+// but each x row is read by two HD rows, and those rows (134 MB) exceed the
+// 50 MB L2, so without reuse the floor is about 294 MB, 0.088 ms.  K4's
+// one-hot products do 16x more tensor core work than the sums need (a
+// (16, 16*d) operand of which 1/16 is ones), still far under the tensor
+// cores' rate (495 TFLOP/s TF32, 989 bf16), so what K4 reads decides its
+// time: each slot's index, weights and x row once.
 //
 // What the design does about it:
 //  * The gather is fused.  On the TPU, x[cols] is an XLA gather that writes
@@ -47,11 +52,26 @@
 //    would quadruple every gathered byte at hidden = 32).
 //  * Each bucket writes its rows straight into its slice of the concatenation
 //    buffer that the permutation assembly reads.
-//  * K2/K6: a CUDA grid runs in no order, so the TPU kernel's trick of keeping
-//    a row's output resident across consecutive grid steps does not carry
-//    over.  One block owns one HD row and loops over all of its chunks; its
-//    warps stride over the row's edges and reduce through shared memory in a
-//    fixed order.  No atomics, so the result is deterministic.
+//  * K2/K6 (hd_staged_kernel, then hd_combine_kernel): a CUDA grid runs in no
+//    order, so the TPU kernel's trick of keeping a row's output resident
+//    across consecutive grid steps does not carry over; its structure does: a
+//    sum per chunk, then each row's chunks added in order.  The work unit is a
+//    chunk, not a row, so 4,096 chunks fill a persistent grid of every warp
+//    the card keeps resident, which one row a block (2,048 blocks of one
+//    dependent index -> row load after another) did not.  Each warp gathers
+//    its chunks through a cp.async ring in its own shared memory, as the
+//    staged bodies do: indices and G weights two stages ahead, x rows (16-byte
+//    pieces) one stage ahead, packed so a pass's lanes read consecutive bytes.
+//    A lane owns 16 bytes of a row, so a warp sums several slots a pass (4 at
+//    F = 32 f32, 32 at F = 4: every lane works at the first layer's width).
+//    The lanes of a column are combined by shuffles in a fixed tree, the chunk
+//    sums go to an f32 scratch, and a second pass adds each row's in chunk
+//    order: no float atomics, two launches give the same bits.  x is read in
+//    place at any width: the body takes x's row stride and a 32-column slice's
+//    first column, copies the real columns in pieces that x's rows are aligned
+//    to (16, 8 or 4 bytes) and zero-fills the rest of the staged row, so no
+//    launch copies x (bf16 rows of an odd width, 2-byte aligned, are the
+//    exception: groot_spmm.py pads them).
 //  * K4 (ld_onehot_staged_kernel): each warp walks 16-row tiles
 //    (persistent grid, 8 warps a block) and reads every slot once: the
 //    gather runs through a cp.async ring in the warp's shared memory
@@ -99,7 +119,6 @@ namespace {
 using groot::kWarp;
 
 constexpr int kLdWarps = 8;   // destination rows per LD block (one per warp)
-constexpr int kHdWarps = 8;   // warps sharing one HD row
 
 // K1 at G = 2..4 (one group runs ld_staged_kernel).
 template <typename T, int G>
@@ -130,49 +149,6 @@ ld_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
 #pragma unroll
       for (int g = 0; g < G; ++g) out[g * out_gstride + row * feat + f] = acc[g];
     }
-  }
-}
-
-// K2 (kWeighted, !kRound) and K6 (G = 1, kRound).
-template <typename T, int G, bool kWeighted, bool kRound>
-__global__ void __launch_bounds__(kHdWarps * kWarp)
-hd_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
-          const T* __restrict__ wg, const int32_t* __restrict__ row_chunks,
-          float* __restrict__ out, int e_t, int feat, int64_t out_gstride) {
-  __shared__ float red[kHdWarps][G][kWarp];
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int warp = threadIdx.x / kWarp;
-  const int64_t row = blockIdx.x;
-  const int64_t s0 = static_cast<int64_t>(row_chunks[2 * row]) * e_t;
-  const int64_t s1 = s0 + static_cast<int64_t>(row_chunks[2 * row + 1]) * e_t;
-  for (int f0 = 0; f0 < feat; f0 += kWarp) {
-    const int f = f0 + lane;
-    const bool live = f < feat;
-    float acc[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = 0.f;
-#pragma unroll 4
-    for (int64_t s = s0 + warp; s < s1; s += kHdWarps) {
-      const int64_t c = cols[s];
-      const T xv = live ? x[c * feat + f] : groot::zero<T>();
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        acc[g] = groot::accumulate<kWeighted, kRound>(
-            acc[g], xv, groot::slot_weight<kWeighted, G>(wg, s, g));
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) red[warp][g][lane] = acc[g];
-    __syncthreads();
-    if (warp == 0 && live) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float t = 0.f;
-#pragma unroll
-        for (int w = 0; w < kHdWarps; ++w) t += red[w][g][lane];
-        out[g * out_gstride + row * feat + f] = t;
-      }
-    }
-    __syncthreads();
   }
 }
 
@@ -429,6 +405,210 @@ ld_staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ cols,
   });
 }
 
+// --- K2 and K6: HD chunks, then their rows ----------------------------------
+
+constexpr int kHdWarps = 8;  // warps a block, each with its own ring
+
+// How a warp's lanes share staged rows of F T (the staged width): as K5's
+// VPU body shares them (a lane reads kVec consecutive features, kLanes lanes
+// a row, kAtOnce rows a pass), but the rows are packed one after another in
+// a ring stage, so the lanes of a pass read 32 * kVecBytes consecutive bytes
+// (no bank conflict, no permutation needed).  A stage holds kSlots slots:
+// 4 KB of rows at 64 and 128 bytes a row, 1-2 KB of narrower ones (a ring
+// small enough for two blocks an SM at every G), at least one slot a lane.
+template <typename T, int F>
+struct HdShape : SumShape<T, F> {
+  static constexpr int kRow = SumShape<T, F>::kRowBytes;
+  static constexpr int kRowLog = kRow == 8 ? 3 : kRow == 16 ? 4 : kRow == 32 ? 5 : kRow == 64 ? 6 : 7;
+  static constexpr int kSlots = kRow >= 128 ? 32 : kRow >= 32 ? 64 : 128;
+};
+
+// One warp's shared memory: two row stages, three meta stages (indices and
+// G weights a slot), as in staged.cuh's ring (a third row stage in flight
+// measured no faster).
+template <typename T, int G, int F>
+struct alignas(128) HdRing {
+  using S = HdShape<T, F>;
+  unsigned char rows[2][S::kSlots * S::kRow];
+  int32_t cols[3][S::kSlots];
+  T w[3][S::kSlots * G];
+};
+
+// One stage of a warp's walk: slots [start, start + n) of chunk ``unit``;
+// ``last``: the chunk's last stage.
+struct HdStep {
+  int64_t unit, start;
+  int n;
+  bool last;
+};
+
+// part[u, g, :] = sum over the e_t slots k of chunk u of x[cols[k]] * w[k, g]
+// (K2: widened to f32 and fused, fmaf; K6, kRound: the product rounded to
+// T; without weights x alone), over F columns of x's rows (x_stride T
+// apart, the first valid_bytes copied, the rest zero-filled).  Warps stride
+// over the chunks (a persistent grid); each gathers a chunk through its
+// ring: a stage's indices and weights two stages ahead, its x rows one stage
+// ahead, in pieces of 2^piece_log bytes (16, 8 or 4: what x's rows are
+// aligned to).  A lane adds the slots of its residue class (slot mod
+// kAtOnce) in ascending order, then the kAtOnce lanes of a column are
+// combined by a butterfly of shuffles: a fixed order, no atomics.
+template <typename T, int G, int F, bool kWeighted, bool kRound>
+__global__ void __launch_bounds__(kHdWarps * kWarp, 2)
+hd_staged_kernel(const T* __restrict__ x, int64_t x_stride, const int32_t* __restrict__ cols,
+                 const T* __restrict__ w, float* __restrict__ part, int64_t units, int e_t,
+                 int valid_bytes, int piece_log) {
+  using S = HdShape<T, F>;
+  using Ring = HdRing<T, G, F>;
+  using groot::cp_async;
+  extern __shared__ __align__(128) unsigned char staged_smem[];
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  const int v = lane % S::kLanes, r0 = lane / S::kLanes;
+  Ring& ring = reinterpret_cast<Ring*>(staged_smem)[warp];
+  const int64_t wid = static_cast<int64_t>(blockIdx.x) * kHdWarps + warp;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kHdWarps;
+  const int per_unit = (e_t + S::kSlots - 1) / S::kSlots;
+  const int64_t count = (wid < units ? (units - 1 - wid) / warps + 1 : 0) * per_unit;
+  if (count == 0) return;
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  const int64_t row_bytes = x_stride * static_cast<int64_t>(sizeof(T));
+  const int per_log = S::kRowLog - piece_log;  // log2 of the pieces a staged row
+
+  const auto at = [&](int64_t q) {
+    HdStep s;
+    const int64_t i = q / per_unit;
+    const int c = static_cast<int>(q - i * per_unit);
+    s.unit = wid + i * warps;
+    s.start = s.unit * e_t + c * S::kSlots;
+    s.n = min(S::kSlots, e_t - c * S::kSlots);
+    s.last = c == per_unit - 1;
+    return s;
+  };
+  const auto issue_meta = [&](int m, const HdStep& s) {
+    const int col_bytes = s.n * 4;
+    const unsigned char* csrc = reinterpret_cast<const unsigned char*>(cols + s.start);
+    for (int off = lane * 16; off < col_bytes; off += kWarp * 16)
+      cp_async<16>(groot::smem_u32(&ring.cols[m][0]) + off, csrc + off, min(16, col_bytes - off));
+    if constexpr (kWeighted) {
+      const int w_bytes = s.n * G * static_cast<int>(sizeof(T));
+      const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(w + s.start * G);
+      for (int off = lane * 16; off < w_bytes; off += kWarp * 16)
+        cp_async<16>(groot::smem_u32(&ring.w[m][0]) + off, wsrc + off, min(16, w_bytes - off));
+    }
+  };
+  const auto issue_rows = [&](int r, int m, const HdStep& s) {
+    const uint32_t base = groot::smem_u32(&ring.rows[r][0]);
+    const int piece = 1 << piece_log;
+    for (int i = lane; i < (s.n << per_log); i += kWarp) {
+      const int p = i >> per_log, byte = (i & ((1 << per_log) - 1)) << piece_log;
+      const unsigned char* row = xb + ring.cols[m][p] * row_bytes;
+      const int bytes = min(piece, max(valid_bytes - byte, 0));  // 0: zero-filled
+      const unsigned char* src = bytes ? row + byte : row;
+      const uint32_t dst = base + p * S::kRow + byte;
+      if (piece_log == 4) {
+        cp_async<16>(dst, src, bytes);
+      } else if (piece_log == 3) {
+        cp_async<8>(dst, src, bytes);
+      } else {
+        cp_async<4>(dst, src, bytes);
+      }
+    }
+  };
+
+  float acc[G][S::kVec];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < S::kVec; ++j) acc[g][j] = 0.f;
+
+  // Step q commits two copy groups, meta q + 2 and rows q + 1; at the top
+  // of step q the groups in flight are meta q + 1 and rows q.
+  issue_meta(0, at(0));
+  groot::cp_async_commit();
+  if (count > 1) issue_meta(1, at(1));
+  groot::cp_async_commit();
+  groot::cp_async_wait<1>();  // meta 0 has landed
+  __syncwarp();
+  issue_rows(0, 0, at(0));
+  groot::cp_async_commit();
+  int ms = 0;  // meta stage of step q (rows stage: q % 2)
+  for (int64_t q = 0; q < count; ++q) {
+    const HdStep s = at(q);
+    __syncwarp();  // every lane is done with the stages the next copies overwrite
+    if (q + 2 < count) issue_meta((ms + 2) % 3, at(q + 2));
+    groot::cp_async_commit();
+    groot::cp_async_wait<1>();  // meta q + 1 and rows q have landed
+    __syncwarp();
+    if (q + 1 < count) issue_rows(static_cast<int>((q + 1) & 1), (ms + 1) % 3, at(q + 1));
+    groot::cp_async_commit();
+    const unsigned char* staged = ring.rows[q & 1];
+    const T* ws = ring.w[ms];
+    for (int p = r0; p < s.n; p += S::kAtOnce) {
+      T xv[S::kVec];
+      const unsigned char* at_row = staged + p * S::kRow + v * S::kVecBytes;
+      if constexpr (S::kVecBytes == 16) {
+        const uint4 u = *reinterpret_cast<const uint4*>(at_row);
+        memcpy(&xv[0], &u, 16);
+      } else {
+        const uint2 u = *reinterpret_cast<const uint2*>(at_row);
+        memcpy(&xv[0], &u, 8);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const T wp = kWeighted ? ws[p * G + g] : groot::zero<T>();
+#pragma unroll
+        for (int j = 0; j < S::kVec; ++j)
+          acc[g][j] = groot::accumulate<kWeighted, kRound>(acc[g][j], xv[j], wp);
+      }
+    }
+    if (s.last) {  // the chunk's sum: residue classes by a butterfly, then stored
+#pragma unroll
+      for (int off = S::kLanes; off < kWarp; off <<= 1)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int j = 0; j < S::kVec; ++j)
+            acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], off);
+      if (r0 == 0) {
+        float* dst = part + s.unit * (G * F) + v * S::kVec;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int j = 0; j < S::kVec; j += 4)
+            *reinterpret_cast<float4*>(dst + g * F + j) =
+                make_float4(acc[g][j], acc[g][j + 1], acc[g][j + 2], acc[g][j + 3]);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int j = 0; j < S::kVec; ++j) acc[g][j] = 0.f;
+    }
+    ms = ms == 2 ? 0 : ms + 1;
+  }
+  groot::cp_async_wait<0>();
+}
+
+// out[g, r, f] = the chunk sums of HD row r added in chunk order (part of
+// its first chunk, plus the next, ...), for the ``valid`` first of the
+// ``feat`` columns a chunk sum has; output rows out_rstride floats apart.
+__global__ void __launch_bounds__(256)
+hd_combine_kernel(const float* __restrict__ part, const int32_t* __restrict__ row_chunks,
+                  float* __restrict__ out, int64_t n_hd, int groups, int feat, int valid,
+                  int64_t out_gstride, int64_t out_rstride) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n_hd * groups * valid) return;
+  const int f = static_cast<int>(i % valid);
+  const int64_t t = i / valid;
+  const int g = static_cast<int>(t % groups);
+  const int64_t row = t / groups;
+  const int64_t first = row_chunks[2 * row];
+  const int count = row_chunks[2 * row + 1];
+  const int64_t step = static_cast<int64_t>(groups) * feat;
+  const float* p = part + first * step + g * feat + f;
+  float sum = count > 0 ? p[0] : 0.f;
+  for (int c = 1; c < count; ++c) sum += p[c * step];
+  out[g * out_gstride + row * out_rstride + f] = sum;
+}
+
 // --- launchers ----------------------------------------------------------------
 
 template <typename T, int G>
@@ -441,17 +621,6 @@ int launch_ld(const void* x, const void* cols, const void* wg, void* out, int64_
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int G, bool kWeighted, bool kRound>
-int launch_hd(const void* x, const void* cols, const void* wg, const void* row_chunks,
-              void* out, int64_t n_hd, int e_t, int feat, int64_t out_gstride,
-              cudaStream_t stream) {
-  hd_kernel<T, G, kWeighted, kRound><<<static_cast<unsigned>(n_hd), kHdWarps * kWarp, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(cols), static_cast<const T*>(wg),
-      static_cast<const int32_t*>(row_chunks), static_cast<float*>(out), e_t, feat,
-      out_gstride);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int dispatch_ld(int groups, const void* x, const void* cols, const void* wg, void* out,
                 int64_t rows, int deg, int feat, int64_t out_gstride, cudaStream_t stream) {
@@ -459,19 +628,6 @@ int dispatch_ld(int groups, const void* x, const void* cols, const void* wg, voi
     case 2: return launch_ld<T, 2>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
     case 3: return launch_ld<T, 3>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
     case 4: return launch_ld<T, 4>(x, cols, wg, out, rows, deg, feat, out_gstride, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T>
-int dispatch_hd(int groups, const void* x, const void* cols, const void* wg,
-                const void* row_chunks, void* out, int64_t n_hd, int e_t, int feat,
-                int64_t out_gstride, cudaStream_t stream) {
-  switch (groups) {
-    case 1: return launch_hd<T, 1, true, false>(x, cols, wg, row_chunks, out, n_hd, e_t, feat, out_gstride, stream);
-    case 2: return launch_hd<T, 2, true, false>(x, cols, wg, row_chunks, out, n_hd, e_t, feat, out_gstride, stream);
-    case 3: return launch_hd<T, 3, true, false>(x, cols, wg, row_chunks, out, n_hd, e_t, feat, out_gstride, stream);
-    case 4: return launch_hd<T, 4, true, false>(x, cols, wg, row_chunks, out, n_hd, e_t, feat, out_gstride, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -582,12 +738,71 @@ int dispatch_bucket(int feat, int mxu, int round_product, const StagedArgs& a, c
                : by_feat<SumAt<T, true, false>::template W>(feat, a, st);
 }
 
-// K6: ungrouped HD rows, optional weight
+// One HD launch's shape (see groot_hd).
+struct HdArgs {
+  const void* x;
+  int64_t x_stride;
+  const void* cols;
+  const void* w;  // G weights a slot, or null
+  const void* row_chunks;
+  void* part;
+  void* out;
+  int64_t n_chunks, n_hd;
+  int e_t, valid, piece_log;
+  int64_t out_gstride, out_rstride;
+};
+
+template <typename T, int G, int F, bool kWeighted, bool kRound>
+int launch_hd(const HdArgs& a, cudaStream_t stream) {
+  using S = HdShape<T, F>;
+  if (a.piece_log < 2 || a.piece_log > 4 || (1 << a.piece_log) > S::kRow || a.valid > F)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = hd_staged_kernel<T, G, F, kWeighted, kRound>;
+  const size_t smem = kHdWarps * sizeof(HdRing<T, G, F>);
+  dim3 grid;
+  cudaError_t err = groot::persistent_grid(kernel, kHdWarps * kWarp, smem,
+                                           (a.n_chunks + kHdWarps - 1) / kHdWarps, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kHdWarps * kWarp, smem, stream>>>(
+      static_cast<const T*>(a.x), a.x_stride, static_cast<const int32_t*>(a.cols),
+      static_cast<const T*>(a.w), static_cast<float*>(a.part), a.n_chunks, a.e_t,
+      a.valid * static_cast<int>(sizeof(T)), a.piece_log);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t total = a.n_hd * G * a.valid;
+  hd_combine_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(a.part), static_cast<const int32_t*>(a.row_chunks),
+      static_cast<float*>(a.out), a.n_hd, G, F, a.valid, a.out_gstride, a.out_rstride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int G, bool kWeighted, bool kRound>
+struct HdAt {
+  template <int F>
+  struct W {
+    static int run(const HdArgs& a, cudaStream_t st) {
+      return launch_hd<T, G, F, kWeighted, kRound>(a, st);
+    }
+  };
+};
+
+// K6 (round_product: one group, the product rounded to T, or no weight) or
+// K2 (G = 1-4 weights, widened and fused)
 template <typename T>
-int dispatch_hd_ungrouped(const void* x, const void* cols, const void* w, const void* row_chunks,
-                          void* out, int64_t n_hd, int e_t, int feat, cudaStream_t stream) {
-  return w ? launch_hd<T, 1, true, true>(x, cols, w, row_chunks, out, n_hd, e_t, feat, 0, stream)
-           : launch_hd<T, 1, false, true>(x, cols, w, row_chunks, out, n_hd, e_t, feat, 0, stream);
+int dispatch_hd(int groups, int feat, int round_product, const HdArgs& a, cudaStream_t st) {
+  if (round_product) {
+    if (groups != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return a.w ? by_feat<HdAt<T, 1, true, true>::template W>(feat, a, st)
+               : by_feat<HdAt<T, 1, false, true>::template W>(feat, a, st);
+  }
+  if (!a.w) return static_cast<int>(cudaErrorInvalidValue);
+  switch (groups) {
+    case 1: return by_feat<HdAt<T, 1, true, false>::template W>(feat, a, st);
+    case 2: return by_feat<HdAt<T, 2, true, false>::template W>(feat, a, st);
+    case 3: return by_feat<HdAt<T, 3, true, false>::template W>(feat, a, st);
+    case 4: return by_feat<HdAt<T, 4, true, false>::template W>(feat, a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // log2 of a power-of-two degree, or -1
@@ -604,18 +819,6 @@ extern "C" int groot_ld_grouped(const void* x, const void* cols, const void* wg,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? dispatch_ld<__nv_bfloat16>(groups, x, cols, wg, out, rows, deg, feat, out_gstride, st)
               : dispatch_ld<float>(groups, x, cols, wg, out, rows, deg, feat, out_gstride, st);
-}
-
-extern "C" int groot_hd_grouped(const void* x, const void* cols, const void* wg,
-                                const void* row_chunks, void* out, int64_t n_hd, int e_t,
-                                int groups, int feat, int64_t out_gstride, int bf16,
-                                void* stream) {
-  if (n_hd <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_hd<__nv_bfloat16>(groups, x, cols, wg, row_chunks, out, n_hd, e_t, feat,
-                                           out_gstride, st)
-              : dispatch_hd<float>(groups, x, cols, wg, row_chunks, out, n_hd, e_t, feat,
-                                   out_gstride, st);
 }
 
 // feat: x's staged width (4, 8, 16 or 32); all feat columns are stored
@@ -646,10 +849,26 @@ extern "C" int groot_ld_bucket(const void* x, const void* cols, const void* w, v
               : dispatch_bucket<float>(feat, mxu, round_product, a, st);
 }
 
-extern "C" int groot_hd(const void* x, const void* cols, const void* w, const void* row_chunks,
-                        void* out, int64_t n_hd, int e_t, int feat, int bf16, void* stream) {
+// K2 (round_product = 0: G = 1-4 weights a slot, widened and fused) and K6
+// (round_product = 1: one weight a slot or none, the product rounded to T)
+// over the HD chunks, e_t slots each (e_t a multiple of 8).  x: the first
+// column of a slice of staged width feat (4, 8, 16 or 32) of rows x_stride
+// elements apart, ``valid`` of its columns real (the rest read as zeros),
+// the rows and x aligned to 2^piece_log bytes (4, 8 or 16, at most a staged
+// row); part: an f32 scratch of n_chunks * groups * feat floats for the
+// chunk sums; out: the valid columns of each HD row, groups out_gstride and
+// rows out_rstride floats apart.  Two launches: the chunk sums, then each
+// row's sums added in chunk order.
+extern "C" int groot_hd(const void* x, int64_t x_stride, const void* cols, const void* w,
+                        const void* row_chunks, void* part, void* out, int64_t n_chunks,
+                        int64_t n_hd, int e_t, int groups, int feat, int valid, int piece_log,
+                        int64_t out_gstride, int64_t out_rstride, int round_product, int bf16,
+                        void* stream) {
   if (n_hd <= 0) return 0;
+  if (e_t < 1 || e_t % 8 || valid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const HdArgs a{x, x_stride, cols, w, row_chunks, part, out, n_chunks, n_hd, e_t, valid,
+                 piece_log, out_gstride, out_rstride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_hd_ungrouped<__nv_bfloat16>(x, cols, w, row_chunks, out, n_hd, e_t, feat, st)
-              : dispatch_hd_ungrouped<float>(x, cols, w, row_chunks, out, n_hd, e_t, feat, st);
+  return bf16 ? dispatch_hd<__nv_bfloat16>(groups, feat, round_product, a, st)
+              : dispatch_hd<float>(groups, feat, round_product, a, st);
 }

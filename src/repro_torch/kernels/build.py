@@ -39,17 +39,17 @@ SIGNATURES = {
     "groot_spmm": {
         # x, cols, wg, out, rows, deg, groups, feat, out_gstride, bf16, stream
         "groot_ld_grouped": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I32, _P),
-        # x, cols, wg, row_chunks, out, n_hd, e_t, groups, feat, out_gstride,
-        # bf16, stream
-        "groot_hd_grouped": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I32, _P),
         # x, cols, wg, out, rows, deg, groups, feat, out_gstride, out_rstride,
         # bf16, stream
         "groot_ld_grouped_mxu": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I64, _I32, _P),
         # x, cols, w (or null), out, rows, deg, feat, out_rstride, mxu, round,
         # bf16, stream
         "groot_ld_bucket": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32, _I32, _I32, _P),
-        # x, cols, w (or null), row_chunks, out, n_hd, e_t, feat, bf16, stream
-        "groot_hd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
+        # x, x_stride, cols, w (or null), row_chunks, part, out, n_chunks, n_hd,
+        # e_t, groups, feat, valid, piece_log, out_gstride, out_rstride, round,
+        # bf16, stream
+        "groot_hd": (_P, _I64, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _I32,
+                     _I64, _I64, _I32, _I32, _P),
     },
     "fused_sage": {
         # x, cols, wg (or null), w, out, rows, deg, groups, feat, w_gstride, hp,

@@ -16,21 +16,25 @@ the reference's, ``rows_per_tile`` included.  The device walks run the SpMM
   K1 ``ld_grouped_apply``      grouped low-degree rows (degree <= e_t), one ELL
      bucket of power-of-two degree d per launch; replaces ``_ld_kernel_grouped``.
   K2 ``hd_grouped_apply``      grouped high-degree rows (degree > e_t), split
-     into e_t-edge chunks; replaces ``_hd_kernel_grouped``.
+     into e_t-edge chunks: a sum per chunk (chunks spread over the card's
+     warps), then each row's chunks added in order; replaces
+     ``_hd_kernel_grouped``.
   K4 ``ld_grouped_mxu_apply``  K1's sum as one-hot block-diagonal products on
      the tensor cores (``ld_grouped_apply(mxu=True)`` for d > 1); replaces
      ``_ld_kernel_grouped_mxu``.
   K5 ``ld_bucket_apply``       ungrouped LD rows, optional weight, VPU body or
      (``mxu=True``, d > 1) tensor-core body, both gathering through K4's
      staged ring; replaces ``_ld_kernel`` and ``_ld_kernel_mxu``.
-  K6 ``hd_apply``              ungrouped HD rows; replaces ``_hd_kernel``.
+  K6 ``hd_apply``              ungrouped HD rows, K2's body at one group;
+     replaces ``_hd_kernel``.
 
 Unlike the TPU walk, the kernels gather ``x_p[cols]`` themselves (no message
 slab in device memory) and the feature axis is not padded to a 128-lane
 quantum: ``x_p`` is ``(N + 1, F)`` with one zero row at index N, the target of
 every pad column.  The staged bodies (K3, K4, K5, K7) are built for rows of
 4, 8, 16 or 32 features; other widths are zero-padded to the next of these,
-or run as 32-column slices (:func:`staged_slices`).  Each wrapper runs its
+or run as 32-column slices (:func:`staged_slices`).  The HD body (K2, K6)
+reads such slices of x in place instead.  Each wrapper runs its
 plain PyTorch version on a CPU tensor and its kernel on a CUDA tensor, and
 counts its kernel launches.
 
@@ -94,7 +98,7 @@ class HdPlan:
     def row_chunks(self) -> np.ndarray:
         """(n_hd, 2) int32 ``[first chunk, chunk count]`` per HD row, derived
         from ``chunk_meta`` (a row's chunks are consecutive): the CUDA HD
-        kernel walks one row's chunks in one block."""
+        kernel's second pass adds one row's chunk sums in this order."""
         slots = self.chunk_meta[:, 0].astype(np.int64)
         n_hd = int(self.rows.shape[0])
         first = np.searchsorted(slots, np.arange(n_hd))
@@ -652,15 +656,55 @@ def hd_grouped_plain(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
     return out.index_add_(1, chunk_meta[:, 0].long(), part)
 
 
+def _staged_hd(name: str, x_p: torch.Tensor, cols: torch.Tensor, w: Optional[torch.Tensor],
+               row_chunks: torch.Tensor, n_chunks: int, e_t: int, out: torch.Tensor, *,
+               round_product: bool) -> int:
+    """Launch the HD body (K6 when ``round_product``, else K2) once per slice
+    of :func:`staged_slices` into ``out`` ((G, n_hd, F) or (n_hd, F)),
+    reading x_p in place: the kernel takes its row stride and a slice's
+    first column, copies the real columns in the widest pieces (16, 8 or 4
+    bytes) its rows are aligned to and zero-fills the rest of the staged
+    row.  Only bf16 rows of an odd width, which no 4-byte copy can start on,
+    are zero-padded first.  The chunk sums go through an f32 scratch of
+    ``n_chunks * G * width`` floats.  Returns the number of launches."""
+    if e_t % 8:
+        raise ValueError(f"{name}: chunks of {e_t} slots; the kernel takes a multiple of 8")
+    if cols.data_ptr() % 16 or (w is not None and w.data_ptr() % 16):
+        label = "cols" if cols.data_ptr() % 16 else "w"
+        raise ValueError(f"{name}: {label} must start on a 16-byte boundary")
+    feat, es = x_p.shape[1], x_p.element_size()
+    width, slices = staged_slices(feat)
+    if (x_p.data_ptr() | feat * es) % 4:
+        x_p = pad_columns(x_p, width)
+    base, row_bytes = x_p.data_ptr(), x_p.shape[1] * es
+    groups = 1 if w is None or w.dim() == 1 else w.shape[1]
+    gstride, rstride = (out.stride(0), out.stride(1)) if out.dim() == 3 else (0, out.stride(0))
+    part = torch.empty(n_chunks * groups * slices[0][1], dtype=torch.float32, device=x_p.device)
+    lib, st, bf16 = build.library("groot_spmm"), stream(x_p), int(x_p.dtype == torch.bfloat16)
+    for c0, sw, valid in slices:
+        aligned, piece = (base + c0 * es) | row_bytes, min(16, sw * es)
+        while aligned % piece:
+            piece //= 2
+        rc = lib.groot_hd(
+            base + c0 * es, x_p.shape[1], cols.data_ptr(), ptr(w), row_chunks.data_ptr(),
+            part.data_ptr(), out.data_ptr() + 4 * c0, n_chunks, row_chunks.shape[0], e_t, groups,
+            sw, valid, piece.bit_length() - 1, gstride, rstride, int(round_product), bf16, st,
+        )
+        build.check(rc, name)
+    return len(slices)
+
+
 def hd_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
                      chunk_meta: torch.Tensor, row_chunks: torch.Tensor, e_t: int,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K2: grouped sums of the HD rows, one block per row over its chunks.
+    """K2: grouped sums of the HD rows: a sum per chunk, then each row's
+    chunk sums added in order.
 
     x_p (N + 1, F), cols (C * e_t,) int32, wg (C * e_t, G), chunk_meta
     (C, 2) int32, row_chunks (n_hd, 2) int32 ``[first chunk, count]`` ->
     ``out`` (G, n_hd, F) f32 (rows contiguous, any group stride).  CPU
-    tensors run :func:`hd_grouped_plain`; CUDA tensors launch the kernel.
+    tensors run :func:`hd_grouped_plain`; CUDA tensors launch the kernel
+    (e_t a multiple of 8), once per 32-column slice of a wider row.
     """
     check_hd("hd_grouped_apply", x_p, cols, chunk_meta, row_chunks, e_t)
     check_stream("hd_grouped_apply", x_p, cols, wg, cols.shape[0])
@@ -672,12 +716,8 @@ def hd_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
     if not on_cuda("hd_grouped_apply", x_p):
         out.copy_(hd_grouped_plain(x_p, cols, wg, chunk_meta, n_hd, e_t))
         return out
-    rc = build.library("groot_spmm").groot_hd_grouped(
-        x_p.data_ptr(), cols.data_ptr(), wg.data_ptr(), row_chunks.data_ptr(), out.data_ptr(),
-        n_hd, e_t, g, feat, out.stride(0), int(x_p.dtype == torch.bfloat16), stream(x_p),
-    )
-    build.check(rc, "hd_grouped_apply")
-    hd_grouped_apply.launches += 1
+    hd_grouped_apply.launches += _staged_hd("hd_grouped_apply", x_p, cols, wg, row_chunks,
+                                            chunk_meta.shape[0], e_t, out, round_product=False)
     return out
 
 
@@ -790,12 +830,14 @@ def hd_plain(x_p: torch.Tensor, cols: torch.Tensor, chunk_meta: torch.Tensor, e_
 def hd_apply(x_p: torch.Tensor, cols: torch.Tensor, chunk_meta: torch.Tensor,
              row_chunks: torch.Tensor, e_t: int, w: Optional[torch.Tensor] = None,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K6: ungrouped sums of the HD rows, one block per row over its chunks.
+    """K6: ungrouped sums of the HD rows, K2's body at one group with the
+    product rounded to the stream dtype.
 
     x_p (N + 1, F), cols (C * e_t,) int32, chunk_meta (C, 2) int32,
     row_chunks (n_hd, 2) int32 ``[first chunk, count]``, w (C * e_t,) or
     None -> ``out`` (n_hd, F) f32 (contiguous rows).  CPU tensors run
-    :func:`hd_plain`; CUDA tensors launch the kernel.
+    :func:`hd_plain`; CUDA tensors launch the kernel (e_t a multiple of 8),
+    once per 32-column slice of a wider row.
     """
     check_hd("hd_apply", x_p, cols, chunk_meta, row_chunks, e_t)
     check_weight("hd_apply", x_p, cols, w, cols.shape[0])
@@ -806,12 +848,8 @@ def hd_apply(x_p: torch.Tensor, cols: torch.Tensor, chunk_meta: torch.Tensor,
     if not on_cuda("hd_apply", x_p):
         out.copy_(hd_plain(x_p, cols, chunk_meta, e_t, w))
         return out
-    rc = build.library("groot_spmm").groot_hd(
-        x_p.data_ptr(), cols.data_ptr(), ptr(w), row_chunks.data_ptr(), out.data_ptr(),
-        n_hd, e_t, feat, int(x_p.dtype == torch.bfloat16), stream(x_p),
-    )
-    build.check(rc, "hd_apply")
-    hd_apply.launches += 1
+    hd_apply.launches += _staged_hd("hd_apply", x_p, cols, w, row_chunks, chunk_meta.shape[0],
+                                    e_t, out, round_product=True)
     return out
 
 

@@ -277,6 +277,124 @@ def test_staged_bodies_refuse_what_they_cannot_take(cuda):
     assert fs.fused_ld_matmul.launches - before > 1
 
 
+# The HD body (K2 and K6) at its edges: chunks of 16, 64 and 512 slots, rows
+# of 2 to 5 chunks whose last chunk is ragged (padded with the zero row),
+# widths it reads whole (4, 8, 32), pads in the kernel (1, 24) or slices
+# (64).
+HD_E_T = (16, 64, 512)
+HD_FEATS = (1, 4, 8, 24, 32, 64)
+
+
+def _hd_plan(e_t: int, seed: int):
+    """A plan whose HD rows have 2 to 5 chunks, the last one ragged, beside
+    a few LD rows; x's rows (3000 nodes) are the gather's sources."""
+    rng = np.random.default_rng(seed)
+    n, n_hd = 3000, 13
+    deg = rng.integers(e_t + 1, 5 * e_t, n_hd)
+    deg[deg % e_t == 0] -= 1
+    deg[:4] = (2 * e_t - 1, 2 * e_t + 1, 5 * e_t - 1, 3 * e_t + 5)
+    deg = np.concatenate([deg, rng.integers(1, 4, 20)])
+    dst = np.repeat(np.arange(deg.shape[0], dtype=np.int64), deg)
+    src = rng.integers(0, n, dst.shape[0], dtype=np.int64)
+    plan = gs.build_plan(src, dst, n, e_t=e_t)
+    counts = plan.hd.row_chunks()[:, 1]
+    assert plan.hd.rows.shape[0] == n_hd and counts.min() == 2 and counts.max() == 5
+    return plan, src.shape[0], n
+
+
+@pytest.mark.parametrize("feat", HD_FEATS)
+@pytest.mark.parametrize("groups", [1, 2, 3, 4])
+@pytest.mark.parametrize("e_t", HD_E_T)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hd_body_at_its_edges(cuda, dtype, e_t, groups, feat):
+    """K2 against hd_grouped_plain into a group-strided slice of a larger
+    buffer (as apply_plan_grouped_staged passes it), and at one group K6
+    against hd_plain with and without a weight into a row slice; each
+    launch counted (one a 32-column slice), the other rows left as they
+    were.  Weights are standard normal, so the sums cancel."""
+    plan, n_edges, n = _hd_plan(e_t, e_t + 10 * groups + feat)
+    rng = np.random.default_rng(feat * 100 + groups)
+    x = torch.as_tensor(rng.standard_normal((n, feat)), dtype=torch.float32, device=cuda)
+    x_p = gs.pad_features(x).to(dtype)
+    wg = torch.as_tensor(rng.standard_normal((n_edges, groups)), dtype=torch.float32, device=cuda)
+    staged = gs.stage_group_weights(plan, wg, dtype=dtype)
+    dp = plan.on(cuda)
+    n_hd, slices = plan.hd.rows.shape[0], len(gs.staged_slices(feat)[1])
+    before = gs.hd_grouped_apply.launches
+    got = _into_slice(lambda o: gs.hd_grouped_apply(x_p, dp.hd_cols, staged.hd, dp.hd_meta,
+                                                    dp.hd_row_chunks, e_t, out=o),
+                      (groups, feat), n_hd)
+    assert gs.hd_grouped_apply.launches == before + slices
+    _close(got, gs.hd_grouped_plain(x_p, dp.hd_cols, staged.hd, dp.hd_meta, n_hd, e_t))
+    if groups == 1:
+        for w in (staged.hd[:, 0].contiguous(), None):
+            before = gs.hd_apply.launches
+            got = _into_slice(lambda o: gs.hd_apply(x_p, dp.hd_cols, dp.hd_meta, dp.hd_row_chunks,
+                                                    e_t, w, out=o), (feat,), n_hd)
+            assert gs.hd_apply.launches == before + slices
+            _close(got, gs.hd_plain(x_p, dp.hd_cols, dp.hd_meta, e_t, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feat", [4, 32, 64])
+def test_hd_body_is_deterministic(cuda, feat, dtype):
+    """Two launches on the same inputs give the same bits: the chunk sums
+    and each row's combine add in a fixed order, with no float atomics."""
+    plan, n_edges, n = _hd_plan(512, 5)
+    rng = np.random.default_rng(feat)
+    x_p = gs.pad_features(torch.as_tensor(rng.standard_normal((n, feat)), dtype=torch.float32,
+                                          device=cuda)).to(dtype)
+    wg = torch.as_tensor(rng.standard_normal((n_edges, 2)), dtype=torch.float32, device=cuda)
+    staged = gs.stage_group_weights(plan, wg, dtype=dtype)
+    dp = plan.on(cuda)
+    runs = [gs.hd_grouped_apply(x_p, dp.hd_cols, staged.hd, dp.hd_meta, dp.hd_row_chunks, 512)
+            for _ in range(2)]
+    w = staged.hd[:, 0].contiguous()
+    runs += [gs.hd_apply(x_p, dp.hd_cols, dp.hd_meta, dp.hd_row_chunks, 512, w) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[2], runs[3])
+
+
+def test_hd_body_refuses_what_it_cannot_take(cuda):
+    """K2 and K6 raise on a CUDA shape the body does not take (chunks of
+    slots not a multiple of 8, a stream off a 16-byte boundary) and, as
+    before, on chunk tables that do not fit the slots, mixed dtypes, more
+    than 4 groups and a malformed output, rather than run the plain
+    version."""
+    plan, n_edges, n = _hd_plan(64, 1)
+    dp = plan.on(cuda)
+    x_p = torch.zeros((n + 1, 32), device=cuda)
+    wg = torch.ones((dp.hd_cols.shape[0], 2), device=cuda)
+    meta, rc = dp.hd_meta, dp.hd_row_chunks
+    n_hd = rc.shape[0]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gs.hd_grouped_apply(x_p, dp.hd_cols[:-4 * meta.shape[0]], wg[:-4 * meta.shape[0]],
+                            meta, rc, 60)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gs.hd_apply(x_p, dp.hd_cols[:-4 * meta.shape[0]], meta, rc, 60)
+    off = torch.zeros(dp.hd_cols.shape[0] + 1, dtype=torch.int32, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        gs.hd_grouped_apply(x_p, off, wg, meta, rc, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        gs.hd_apply(x_p, dp.hd_cols, meta, rc, 64,
+                    torch.ones(dp.hd_cols.shape[0] + 1, device=cuda)[1:])
+    with pytest.raises(ValueError, match="chunks"):
+        gs.hd_grouped_apply(x_p, dp.hd_cols[:-1], wg[:-1], meta, rc, 64)
+    with pytest.raises(ValueError, match="chunks"):
+        gs.hd_apply(x_p, dp.hd_cols[:-1], meta, rc, 64)
+    with pytest.raises(ValueError, match="share dtype"):
+        gs.hd_grouped_apply(x_p, dp.hd_cols, wg.bfloat16(), meta, rc, 64)
+    with pytest.raises(ValueError, match="1 to 4 groups"):
+        gs.hd_grouped_apply(x_p, dp.hd_cols, torch.ones((wg.shape[0], 5), device=cuda), meta,
+                            rc, 64)
+    with pytest.raises(ValueError, match="out must be"):
+        gs.hd_grouped_apply(x_p, dp.hd_cols, wg, meta, rc, 64,
+                            out=torch.empty((2, n_hd, 16), device=cuda))
+    with pytest.raises(ValueError, match="out must be"):
+        gs.hd_apply(x_p, dp.hd_cols, meta, rc, 64,
+                    out=torch.empty((n_hd, 64), device=cuda)[:, :32])
+
+
 def _random_params(hidden: int, seed: int) -> dict:
     """A GNNConfig(hidden=hidden) params tree from a seeded numpy generator,
     each matrix scaled by 1 / sqrt(its fan-in)."""

@@ -22,6 +22,13 @@ tolerance, 1e-5 * max(1, max|plain|), at the path's magnitudes: the trained
 weights, layer by layer.  The argument has a limit: where the terms cancel
 (sum |a w| >> max|out|) the bound, not the tolerance, is what holds; that
 case is kept on its own.
+
+The HD body (K2, K6) rounds as its plain versions do but adds in its own
+order: a lane sums the slots of its residue class (slot mod the rows a pass
+covers) in ascending order, the classes meet in a butterfly, and a row's
+chunk sums are added in chunk order.  That order, emulated here on
+cancelling standard-normal inputs, lands within the tolerance of the plain
+versions' reshape-sums, so those need not follow it.
 """
 from __future__ import annotations
 
@@ -174,3 +181,65 @@ def test_k3_split_under_heavy_cancellation_holds_the_bound_not_the_tolerance():
     assert (terms / exact.abs()).min() > 1e3
     worst, scale = check_three_term(a, w)
     assert worst > TOL * max(1.0, scale)
+
+
+def hd_body_order(x, w, chunk_rows, n_hd, at_once, fused):
+    """The HD body's sums of (C, e_t, F) messages x and (C, e_t, G)
+    weights w (f32): per chunk, lane class r (slots r, r + at_once, ...)
+    added in ascending order (``fused``: K2's fmaf, else K6's product
+    rounded to f32 first), the classes combined by a butterfly (r + (r ^ b)
+    for b = 1, 2, 4, ...), then each row's chunk sums in chunk order.
+    -> (G, n_hd, F) f32."""
+    c, e_t, f = x.shape
+    pad = -e_t % at_once
+    x = torch.cat([x, x.new_zeros((c, pad, f))], 1).reshape(c, -1, at_once, 1, f)
+    w = torch.cat([w, w.new_zeros((c, pad, w.shape[2]))], 1).reshape(c, -1, at_once,
+                                                                     w.shape[2], 1)
+    acc = torch.zeros((c, at_once, w.shape[3], f), dtype=torch.float32)
+    for k in range(x.shape[1]):
+        if fused:  # fmaf: the product exact in f64, one rounding
+            acc = (acc.double() + w[:, k].double() * x[:, k].double()).float()
+        else:
+            acc = acc + w[:, k] * x[:, k]
+    b = 1
+    while b < at_once:
+        acc = acc + acc[:, torch.arange(at_once) ^ b]
+        b <<= 1
+    out = torch.zeros((acc.shape[2], n_hd, f))
+    seen = set()
+    for ci, r in enumerate(chunk_rows.tolist()):
+        out[:, r] = acc[ci, 0] if r not in seen else out[:, r] + acc[ci, 0]
+        seen.add(r)
+    return out
+
+
+@pytest.mark.parametrize("body", ["K2", "K6"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feat", [4, 32])
+@pytest.mark.parametrize("e_t", [16, 64, 512])
+def test_hd_body_order_stays_within_the_tolerance_of_the_plain_versions(e_t, feat, dtype, body):
+    from repro_torch.kernels import groot_spmm as gs
+
+    rng = np.random.default_rng(e_t + feat)
+    n, n_hd = 3000, 40
+    deg = rng.integers(e_t + 1, 5 * e_t, n_hd)
+    deg[deg % e_t == 0] -= 1
+    dst = np.repeat(np.arange(n_hd), deg)
+    plan = gs.build_plan(rng.integers(0, n, dst.shape[0]), dst, n, e_t=e_t)
+    groups = 2 if body == "K2" else 1
+    x_p = gs.pad_features(torch.as_tensor(rng.standard_normal((n, feat)),
+                                          dtype=torch.float32)).to(dtype)
+    w = torch.as_tensor(rng.standard_normal((plan.hd.cols.shape[0], groups)),
+                        dtype=torch.float32).to(dtype)
+    cols, meta = torch.as_tensor(plan.hd.cols), torch.as_tensor(plan.hd.chunk_meta)
+    # the lanes a staged row of F (16 bytes each) and the rows a pass covers
+    at_once = 32 // max(1, feat * x_p.element_size() // 16)
+    if body == "K2":
+        plain = gs.hd_grouped_plain(x_p, cols, w, meta, n_hd, e_t)
+        msgs, ws = x_p[cols.long()].float(), w.float()
+    else:
+        plain = gs.hd_plain(x_p, cols, meta, e_t, w[:, 0])[None]
+        msgs, ws = gs.weighted_msgs(x_p, cols, w[:, 0]).float(), torch.ones_like(w.float())
+    got = hd_body_order(msgs.reshape(-1, e_t, feat), ws.reshape(-1, e_t, groups),
+                        meta[:, 0], n_hd, at_once, fused=body == "K2")
+    assert (got - plain).abs().max().item() <= TOL * max(1.0, plain.abs().max().item())

@@ -12,6 +12,11 @@ one column do not depend on the other columns (within 1e-6); the fused
 slices add partial contractions in another order (within 1e-5 of
 max(1, max|plain|), the card's tolerance).  A W too wide for one block's
 shared memory runs in blocks of its columns (``fused_sage.column_blocks``).
+
+The HD body (K2, K6) stages no x: its launches (``groot_spmm._staged_hd``,
+the C call stubbed here) pass x where it lies, a slice's first column, x's
+row stride and the widest copy piece its rows are aligned to; only bf16
+rows of an odd width, which no 4-byte copy can start on, are padded first.
 """
 from __future__ import annotations
 
@@ -132,3 +137,54 @@ def test_staging_copies_nothing_at_the_model_widths():
         w = torch.zeros((4, feat, 32))
         xs, slices, ws = gs.stage_width(x_p, w)
         assert xs is x_p and ws is w and slices == ((0, feat, feat),)
+
+
+# the C entry's arguments (csrc/groot_spmm.cu: groot_hd) that hold x's layout
+HD_X, HD_STRIDE, HD_OUT, HD_FEAT, HD_VALID, HD_PIECE = 0, 1, 6, 11, 12, 13
+
+
+def _hd_launches(monkeypatch, x_p, e_t=8, chunks=6, groups=2):
+    """Run ``_staged_hd`` (K2's launches) with the C call recorded, not
+    made: (its return value, the recorded argument tuples, out)."""
+    calls = []
+
+    class Lib:
+        def groot_hd(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(gs.build, "library", lambda name: Lib())
+    monkeypatch.setattr(gs, "stream", lambda t: 0)
+    cols = torch.zeros(chunks * e_t, dtype=torch.int32)
+    wg = torch.zeros((chunks * e_t, groups), dtype=x_p.dtype)
+    row_chunks = torch.tensor([[0, 2], [2, 4]], dtype=torch.int32)
+    out = torch.empty((groups, 2, x_p.shape[1]))
+    n = gs._staged_hd("hd_grouped_apply", x_p, cols, wg, row_chunks, chunks, e_t, out,
+                      round_product=False)
+    return n, calls, out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("feat", [1, 3, 4, 6, 8, 24, 32, 40, 64])
+def test_hd_launches_read_x_in_place(monkeypatch, feat, dtype):
+    x_p = torch.zeros((N + 1, feat), dtype=DTYPES[dtype])
+    n, calls, out = _hd_launches(monkeypatch, x_p)
+    width, slices = gs.staged_slices(feat)
+    assert n == len(slices) == len(calls)
+    es = x_p.element_size()
+    padded = dtype == "bf16" and feat % 2 == 1
+    for (c0, sw, valid), args in zip(slices, calls):
+        if padded:  # a zero-padded copy of the staged width
+            assert args[HD_STRIDE] == width
+        else:
+            assert args[HD_X] == x_p.data_ptr() + c0 * es and args[HD_STRIDE] == feat
+        piece = 1 << args[HD_PIECE]
+        assert piece <= sw * es and (args[HD_X] | args[HD_STRIDE] * es) % piece == 0
+        assert piece == 16 or (args[HD_X] | args[HD_STRIDE] * es) % (2 * piece) or 2 * piece > sw * es
+        assert (args[HD_FEAT], args[HD_VALID]) == (sw, valid)
+        assert args[HD_OUT] == out.data_ptr() + 4 * c0
+
+
+def test_hd_launches_refuse_chunks_off_a_multiple_of_8(monkeypatch):
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _hd_launches(monkeypatch, torch.zeros((N + 1, 32)), e_t=12)
