@@ -84,7 +84,35 @@ Phases (any failure raises and the script exits non-zero):
               the f32 model's prefill of it on the plain schedule too is the
               yardstick for that bf16 comparison.
 
-Every driven path of phases 4-7 runs with each kernel's launch count set to
+ 8. partitioned  the partitioned route (``streaming=False``): (a) csa-<bits>
+              cut PART_K ways (multilevel, 1-hop re-growth), partitioned once
+              (``Session.prepare``), then ``Session(backend="groot")
+              .verify(prepared=...)`` and ``gnn.predict_partitioned_loop`` on
+              ``groot_fused``, ``groot_mxu`` and ``ref`` over the same
+              subgraphs: predictions differ from ``ref``'s on at most 1e-5 of
+              the nodes, the verdict equals the one ``ref``'s predictions
+              give, K1-K4 launch on the partitions, and the loop's device
+              peak may not exceed the largest partition's run alone by more
+              than 1%; the loop runs one subgraph structure at a time, and
+              after a structure's last partition no bytes may be left, nor
+              may the bytes left grow within a structure;
+              the host partition and re-growth time, boundary-edge fraction,
+              modeled and measured peaks (beside phase 6's full-graph peak),
+              per-partition times, plan-cache builds and launches, accuracy,
+              the share of nodes that differ from phase 6's full-graph
+              predictions and both verdicts.  (b) the paper's input,
+              PART_BATCH x csa-<bits> (134,661,008 nodes at 1024 bits), cut
+              PART_BATCH_K ways in topological stripes, on ``groot``
+              (``Session.verify``) and ``ref`` (the loop): predictions within
+              1e-5 of the nodes of each other, status ``classified``, the
+              measured peak under the card's memory and no more than 1% over
+              the largest partition's run alone; printed with its gen,
+              partition and per-partition times, modeled full and peak bytes,
+              the reduction of the measured peak against the modeled full,
+              accuracy and the host's peak RSS over (b) alone (the process's
+              peak where the kernel will not reset the mark).
+
+Every driven path of phases 4-8 runs with each kernel's launch count set to
 0 just before it and read just after; a kernel's ``launches`` in the summary
 is the sum over those paths, and every kernel must have been launched.  The
 line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -164,6 +192,11 @@ FLASH_SHAPES = (
 )
 # the serve phase: qwen3-8b, 8 requests of 4,096 prompt tokens, 32 new each
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 4096, 32
+# the partitioned phase: (a) csa-<bits> cut PART_K ways (multilevel); (b) the
+# paper's input, PART_BATCH copies of csa-<bits>, cut PART_BATCH_K ways in
+# topological stripes (two a copy, so re-growth has real boundaries)
+PART_K = 4
+PART_BATCH, PART_BATCH_K = 16, 32
 
 
 def log(msg: str) -> None:
@@ -730,6 +763,257 @@ def random_params(hidden: int, seed: int) -> dict:
     classes = gnn.GNNConfig().num_classes
     return {"layers": layers, "head": {"w": mat(hidden, classes),
                                        "b": np.zeros(classes, np.float32)}}
+
+
+def partition_probe(records: list, kernels: dict, base: int):
+    """An ``on_partition`` hook: per partition, its wall time from the end
+    of the previous one (host stages, plan build or cache hit, H2D, forward,
+    D2H), its plan-cache builds and hits, its launches of each kernel, its
+    device peak above ``base`` (the peak is reset after each partition) and
+    the allocated bytes it left above ``base``."""
+    import torch
+
+    from repro_torch.kernels.plan_cache import PLAN_CACHE
+
+    def counts():
+        return {kn: k["fn"].launches for kn, k in kernels.items()}
+
+    last = {"t": time.perf_counter(), "cache": PLAN_CACHE.snapshot(), "n": counts()}
+    torch.cuda.reset_peak_memory_stats()
+
+    def hook(i, sg):
+        now, snap, n = time.perf_counter(), PLAN_CACHE.snapshot(), counts()
+        records.append(dict(
+            part=i, nodes=sg.num_nodes, core=sg.num_core, edges=sg.num_edges,
+            s=now - last["t"], plan_builds=snap.builds - last["cache"].builds,
+            plan_hits=snap.hits - last["cache"].hits,
+            launches={kn: n[kn] - last["n"][kn] for kn in n if n[kn] - last["n"][kn]},
+            peak_above_base=torch.cuda.max_memory_allocated() - base,
+            left_above_base=torch.cuda.memory_allocated() - base))
+        torch.cuda.reset_peak_memory_stats()
+        last.update(t=time.perf_counter(), cache=snap, n=counts())
+
+    return hook
+
+
+def loop_summary(tag: str, records: list, subgraphs) -> dict:
+    """Log a partitioned loop's per-partition records.  The loop holds one
+    subgraph structure at a time (``gnn.structure_groups``): fail if bytes
+    are left after a structure's last partition, or if the bytes left grow
+    from one partition to the next within a structure."""
+    from repro_torch.core import gnn
+
+    for r in records:
+        log(f"  {tag} part {r['part']:2d}: {r['nodes']} nodes ({r['core']} core) "
+            f"{r['edges']} edges {r['s']:.3f} s, plan builds {r['plan_builds']} hits "
+            f"{r['plan_hits']}, peak {r['peak_above_base'] / 2**30:.3f} GiB, left "
+            f"{r['left_above_base']} B, launches {json.dumps(r['launches'])}")
+    left = {r["part"]: r["left_above_base"] for r in records}
+    for grp in gnn.structure_groups(subgraphs):
+        held = [left[i] for i in grp]
+        if held[-1] > 0 or any(b > a for a, b in zip(held, held[1:])):
+            fail(f"{tag}: device bytes left after the partitions {grp} of one structure: "
+                 f"{held} (want none after the last, no growth before it)")
+    return dict(parts=records, seconds=[r["s"] for r in records],
+                peak_above_base=max(r["peak_above_base"] for r in records))
+
+
+def _vm_hwm_gib():
+    try:
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) / 2**20
+    except OSError:
+        pass
+    return None
+
+
+def reset_peak_rss() -> bool:
+    """Restart this process's peak-RSS mark (``VmHWM``); False where the
+    kernel does not allow it or keeps no such mark."""
+    try:
+        Path("/proc/self/clear_refs").write_text("5")
+    except OSError:
+        return False
+    return _vm_hwm_gib() is not None
+
+
+def peak_rss_gib() -> float:
+    """The process's peak resident set in GiB: ``VmHWM`` (since the last
+    :func:`reset_peak_rss`), else ``ru_maxrss`` (the whole process)."""
+    hwm = _vm_hwm_gib()
+    if hwm is not None:
+        return hwm
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def partitioned_phase(args, dev, drive, launches: dict, kernels: dict, model,
+                      params_path, full: dict) -> dict:
+    """Phase 8: the partitioned route (``streaming=False``) at csa-<bits>
+    (a) and at PART_BATCH copies of it (b).  ``full`` holds phase 6's
+    full-graph ``groot`` predictions, status and measured peak."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Session
+    from repro_torch.core import gnn
+    from repro_torch.core import pipeline as P
+
+    rep: dict = {}
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+
+    def loop(tag, backend, prep, subgraphs=None):
+        """One ``predict_partitioned_loop`` over ``prep`` (or ``subgraphs``)
+        with the per-partition probe; returns (predictions, records)."""
+        records: list = []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        pred, _ = drive(tag, lambda: gnn.predict_partitioned_loop(
+            model, prep.subgraphs if subgraphs is None else subgraphs, prep.feats,
+            prep.num_nodes, backend, device=dev,
+            on_partition=partition_probe(records, kernels, base)))
+        return pred, records
+
+    def session(tag, sess, prep):
+        records: list = []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r, wall = drive(tag, lambda: sess.verify(
+            prepared=prep, return_predictions=True,
+            on_partition=partition_probe(records, kernels, base)))
+        return r, wall, records
+
+    def mismatch(a, b):
+        return int((a != b).sum())
+
+    # -- (a) csa-<bits>, multilevel, k=PART_K ----------------------------------
+    sess = Session(params=params_path, backend="groot", num_partitions=PART_K,
+                   streaming=False, device=dev.type)
+    prep = sess.prepare(dataset="csa", bits=args.bits)
+    n = prep.num_nodes
+    sizes = [(sg.num_nodes, sg.num_edges) for sg in prep.subgraphs]
+    full_b, peak_b = prep.memory_bytes()
+    a = dict(nodes=n, edges=prep.num_edges, k=prep.num_partitions, timings=prep.timings,
+             boundary_edge_frac=prep.boundary_edge_frac, subgraphs=sizes,
+             modeled_full_bytes=full_b, modeled_peak_bytes=peak_b)
+    big = max(range(len(sizes)), key=lambda i: sizes[i])
+    log(f"partitioned (a) csa-{args.bits} k={a['k']} multilevel hops 1: gen "
+        f"{prep.timings['gen']:.1f} s, partition + re-growth {prep.timings['partition']:.1f} s, "
+        f"boundary-edge fraction {prep.boundary_edge_frac:.4f}, largest subgraph "
+        f"{sizes[big][0]} nodes {sizes[big][1]} edges (of {n} / {prep.num_edges}); "
+        f"modeled full {full_b / 1e9:.3f} GB, peak {peak_b / 1e9:.3f} GB")
+    r, wall, rec = session("partitioned session.verify groot", sess, prep)
+    a["groot"] = dict(status=r.status, accuracy=r.accuracy, wall_s=wall, timings=r.timings,
+                      plan_cache=r.plan_cache, routing=r.routing.mode,
+                      launches=launches["partitioned session.verify groot"],
+                      loop=loop_summary("groot session", rec, prep.subgraphs))
+    peak_loop = a["groot"]["loop"]["peak_above_base"]
+    preds = {"groot": r.predictions}
+    for b in ("groot_fused", "groot_mxu", "ref"):
+        preds[b], rec = loop(f"partitioned loop {b}", b, prep)
+        a[b] = dict(launches=launches[f"partitioned loop {b}"],
+                    loop=loop_summary(b, rec, prep.subgraphs))
+    # each partition alone: the loop's peak may not exceed the largest of these
+    alone = []
+    for i, sg in enumerate(prep.subgraphs):
+        _, rec = loop(f"partitioned alone {i}", "groot", prep, [sg])
+        alone.append(rec[0]["peak_above_base"])
+    a["alone_peak_above_base"] = alone
+    ref_status = P.verify_prepared(prep, preds["ref"]).status
+    a["ref_status"] = ref_status
+    for b in ("groot", "groot_fused", "groot_mxu"):
+        a[b]["pred_mismatch_vs_ref"] = mism = mismatch(preds[b], preds["ref"])
+        log(f"partitioned (a) {b}: {mism} of {n} predictions differ from ref's on the same "
+            f"subgraphs (limit {MAX_PRED_MISMATCH:g} of nodes); launches "
+            f"{json.dumps({k: v for k, v in a[b]['launches'].items() if v})}")
+        if mism > MAX_PRED_MISMATCH * n:
+            fail(f"partitioned (a) {b}: {mism} predictions differ from ref")
+    for b, kn in (("groot", "ld_grouped"), ("groot", "hd_grouped"),
+                  ("groot_fused", "fused_ld_grouped"), ("groot_mxu", "ld_grouped_mxu")):
+        if a[b]["launches"][kn] <= 0:
+            fail(f"partitioned (a) {b}: {kn} never launched on the partitions")
+    if r.status != ref_status:
+        fail(f"partitioned (a): groot verdict {r.status} != the verdict ref's predictions "
+             f"give ({ref_status})")
+    if peak_loop > 1.01 * max(alone):
+        fail(f"partitioned (a): the loop's peak {peak_loop} B exceeds the largest partition "
+             f"alone ({max(alone)} B) by more than 1%")
+    a["full_diff_share"] = diff = mismatch(r.predictions, full["predictions"]) / n
+    log(f"partitioned (a) groot: status {r.status} (full graph {full['status']}, ref's "
+        f"partitioned predictions {ref_status}); accuracy {r.accuracy:.6f}; "
+        f"{diff:.3e} of nodes differ from the full-graph groot predictions; measured peak "
+        f"above the loop's base {peak_loop / 2**30:.3f} GiB (largest partition alone "
+        f"{max(alone) / 2**30:.3f} GiB; full-graph session {full['peak'] / 2**30:.3f} GiB); "
+        f"plan cache {json.dumps(r.plan_cache)}; wall {wall:.1f} s")
+    rep["a"] = a
+    del prep, preds, sess, r
+    torch.cuda.empty_cache()
+
+    # -- (b) PART_BATCH x csa-<bits>, bfs stripes, k=PART_BATCH_K --------------
+    kw = dict(batch=PART_BATCH, partitioner="bfs", num_partitions=PART_BATCH_K,
+              streaming=False, device=dev.type)
+    sess = Session(params=params_path, backend="groot", **kw)
+    rss_reset = reset_peak_rss()
+    prep = sess.prepare(dataset="csa", bits=args.bits)
+    n = prep.num_nodes
+    full_b, peak_b = prep.memory_bytes()
+    sizes = [(sg.num_nodes, sg.num_edges) for sg in prep.subgraphs]
+    b_rep = dict(nodes=n, edges=prep.num_edges, k=prep.num_partitions, timings=prep.timings,
+                 boundary_edge_frac=prep.boundary_edge_frac, subgraphs=sizes,
+                 modeled_full_bytes=full_b, modeled_peak_bytes=peak_b)
+    log(f"partitioned (b) {PART_BATCH} x csa-{args.bits}: {n} nodes {prep.num_edges} edges, "
+        f"k={b_rep['k']} bfs hops 1: gen {prep.timings['gen']:.1f} s, partition + re-growth "
+        f"{prep.timings['partition']:.1f} s, boundary-edge fraction "
+        f"{prep.boundary_edge_frac:.4f}, largest subgraph {max(sizes)}; modeled full "
+        f"{full_b / 1e9:.2f} GB, peak {peak_b / 1e9:.3f} GB")
+    r, wall, rec = session("partitioned (b) session.verify groot", sess, prep)
+    loop_g = loop_summary("(b) groot session", rec, prep.subgraphs)
+    ref_pred, rec = loop("partitioned (b) loop ref", "ref", prep)
+    loop_r = loop_summary("(b) ref", rec, prep.subgraphs)
+    big = max(range(len(sizes)), key=lambda i: sizes[i])
+    _, rec = loop("partitioned (b) alone", "groot", prep, [prep.subgraphs[big]])
+    alone_b = rec[0]["peak_above_base"]
+    mism = mismatch(r.predictions, ref_pred)
+    tiled = np.tile(full["predictions"], PART_BATCH)
+    measured = max(loop_g["peak_above_base"], loop_r["peak_above_base"])
+    b_rep.update(
+        status=r.status, accuracy=r.accuracy, wall_s=wall, timings=r.timings,
+        plan_cache=r.plan_cache, pred_mismatch_vs_ref=mism,
+        full_diff_share=mismatch(r.predictions, tiled) / n,
+        launches=launches["partitioned (b) session.verify groot"], loop_groot=loop_g,
+        loop_ref=loop_r, measured_peak_bytes=measured,
+        reduction_vs_modeled_full=1 - measured / full_b,
+        largest_alone_peak_bytes=alone_b, host_peak_rss_gib=peak_rss_gib(),
+        host_peak_rss_scope="phase 8 (b)" if rss_reset else "process")
+    log(f"partitioned (b) groot: status {r.status}, accuracy {r.accuracy:.6f} (paper 99.96%), "
+        f"{b_rep['full_diff_share']:.3e} of nodes differ from the full-graph predictions "
+        f"tiled {PART_BATCH}x; {mism} of {n} differ from ref's on the same subgraphs; "
+        f"measured peak {measured / 2**30:.3f} GiB of {card_bytes / 2**30:.1f}, "
+        f"{b_rep['reduction_vs_modeled_full']:.2%} under the modeled full {full_b / 1e9:.2f} GB "
+        f"(paper: 59.38% against its own measurement; not a claim); per partition "
+        f"{statistics.median(loop_g['seconds']):.3f} s median (groot), "
+        f"{statistics.median(loop_r['seconds']):.3f} s (ref); inference {r.timings['inference']:.1f} s; "
+        f"plan cache {json.dumps(r.plan_cache)}; largest partition alone "
+        f"{alone_b / 2**30:.3f} GiB; host peak RSS {b_rep['host_peak_rss_gib']:.1f} GiB "
+        f"({b_rep['host_peak_rss_scope']})")
+    if r.status != "classified":
+        fail(f"partitioned (b): status {r.status}, expected classified (batch {PART_BATCH})")
+    if mism > MAX_PRED_MISMATCH * n:
+        fail(f"partitioned (b): {mism} predictions differ between groot and ref")
+    if measured >= card_bytes:
+        fail(f"partitioned (b): measured peak {measured} B is not under the card's {card_bytes}")
+    if loop_g["peak_above_base"] > 1.01 * alone_b:
+        fail(f"partitioned (b): the groot loop's peak {loop_g['peak_above_base']} B exceeds "
+             f"the largest partition alone ({alone_b} B) by more than 1%")
+    for kn in ("ld_grouped", "hd_grouped"):
+        if b_rep["launches"][kn] <= 0:
+            fail(f"partitioned (b): {kn} never launched on the partitions")
+    rep["b"] = b_rep
+    del prep, sess, r, ref_pred, tiled
+    return rep
 
 
 def main() -> int:
@@ -1384,8 +1668,20 @@ def main() -> int:
     results = {}
     for b in ("groot", "groot_mxu", "groot_fused", "ref"):
         path = f"session.verify {b}"
+        if b == "groot":
+            # the full-graph working set, its plans' device copies included
+            # (phase 8 sets its partitioned peak beside it)
+            ops.release_device(pairs["groot"])
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         r, wall = drive(path, lambda: Session(params=params_path, backend=b).verify(
             dataset="csa", bits=args.bits, return_predictions=True))
+        if b == "groot":
+            full_peak = torch.cuda.max_memory_allocated() - base
+            log(f"session.verify groot: device peak {full_peak / 2**30:.3f} GiB above the "
+                f"bytes allocated before it")
+            report["full_session_peak_bytes"] = full_peak
         results[b] = r
         used = {k: v for k, v in launches[path].items() if v}
         log(f"session.verify backend={b}: status {r.status} accuracy {r.accuracy:.6f} "
@@ -1442,6 +1738,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["flash"] = flash_phase(args, dev, kernels["flash_attention"])
     report["serve"] = serve_phase(args, dev, drive, launches, bodies)
+
+    # -- 8. partitioned: csa-<bits> cut PART_K ways, then the 16-copy input -------
+    report["partitioned"] = partitioned_phase(
+        args, dev, drive, launches, kernels, model, params_path,
+        dict(predictions=results["groot"].predictions, status=results["groot"].status,
+             peak=full_peak))
 
     total = {kn: sum(counts[kn] for counts in launches.values()) for kn in kernels}
     report["launches"] = launches

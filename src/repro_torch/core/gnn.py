@@ -332,13 +332,14 @@ def _forward_hoisted(params, x, wg_in, wg_out, agg, fp, stream_dtype):
 # Prediction
 # ---------------------------------------------------------------------------
 
-def _make_agg(g, backend: str, device):
+def _make_agg(g, backend: str, device, *, cache: bool = True):
     """The aggregation pair for a graph (None = the plain reference)."""
     if backend in (None, "ref"):
         return None
     from repro_torch.kernels import ops
 
-    return ops.make_agg_pair(g.edge_src, g.edge_dst, g.num_nodes, backend, device=device)
+    return ops.make_agg_pair(g.edge_src, g.edge_dst, g.num_nodes, backend, device=device,
+                             cache=cache)
 
 
 def graph_tensors(g, device) -> tuple:
@@ -356,22 +357,101 @@ def graph_tensors(g, device) -> tuple:
     )
 
 
-def predict(params: GrootGNN, design, features, backend: str = "ref", *,
-            stream_dtype: Optional[str] = None, device=None) -> np.ndarray:
-    """Per-node class predictions (int32 argmax of the logits), computed on
-    ``device`` (``cuda`` unless the caller names another)."""
+def _params_on(params: GrootGNN, device) -> torch.device:
     device = resolve_device(device)
     p_dev = next(params.parameters()).device
     if p_dev.type != device.type or (device.index is not None and p_dev != device):
         raise ValueError(f"params lie on {p_dev}, prediction runs on {device}")
-    g = design.to_edge_graph() if hasattr(design, "to_edge_graph") else design
-    src, dst, inv, slot = graph_tensors(g, device)
+    return device
+
+
+def _predict_graph(params, num_nodes: int, tensors, features, agg, stream_dtype,
+                   device) -> np.ndarray:
     x = torch.as_tensor(np.asarray(features, np.float32)).to(device)
     logits = forward(
-        params, x, src, dst, inv, slot, num_nodes=g.num_nodes,
-        agg=_make_agg(g, backend, device), stream_dtype=stream_dtype,
+        params, x, *tensors, num_nodes=num_nodes, agg=agg, stream_dtype=stream_dtype,
     )
     return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+
+
+def predict(params: GrootGNN, design, features, backend: str = "ref", *,
+            stream_dtype: Optional[str] = None, device=None) -> np.ndarray:
+    """Per-node class predictions (int32 argmax of the logits), computed on
+    ``device`` (``cuda`` unless the caller names another)."""
+    device = _params_on(params, device)
+    g = design.to_edge_graph() if hasattr(design, "to_edge_graph") else design
+    return _predict_graph(params, g.num_nodes, graph_tensors(g, device), features,
+                          _make_agg(g, backend, device), stream_dtype, device)
+
+
+def _same_structure(a, b) -> bool:
+    if (a.num_nodes, a.num_edges) != (b.num_nodes, b.num_edges):
+        return False
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("edge_src", "edge_dst", "edge_inv", "edge_slot"))
+
+
+def structure_groups(subgraphs) -> list[list[int]]:
+    """Indices of ``subgraphs`` grouped by identical structure (node count
+    and every edge array), groups in order of first appearance: the copies
+    of a batched design cut at the same places fall in one group."""
+    groups: list[list[int]] = []
+    for i, sg in enumerate(subgraphs):
+        for grp in groups:
+            if _same_structure(subgraphs[grp[0]], sg):
+                grp.append(i)
+                break
+        else:
+            groups.append([i])
+    return groups
+
+
+def predict_partitioned_loop(
+    params: GrootGNN,
+    subgraphs,
+    features: np.ndarray,
+    num_nodes: int,
+    backend: str = "ref",
+    *,
+    stream_dtype: Optional[str] = None,
+    device=None,
+    on_partition=None,
+) -> np.ndarray:
+    """Sequential partitioned inference (port of the reference's
+    ``predict_partitioned_loop``): one unpadded full-graph forward per
+    re-grown subgraph on ``features[sg.global_ids]``; each subgraph's core
+    rows are scattered into an int32 prediction of ``num_nodes``.
+
+    The subgraphs run one structure at a time (:func:`structure_groups`;
+    core rows are disjoint, so the order does not change the result).  A
+    structure's edge tensors and aggregation pair go to the device once,
+    serve every subgraph of that structure, and are dropped after the last
+    one: the pair is built outside the structural cache and its plans'
+    device copies are released, so at most one partition's working set is
+    resident.  The host plans stay cached.  ``on_partition(i, sg)`` is
+    called after partition ``i``'s predictions reached the host (and, for
+    a structure's last partition, after its device copies were dropped).
+    """
+    from repro_torch.kernels import ops
+
+    device = _params_on(params, device)
+    out = np.zeros(num_nodes, dtype=np.int32)
+    for group in structure_groups(subgraphs):
+        g = subgraphs[group[0]].to_edge_graph()
+        tensors = graph_tensors(g, device)
+        agg = _make_agg(g, backend, device, cache=False)
+        for i in group:
+            sg = subgraphs[i]
+            pred = _predict_graph(params, g.num_nodes, tensors, features[sg.global_ids],
+                                  agg, stream_dtype, device)
+            out[sg.global_ids[: sg.num_core]] = pred[: sg.num_core]
+            if i == group[-1]:
+                if agg is not None:
+                    ops.release_device(agg)
+                tensors = agg = None
+            if on_partition is not None:
+                on_partition(i, sg)
+    return out
 
 
 def accuracy(pred: np.ndarray, labels: np.ndarray) -> float:

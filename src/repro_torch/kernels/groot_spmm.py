@@ -147,6 +147,11 @@ class SpmmPlan:
             self._device[key] = dp
         return dp
 
+    def release(self) -> None:
+        """Drop every device copy :meth:`on` made (a caller still holding a
+        ``DevicePlan`` keeps its tensors); the next :meth:`on` copies again."""
+        self._device.clear()
+
 
 def build_plan(
     edge_src: np.ndarray,

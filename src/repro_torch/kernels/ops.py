@@ -342,14 +342,27 @@ def _build_pair(edge_src, edge_dst, num_nodes: int, backend: str, device) -> Agg
 
 
 def make_agg_pair(edge_src, edge_dst, num_nodes: int, backend: str = "ref", *,
-                  device) -> AggPair:
+                  device, cache: bool = True) -> AggPair:
     """Build (or fetch from the structural cache) the aggregation pair of a
-    graph under a backend, with its index arrays on ``device``."""
+    graph under a backend, with its index arrays on ``device``.
+
+    ``cache=False`` builds a pair the cache does not keep (its host plans
+    still come from, and stay in, the cache); with :func:`release_device`
+    after use, nothing of it stays on the device."""
     device = torch.device(device)
+    if not cache:
+        return _build_pair(edge_src, edge_dst, num_nodes, backend, device)
     key = ("pair", pc.graph_key(edge_src, edge_dst, num_nodes), backend, str(device))
     return pc.PLAN_CACHE.get_or_build(
         key, lambda: _build_pair(edge_src, edge_dst, num_nodes, backend, device)
     )
+
+
+def release_device(pair: AggPair) -> None:
+    """Drop the device copies of a pair's plans (``SpmmPlan.release``)."""
+    for plan in (pair.in_plan, pair.out_plan):
+        if plan is not None:
+            plan.release()
 
 
 def groot_spmm(x: torch.Tensor, edge_src, edge_dst, num_nodes: int,

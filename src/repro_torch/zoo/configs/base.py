@@ -170,7 +170,7 @@ def _layer_specs(cfg: ModelConfig, layer_idx: int) -> dict:
     if kind not in ("global", "local") or cfg.is_moe_layer(layer_idx):
         raise NotImplementedError(
             f"{cfg.name}: layer {layer_idx} ({kind}{', MoE' if cfg.is_moe_layer(layer_idx) else ''}) "
-            "is not ported yet (ROADMAP Queue 1, item 9)")
+            "is not ported yet (ROADMAP Queue 1, item 8)")
     return {
         "ln1": _p((cfg.d_model,), ("d_model",), init="ones"),
         "attn": _attention_specs(cfg),

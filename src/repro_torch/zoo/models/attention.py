@@ -120,7 +120,7 @@ def _sdpa_flash(q, k, v, q_pos, k_pos, cfg, scale, *, causal, window):
         raise NotImplementedError(
             "flash attention of queries against keys at other positions (decode against "
             f"more than FLASH_THRESHOLD={FLASH_THRESHOLD} cache slots) is not ported: "
-            "ROADMAP Queue 1, item 9")
+            "ROADMAP Queue 1, item 8")
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     qf = q.transpose(1, 2).contiguous().view(b * h, s, hd)

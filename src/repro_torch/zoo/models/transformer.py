@@ -108,7 +108,7 @@ def apply_layer(x: torch.Tensor, lp, cfg: ModelConfig, kind: str, is_moe: bool,
     if kind not in ("global", "local") or is_moe:
         raise NotImplementedError(
             f"{cfg.name}: {kind}{' MoE' if is_moe else ''} layers are not ported yet "
-            "(ROADMAP Queue 1, item 9)")
+            "(ROADMAP Queue 1, item 8)")
     new_cache: dict = {}
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     window = cfg.sliding_window if kind == "local" else 0

@@ -545,3 +545,93 @@ def test_session_on_card_matches_cpu(cuda):
             dataset="csa", bits=16, return_predictions=True)
         np.testing.assert_array_equal(on_card.predictions, on_cpu.predictions)
         assert on_card.verdict == on_cpu.verdict
+
+
+NPZ = Path(gs.__file__).resolve().parents[1] / "data" / "groot_csa8.npz"
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_partitioned_loop_on_card_matches_cpu(cuda, bits):
+    """The partitioned route (``streaming=False``, k=4, one partitioning)
+    on the card gives the CPU run's predictions and verdict, launching the
+    grouped kernels on the partitions."""
+    params = gnn.load_params(NPZ)
+    kw = dict(streaming=False, num_partitions=4)
+    prep = Session(device="cpu", **kw).prepare(dataset="csa", bits=bits)
+    for backend, kernel in (("groot", gs.ld_grouped_apply),
+                            ("groot_fused", fs.fused_ld_matmul_grouped),
+                            ("groot_mxu", gs.ld_grouped_mxu_apply)):
+        before = kernel.launches
+        on_card = Session(params, backend=backend, **kw).verify(
+            prepared=prep, return_predictions=True)
+        assert kernel.launches > before, backend
+        on_cpu = Session(params, backend=backend, device="cpu", **kw).verify(
+            prepared=prep, return_predictions=True)
+        assert on_card.routing.mode == "partitioned"
+        np.testing.assert_array_equal(on_card.predictions, on_cpu.predictions, err_msg=backend)
+        assert on_card.verdict == on_cpu.verdict
+
+
+@pytest.mark.parametrize("backend", ["groot", "groot_mxu", "groot_fused"])
+def test_partitioned_loop_peak_is_one_partitions(cuda, backend):
+    """Over k=8 partitions of csa-128 the loop's device peak is no higher
+    than the largest partition's run alone (margin 1%: the same allocations
+    in the same order, rounded to the allocator's blocks), and no partition
+    leaves bytes allocated behind it."""
+    params = gnn.params_from_numpy(gnn.load_params(NPZ), device=cuda)
+    prep = Session(device="cpu", streaming=False, num_partitions=8).prepare(
+        dataset="csa", bits=128)
+
+    def peak(subgraphs):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        left = []
+        gnn.predict_partitioned_loop(
+            params, subgraphs, prep.feats, prep.num_nodes, backend, device=cuda,
+            on_partition=lambda i, sg: left.append(torch.cuda.memory_allocated() - base))
+        return torch.cuda.max_memory_allocated() - base, left
+
+    peak(prep.subgraphs)          # warm: the kernels' libraries, cuBLAS's workspace
+    whole, left = peak(prep.subgraphs)
+    alone = max(peak([sg])[0] for sg in prep.subgraphs)
+    assert gnn.structure_groups(prep.subgraphs) == [[i] for i in range(8)]
+    assert len(left) == 8 and max(left) <= 0, left
+    assert 0 < whole <= 1.01 * alone, (whole, alone)
+
+
+@pytest.mark.parametrize("backend", ["groot", "groot_fused"])
+def test_partitioned_loop_holds_one_structure(cuda, backend):
+    """Four copies of csa-64 cut into eight stripes: two structures of four
+    subgraphs.  The loop keeps a structure's tensors on the card across its
+    subgraphs (the same bytes left after each but the last, none after the
+    last), peaks no higher than the largest subgraph alone (1%), and gives
+    the CPU run's predictions."""
+    params = gnn.load_params(NPZ)
+    on_card = gnn.params_from_numpy(params, device=cuda)
+    prep = Session(device="cpu", streaming=False, num_partitions=8, partitioner="bfs",
+                   batch=4).prepare(dataset="csa", bits=64)
+    groups = gnn.structure_groups(prep.subgraphs)
+    assert groups == [[0, 2, 4, 6], [1, 3, 5, 7]]
+
+    def run(subgraphs):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        left = {}
+        pred = gnn.predict_partitioned_loop(
+            on_card, subgraphs, prep.feats, prep.num_nodes, backend, device=cuda,
+            on_partition=lambda i, sg: left.__setitem__(i, torch.cuda.memory_allocated() - base))
+        return pred, torch.cuda.max_memory_allocated() - base, left
+
+    run(prep.subgraphs)           # warm
+    pred, whole, left = run(prep.subgraphs)
+    alone = max(run([sg])[1] for sg in prep.subgraphs)
+    for grp in groups:
+        held = [left[i] for i in grp]
+        assert held[-1] <= 0 and held[0] > 0 and len(set(held[:-1])) == 1, held
+    assert 0 < whole <= 1.01 * alone, (whole, alone)
+    on_cpu = gnn.predict_partitioned_loop(
+        gnn.params_from_numpy(params), prep.subgraphs, prep.feats, prep.num_nodes, backend,
+        device="cpu")
+    np.testing.assert_array_equal(pred, on_cpu)
