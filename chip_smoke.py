@@ -84,8 +84,9 @@ Phases (any failure raises and the script exits non-zero):
               the f32 model's prefill of it on the plain schedule too is the
               yardstick for that bf16 comparison.
 
- 8. partitioned  the partitioned route (``streaming=False``): (a) csa-<bits>
-              cut PART_K ways (multilevel, 1-hop re-growth), partitioned once
+ 8. partitioned  the partitioned route (``streaming=False``): (a)
+              csa-<PART_A_BITS> (640: a smaller design than phases 2-6, whose
+              host partitioning fits the time limit) cut PART_K ways (multilevel, 1-hop re-growth), partitioned once
               (``Session.prepare``), then ``Session(backend="groot")
               .verify(prepared=...)`` and ``gnn.predict_partitioned_loop`` on
               ``groot_fused``, ``groot_mxu`` and ``ref`` over the same
@@ -97,10 +98,9 @@ Phases (any failure raises and the script exits non-zero):
               after a structure's last partition no bytes may be left, nor
               may the bytes left grow within a structure;
               the host partition and re-growth time, boundary-edge fraction,
-              modeled and measured peaks (beside phase 6's full-graph peak),
-              per-partition times, plan-cache builds and launches, accuracy,
-              the share of nodes that differ from phase 6's full-graph
-              predictions and both verdicts.  (b) the paper's input,
+              modeled and measured peaks, per-partition times, plan-cache
+              builds and launches, accuracy and both verdicts.  (b) the
+              paper's input,
               PART_BATCH x csa-<bits> (134,661,008 nodes at 1024 bits), cut
               PART_BATCH_K ways in topological stripes, on ``groot``
               (``Session.verify``) and ``ref`` (the loop): predictions within
@@ -109,10 +109,35 @@ Phases (any failure raises and the script exits non-zero):
               the largest partition's run alone; printed with its gen,
               partition and per-partition times, modeled full and peak bytes,
               the reduction of the measured peak against the modeled full,
-              accuracy and the host's peak RSS over (b) alone (the process's
+              accuracy, the share of nodes that differ from phase 6's
+              full-graph predictions tiled, and the host's peak RSS over (b) alone (the process's
               peak where the kernel will not reset the mark).
+ 9. streamed  the streamed route (``streaming=True``, the default) on phase
+              8's partitionings, through ``Session.verify(prepared=...)``:
+              (a) csa-<PART_A_BITS> k=PART_K on ``groot`` (with its verdict),
+              ``groot_fused``, ``groot_mxu`` and ``ref``; (b) the PART_BATCH-
+              copy input on ``groot`` and ``ref``: bucketed packed launches
+              of ``stream_capacity`` slots, a prefetch thread packing the next
+              batch.  Each run's buckets, batches and ``exec_stats`` (pack,
+              device, wall and overlap seconds, bytes copied, queue depth,
+              capacity halvings, modeled against actual peak), plan-cache
+              builds and hits, launches, device peak beside each distinct
+              packed launch run alone through a fresh ``BucketRunner`` (the
+              largest's warm relaunch profiled), the predictions that differ
+              from phase 8's loop and the wall time beside the loop's.  Fails
+              on predictions over the limit, any capacity halving, bytes left
+              after the run, a peak more than 1% over the largest launch
+              alone, or a grouped kernel not launched.  Then K2 at (b)'s
+              largest packed batch, whose dummy rows carry its padding edges
+              (thousands of 512-slot chunks a row), against its plain version
+              and timed.  (c) the budget route: csa-<BUDGET_BITS> under half
+              its modeled full-graph bytes, ``explain()`` (mode "streamed", k,
+              buckets) and the verdict, held to the loop on the same cut.
+              (d) csa-<ONEHOT_BITS> cut PART_K ways: each packed launch's
+              core-row logits against the loop's, on the kernel backends and
+              ``ref`` (within LOGIT_TOL).
 
-Every driven path of phases 4-8 runs with each kernel's launch count set to
+Every driven path of phases 4-9 runs with each kernel's launch count set to
 0 just before it and read just after; a kernel's ``launches`` in the summary
 is the sum over those paths, and every kernel must have been launched.  The
 line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -197,6 +222,13 @@ SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 4096, 32
 # topological stripes (two a copy, so re-growth has real boundaries)
 PART_K = 4
 PART_BATCH, PART_BATCH_K = 16, 32
+# (a)'s design: the host's multilevel partitioning of csa-1024 took 120-171 s
+# of the script's time limit; csa-640 still has HD rows (its inputs' fanout
+# degree 640 > E_T), so every grouped kernel runs on its partitions
+PART_A_BITS = 640
+# the streamed phase's budget route: csa-<BUDGET_BITS> under half its modeled
+# full-graph bytes
+BUDGET_BITS = 256
 
 
 def log(msg: str) -> None:
@@ -850,10 +882,13 @@ def peak_rss_gib() -> float:
 
 
 def partitioned_phase(args, dev, drive, launches: dict, kernels: dict, model,
-                      params_path, full: dict) -> dict:
-    """Phase 8: the partitioned route (``streaming=False``) at csa-<bits>
-    (a) and at PART_BATCH copies of it (b).  ``full`` holds phase 6's
-    full-graph ``groot`` predictions, status and measured peak."""
+                      params_path, full_predictions) -> tuple[dict, dict]:
+    """Phase 8: the partitioned route (``streaming=False``) at
+    csa-<PART_A_BITS> (a) and at PART_BATCH copies of csa-<bits> (b).
+    ``full_predictions`` are phase 6's full-graph ``groot`` predictions at
+    csa-<bits>.  Returns the report and, for phase 9, each design's prepared
+    partitioning with the loop's predictions, wall times and ``groot``
+    status."""
     import numpy as np
     import torch
 
@@ -866,15 +901,15 @@ def partitioned_phase(args, dev, drive, launches: dict, kernels: dict, model,
 
     def loop(tag, backend, prep, subgraphs=None):
         """One ``predict_partitioned_loop`` over ``prep`` (or ``subgraphs``)
-        with the per-partition probe; returns (predictions, records)."""
+        with the per-partition probe; returns (predictions, records, wall s)."""
         records: list = []
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        pred, _ = drive(tag, lambda: gnn.predict_partitioned_loop(
+        pred, wall = drive(tag, lambda: gnn.predict_partitioned_loop(
             model, prep.subgraphs if subgraphs is None else subgraphs, prep.feats,
             prep.num_nodes, backend, device=dev,
             on_partition=partition_probe(records, kernels, base)))
-        return pred, records
+        return pred, records, wall
 
     def session(tag, sess, prep):
         records: list = []
@@ -889,10 +924,10 @@ def partitioned_phase(args, dev, drive, launches: dict, kernels: dict, model,
     def mismatch(a, b):
         return int((a != b).sum())
 
-    # -- (a) csa-<bits>, multilevel, k=PART_K ----------------------------------
+    # -- (a) csa-<PART_A_BITS>, multilevel, k=PART_K ---------------------------
     sess = Session(params=params_path, backend="groot", num_partitions=PART_K,
                    streaming=False, device=dev.type)
-    prep = sess.prepare(dataset="csa", bits=args.bits)
+    prep = sess.prepare(dataset="csa", bits=PART_A_BITS)
     n = prep.num_nodes
     sizes = [(sg.num_nodes, sg.num_edges) for sg in prep.subgraphs]
     full_b, peak_b = prep.memory_bytes()
@@ -900,7 +935,7 @@ def partitioned_phase(args, dev, drive, launches: dict, kernels: dict, model,
              boundary_edge_frac=prep.boundary_edge_frac, subgraphs=sizes,
              modeled_full_bytes=full_b, modeled_peak_bytes=peak_b)
     big = max(range(len(sizes)), key=lambda i: sizes[i])
-    log(f"partitioned (a) csa-{args.bits} k={a['k']} multilevel hops 1: gen "
+    log(f"partitioned (a) csa-{PART_A_BITS} k={a['k']} multilevel hops 1: gen "
         f"{prep.timings['gen']:.1f} s, partition + re-growth {prep.timings['partition']:.1f} s, "
         f"boundary-edge fraction {prep.boundary_edge_frac:.4f}, largest subgraph "
         f"{sizes[big][0]} nodes {sizes[big][1]} edges (of {n} / {prep.num_edges}); "
@@ -911,15 +946,15 @@ def partitioned_phase(args, dev, drive, launches: dict, kernels: dict, model,
                       launches=launches["partitioned session.verify groot"],
                       loop=loop_summary("groot session", rec, prep.subgraphs))
     peak_loop = a["groot"]["loop"]["peak_above_base"]
-    preds = {"groot": r.predictions}
+    preds, walls = {"groot": r.predictions}, {"groot": wall}
     for b in ("groot_fused", "groot_mxu", "ref"):
-        preds[b], rec = loop(f"partitioned loop {b}", b, prep)
-        a[b] = dict(launches=launches[f"partitioned loop {b}"],
+        preds[b], rec, walls[b] = loop(f"partitioned loop {b}", b, prep)
+        a[b] = dict(launches=launches[f"partitioned loop {b}"], wall_s=walls[b],
                     loop=loop_summary(b, rec, prep.subgraphs))
     # each partition alone: the loop's peak may not exceed the largest of these
     alone = []
     for i, sg in enumerate(prep.subgraphs):
-        _, rec = loop(f"partitioned alone {i}", "groot", prep, [sg])
+        _, rec, _ = loop(f"partitioned alone {i}", "groot", prep, [sg])
         alone.append(rec[0]["peak_above_base"])
     a["alone_peak_above_base"] = alone
     ref_status = P.verify_prepared(prep, preds["ref"]).status
@@ -941,15 +976,14 @@ def partitioned_phase(args, dev, drive, launches: dict, kernels: dict, model,
     if peak_loop > 1.01 * max(alone):
         fail(f"partitioned (a): the loop's peak {peak_loop} B exceeds the largest partition "
              f"alone ({max(alone)} B) by more than 1%")
-    a["full_diff_share"] = diff = mismatch(r.predictions, full["predictions"]) / n
-    log(f"partitioned (a) groot: status {r.status} (full graph {full['status']}, ref's "
-        f"partitioned predictions {ref_status}); accuracy {r.accuracy:.6f}; "
-        f"{diff:.3e} of nodes differ from the full-graph groot predictions; measured peak "
-        f"above the loop's base {peak_loop / 2**30:.3f} GiB (largest partition alone "
-        f"{max(alone) / 2**30:.3f} GiB; full-graph session {full['peak'] / 2**30:.3f} GiB); "
-        f"plan cache {json.dumps(r.plan_cache)}; wall {wall:.1f} s")
+    log(f"partitioned (a) groot: status {r.status} (ref's partitioned predictions "
+        f"{ref_status}); accuracy {r.accuracy:.6f}; measured peak above the loop's base "
+        f"{peak_loop / 2**30:.3f} GiB (largest partition alone {max(alone) / 2**30:.3f} "
+        f"GiB); plan cache {json.dumps(r.plan_cache)}; wall {wall:.1f} s")
     rep["a"] = a
-    del prep, preds, sess, r
+    # phase 9 streams the same subgraphs and holds its predictions to these
+    handoff = {"a": dict(prep=prep, preds=preds, walls=walls, status=r.status)}
+    del sess, r
     torch.cuda.empty_cache()
 
     # -- (b) PART_BATCH x csa-<bits>, bfs stripes, k=PART_BATCH_K --------------
@@ -971,13 +1005,13 @@ def partitioned_phase(args, dev, drive, launches: dict, kernels: dict, model,
         f"{full_b / 1e9:.2f} GB, peak {peak_b / 1e9:.3f} GB")
     r, wall, rec = session("partitioned (b) session.verify groot", sess, prep)
     loop_g = loop_summary("(b) groot session", rec, prep.subgraphs)
-    ref_pred, rec = loop("partitioned (b) loop ref", "ref", prep)
+    ref_pred, rec, ref_wall = loop("partitioned (b) loop ref", "ref", prep)
     loop_r = loop_summary("(b) ref", rec, prep.subgraphs)
     big = max(range(len(sizes)), key=lambda i: sizes[i])
-    _, rec = loop("partitioned (b) alone", "groot", prep, [prep.subgraphs[big]])
+    _, rec, _ = loop("partitioned (b) alone", "groot", prep, [prep.subgraphs[big]])
     alone_b = rec[0]["peak_above_base"]
     mism = mismatch(r.predictions, ref_pred)
-    tiled = np.tile(full["predictions"], PART_BATCH)
+    tiled = np.tile(full_predictions, PART_BATCH)
     measured = max(loop_g["peak_above_base"], loop_r["peak_above_base"])
     b_rep.update(
         status=r.status, accuracy=r.accuracy, wall_s=wall, timings=r.timings,
@@ -1012,7 +1046,290 @@ def partitioned_phase(args, dev, drive, launches: dict, kernels: dict, model,
         if b_rep["launches"][kn] <= 0:
             fail(f"partitioned (b): {kn} never launched on the partitions")
     rep["b"] = b_rep
-    del prep, sess, r, ref_pred, tiled
+    handoff["b"] = dict(prep=prep, preds={"groot": r.predictions, "ref": ref_pred},
+                        walls={"groot": wall, "ref": ref_wall}, status=r.status)
+    del sess, r, tiled
+    return rep, handoff
+
+
+def streamed_phase(args, dev, drive, launches: dict, kernels: dict, params_path,
+                   parts: dict) -> dict:
+    """Phase 9: the streamed route (``streaming=True``, the default) on phase
+    8's partitionings, (a) csa-<PART_A_BITS> k=PART_K on every kernel backend and
+    ``ref``, (b) PART_BATCH x csa-<bits> in PART_BATCH_K stripes on ``groot``
+    and ``ref``, then (c) the budget route at csa-<BUDGET_BITS> and (d) the
+    packed launches' logits against the loop's at csa-<ONEHOT_BITS>.  ``parts``
+    holds phase 8's prepared designs, loop predictions, wall times and
+    statuses."""
+    import torch
+
+    from repro_torch.api import Session, route_prepared
+    from repro_torch.core import gnn
+    from repro_torch.core.graph import EdgeGraph
+    from repro_torch.exec.packing import pack_partitions
+    from repro_torch.exec.plan import plan_from_subgraphs
+    from repro_torch.kernels import groot_spmm as gs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import plan_cache as pc
+    from repro_torch.service.scheduler import BucketRunner
+
+    rep: dict = {}
+    expect = {"groot": ("ld_grouped", "hd_grouped"), "groot_fused": ("fused_ld_grouped",),
+              "groot_mxu": ("ld_grouped_mxu",), "ref": ()}
+
+    def alone_peaks(sess, prep, backend):
+        """Each distinct packed batch (by the structures of its subgraphs)
+        run alone through a fresh runner: its device peak above the bytes
+        allocated before it; the warm relaunch of the largest profiled."""
+        cfg = sess.config
+        plan = plan_from_subgraphs(list(prep.subgraphs), prep.num_nodes,
+                                   min_nodes=cfg.min_nodes, min_edges=cfg.min_edges)
+        group_of = {i: gi for gi, grp in enumerate(gnn.structure_groups(prep.subgraphs))
+                    for i in grp}
+        seen, peaks, prof = set(), [], None
+        for shape, indices in plan.schedule(cfg.stream_capacity):
+            sig = (shape, tuple(group_of[i] for i in indices))
+            if sig in seen:
+                continue
+            seen.add(sig)
+            runner = BucketRunner(sess.params, backend, device=dev)
+            batch = pack_partitions(plan, indices, prep.feats, shape, cfg.stream_capacity,
+                                    keyed=runner.structure_keyed)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            runner(batch.arrays, batch.gkeys)
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            if shape == plan.buckets[-1] and prof is None:
+                _, prof = device_profile(f"one warm packed {backend} launch {shape}",
+                                         lambda: runner(batch.arrays, batch.gkeys))
+            runner.release()
+            del runner, batch
+        return peaks, prof
+
+    def stream(tag, prep, backend, overrides, check_verdict=False):
+        """One ``Session.verify(prepared=prep)`` on the streamed route, held
+        to phase 8's loop on the same subgraphs."""
+        sess = Session(params=params_path, backend=backend, device=dev.type, **overrides)
+        n = prep.num_nodes
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        path = f"streamed {tag} {backend}"
+        r, wall = drive(path, lambda: sess.verify(prepared=prep, verify=check_verdict,
+                                                  return_predictions=True))
+        peak = torch.cuda.max_memory_allocated() - base
+        left = torch.cuda.memory_allocated() - base
+        loop = parts[tag]["preds"][backend]
+        mism = int((r.predictions != loop).sum())
+        peaks, prof = alone_peaks(sess, prep, backend)
+        st = r.exec_stats
+        used = {k: v for k, v in launches[path].items() if v}
+        out = dict(mode=r.routing.mode, k=r.routing.k, buckets=r.routing.buckets,
+                   status=r.status, accuracy=r.accuracy, wall_s=wall,
+                   loop_wall_s=parts[tag]["walls"][backend], timings=r.timings,
+                   plan_cache=r.plan_cache, exec_stats=st, launches=used,
+                   measured_peak_bytes=peak, left_bytes=left, alone_peak_bytes=peaks,
+                   pred_mismatch_vs_loop=mism, warm_launch_profile=prof)
+        card_ms = None if prof is None else prof["device_ms"]
+        out["card_busy_share_estimate"] = (None if card_ms is None else
+                                           st["batches"] * card_ms / 1e3 / st["wall_s"])
+        log(f"streamed {tag} {backend}: mode {r.routing.mode} k={r.routing.k} buckets "
+            f"{list(r.routing.buckets)} batches {st['batches']} (capacity "
+            f"{sess.config.stream_capacity}, prefetch {sess.config.stream_prefetch}); "
+            f"status {r.status} accuracy {r.accuracy:.6f}; {mism} of {n} predictions "
+            f"differ from phase 8's loop (limit {MAX_PRED_MISMATCH:g} of nodes); wall "
+            f"{wall:.2f} s (phase 8 {parts[tag]['walls'][backend]:.2f} s), inference "
+            f"{r.timings['inference']:.2f} s")
+        log(f"  stats: launches {st['launches']} compiles {st['compiles']} pack "
+            f"{st['pack_s']:.3f} s device {st['device_s']:.3f} s wall {st['wall_s']:.3f} s "
+            f"overlap {max(0.0, st['pack_s'] + st['device_s'] - st['wall_s']):.3f} s "
+            f"bytes_h2d {st['bytes_h2d']} max_queue_depth {st['max_queue_depth']} "
+            f"capacity_halvings {st['capacity_halvings']}; modeled peak "
+            f"{st['modeled_peak_bytes'] / 1e9:.3f} GB, actual (the model on the launched "
+            f"shapes) {st['actual_peak_bytes'] / 1e9:.3f} GB; plan cache "
+            f"{json.dumps(r.plan_cache)}; launches {json.dumps(used)}")
+        log(f"  device peak {peak / 2**30:.3f} GiB, largest packed launch alone "
+            f"{max(peaks) / 2**30:.3f} GiB (distinct batches {len(peaks)}); left after the "
+            f"run {left} B; card busy share (launches x one warm launch's card time / "
+            f"wall) {out['card_busy_share_estimate']}")
+        if mism > MAX_PRED_MISMATCH * n:
+            fail(f"{path}: {mism} predictions differ from phase 8's loop")
+        if st["capacity_halvings"]:
+            fail(f"{path}: {st['capacity_halvings']} capacity halvings")
+        if left > 0:
+            fail(f"{path}: {left} B left allocated after the run")
+        if peak > 1.01 * max(peaks):
+            fail(f"{path}: device peak {peak} B over the largest packed launch alone "
+                 f"({max(peaks)} B) by more than 1%")
+        if r.routing.mode != "streamed":
+            fail(f"{path}: routed to mode {r.routing.mode}")
+        for kn in expect[backend]:
+            if not used.get(kn):
+                fail(f"{path}: {kn} never launched on the packed batches")
+        if backend == "ref" and used:
+            fail(f"{path}: the ref backend launched kernels: {used}")
+        if check_verdict and r.status != parts[tag]["status"]:
+            fail(f"{path}: verdict {r.status} != phase 8's {parts[tag]['status']}")
+        return out
+
+    # -- (a) csa-<PART_A_BITS>, k=PART_K multilevel, every backend -------------
+    prep = parts["a"]["prep"]
+    rep["a"] = {b: stream("a", prep, b, dict(num_partitions=PART_K),
+                          check_verdict=b == "groot")
+                for b in ("groot", "groot_fused", "groot_mxu", "ref")}
+    del prep
+    torch.cuda.empty_cache()
+
+    # -- (b) PART_BATCH x csa-<bits>, PART_BATCH_K bfs stripes -----------------
+    prep = parts["b"]["prep"]
+    kw = dict(batch=PART_BATCH, partitioner="bfs", num_partitions=PART_BATCH_K)
+    rep["b"] = {b: stream("b", prep, b, kw) for b in ("groot", "ref")}
+    # K2 on the packed batch's dummy rows: each slot parks its padding edges as
+    # self-loops on its last row, thousands of 512-slot chunks a row
+    cfg = Session(device=dev.type, **kw).config
+    plan = plan_from_subgraphs(list(prep.subgraphs), prep.num_nodes)
+    shape, indices = plan.schedule(cfg.stream_capacity)[-1]
+    batch = pack_partitions(plan, indices, prep.feats, shape, cfg.stream_capacity, keyed=True)
+    arr, n = batch.arrays, batch.arrays["num_nodes"]
+    fp = pc.cached_forward_plan(arr["edge_src"], arr["edge_dst"], n, gkeys=batch.gkeys)
+    tensors = [torch.from_numpy(arr[k]).to(dev) for k in
+               ("edge_src", "edge_dst", "edge_inv", "edge_slot")]
+    wg_in, wg_out = gnn.grouped_edge_weights(tensors[0].long(), tensors[1].long(),
+                                             tensors[2], tensors[3], n)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x_p = gs.pad_features(torch.randn((n, 32), generator=gen, device=dev))
+    k2 = {}
+    for direction, plan_d, wg in (("fanin", fp.in_plan, wg_in), ("fanout", fp.out_plan, wg_out)):
+        staged = gs.stage_group_weights(plan_d, wg)
+        dp = plan_d.on(dev)
+        counts = plan_d.hd.row_chunks()[:, 1]
+        n_hd = plan_d.hd.rows.shape[0]
+
+        def run():
+            return gs.hd_grouped_apply(x_p, dp.hd_cols, staged.hd, dp.hd_meta,
+                                       dp.hd_row_chunks, plan_d.e_t)
+
+        def plain():
+            return gs.hd_grouped_plain(x_p, dp.hd_cols, staged.hd, dp.hd_meta, n_hd, plan_d.e_t)
+
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        del got, want
+        kernels["hd_grouped"]["max_abs_err"] = max(kernels["hd_grouped"]["max_abs_err"], err)
+        ms, plain_ms = cuda_ms(run, args.reps), cuda_ms(plain, 2)
+        k2[direction] = dict(hd_rows=n_hd, chunks=int(counts.sum()),
+                             max_chunks_a_row=int(counts.max()), groups=staged.hd.shape[1],
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        log(f"K2 {direction} on packed batch {indices} ({shape}): {n_hd} HD rows, "
+            f"{int(counts.sum())} chunks, up to {int(counts.max())} a row; max_abs_err "
+            f"{err:.3e} (tol {TOL * scale:.3e}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if err > TOL * scale:
+            fail(f"K2 {direction} at the packed dummy rows: max abs error {err:.3e}")
+        del staged
+    rep["b"]["k2_dummy_rows"] = k2
+    # the runner copies a packed batch from pageable host memory; the same
+    # arrays from pinned buffers, and what pinning them costs on the host
+    host = [torch.from_numpy(arr[k]) for k in ("x", "edge_src", "edge_dst", "edge_inv",
+                                               "edge_slot")]
+    h2d: dict = {"bytes": batch.nbytes}
+    for label in ("pageable", "pinned", "pageable again"):
+        src = host
+        if label == "pinned":
+            t0 = time.perf_counter()
+            src = [t.pin_memory() for t in host]
+            h2d["pin_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = [t.to(dev, non_blocking=label == "pinned") for t in src]
+        torch.cuda.synchronize()
+        h2d[label] = time.perf_counter() - t0
+        del on_card, src
+    rep["b"]["h2d"] = h2d
+    log(f"H2D of one packed batch ({batch.nbytes} B): pageable {h2d['pageable']:.4f} s, "
+        f"again {h2d['pageable again']:.4f} s; pinned {h2d['pinned']:.4f} s after "
+        f"{h2d['pin_s']:.4f} s of pinning on the host")
+    fp.in_plan.release()
+    fp.out_plan.release()
+    del prep, batch, arr, fp, tensors, wg_in, wg_out, x_p
+    torch.cuda.empty_cache()
+
+    # -- (c) the budget route at csa-<BUDGET_BITS> ------------------------------
+    full = Session(device=dev.type).explain(dataset="csa", bits=BUDGET_BITS)
+    budget = full.modeled_full_bytes // 2
+    sess = Session(params=params_path, backend="groot", memory_budget_bytes=budget,
+                   device=dev.type)
+    t0 = time.perf_counter()
+    prep = sess.prepare(dataset="csa", bits=BUDGET_BITS)
+    t_prep = time.perf_counter() - t0
+    decision = route_prepared(prep, sess.config, dev)
+    r, wall = drive("streamed (c) budget groot", lambda: sess.verify(
+        prepared=prep, return_predictions=True))
+    loop = gnn.predict_partitioned_loop(sess.params, prep.subgraphs, prep.feats,
+                                        prep.num_nodes, "groot", device=dev)
+    mism = int((r.predictions != loop).sum())
+    st = r.exec_stats
+    rep["c"] = dict(bits=BUDGET_BITS, budget_bytes=budget, mode=decision.mode, k=decision.k,
+                    buckets=decision.buckets, modeled_peak_bytes=decision.modeled_peak_bytes,
+                    reason=decision.reason, status=r.status, accuracy=r.accuracy,
+                    prepare_s=t_prep, wall_s=wall, exec_stats=st,
+                    launches={k: v for k, v in launches["streamed (c) budget groot"].items()
+                              if v},
+                    pred_mismatch_vs_loop=mism)
+    log(f"streamed (c) csa-{BUDGET_BITS} budget {budget} B (half the full graph's modeled "
+        f"{full.modeled_full_bytes} B): explain() mode {decision.mode} k={decision.k} buckets "
+        f"{list(decision.buckets)} modeled packed peak {decision.modeled_peak_bytes} B; "
+        f"verdict {r.status} accuracy {r.accuracy:.6f} (full graph: see phase 6 at "
+        f"csa-{args.bits}); {mism} predictions differ from the loop on the same cut; prepare "
+        f"{t_prep:.1f} s, verify {wall:.1f} s; launches {st['launches']} capacity_halvings "
+        f"{st['capacity_halvings']}")
+    if decision.mode != "streamed" or r.routing != decision:
+        fail(f"streamed (c): explain() gives {decision.mode}, verify took {r.routing.mode}")
+    if st["peak_packed_memory_bytes"] > budget or st["capacity_halvings"]:
+        fail(f"streamed (c): packed peak {st['peak_packed_memory_bytes']} B over the "
+             f"{budget} B budget, or {st['capacity_halvings']} capacity halvings")
+    if mism > MAX_PRED_MISMATCH * prep.num_nodes:
+        fail(f"streamed (c): {mism} predictions differ from the loop")
+
+    # -- (d) logits of packed launches against the loop's, csa-<ONEHOT_BITS> ----
+    # on the card another row count may pick another GEMM, so the two routes'
+    # logits agree to LOGIT_TOL rather than bit for bit
+    small = Session(device=dev.type, num_partitions=PART_K).prepare(dataset="csa",
+                                                                     bits=ONEHOT_BITS)
+    model = gnn.params_from_numpy(gnn.load_params(params_path), device=dev)
+    plan = plan_from_subgraphs(list(small.subgraphs), small.num_nodes)
+
+    def logits(g, x, backend):
+        agg = None if backend == "ref" else ops.make_agg_pair(
+            g.edge_src, g.edge_dst, g.num_nodes, backend, device=dev, cache=False)
+        out = gnn.forward(model, torch.as_tensor(x).to(dev), *gnn.graph_tensors(g, dev),
+                          num_nodes=g.num_nodes, agg=agg)
+        if agg is not None:
+            ops.release_device(agg)
+        return out
+
+    gaps = {}
+    for backend in ("groot", "groot_fused", "groot_mxu", "ref"):
+        gap = scale = 0.0
+        for shape, indices in plan.schedule(2):
+            arr = pack_partitions(plan, indices, small.feats, shape, 2).arrays
+            packed = logits(EdgeGraph(arr["num_nodes"], arr["edge_src"], arr["edge_dst"],
+                                      arr["edge_inv"], arr["edge_slot"]), arr["x"], backend)
+            for k, i in enumerate(indices):
+                sg = small.subgraphs[i]
+                alone = logits(sg.to_edge_graph(), small.feats[sg.global_ids], backend)
+                rows = packed[k * shape.n_pad:k * shape.n_pad + sg.num_core]
+                gap = max(gap, (rows - alone[:sg.num_core]).abs().max().item())
+                scale = max(scale, alone.abs().max().item())
+        gaps[backend] = gap
+        if gap > LOGIT_TOL * max(1.0, scale):
+            fail(f"streamed (d) {backend}: packed logits differ from the loop's by {gap:.3e}")
+    rep["d"] = dict(bits=ONEHOT_BITS, max_logit_gap_vs_loop=gaps)
+    log(f"streamed (d) csa-{ONEHOT_BITS} k={PART_K}: largest |packed logit - loop logit| on "
+        f"core rows {json.dumps(gaps)} (limit {LOGIT_TOL:g} x max(1, |logit|))")
     return rep
 
 
@@ -1670,7 +1987,6 @@ def main() -> int:
         path = f"session.verify {b}"
         if b == "groot":
             # the full-graph working set, its plans' device copies included
-            # (phase 8 sets its partitioned peak beside it)
             ops.release_device(pairs["groot"])
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
@@ -1740,10 +2056,14 @@ def main() -> int:
     report["serve"] = serve_phase(args, dev, drive, launches, bodies)
 
     # -- 8. partitioned: csa-<bits> cut PART_K ways, then the 16-copy input -------
-    report["partitioned"] = partitioned_phase(
+    report["partitioned"], parts = partitioned_phase(
         args, dev, drive, launches, kernels, model, params_path,
-        dict(predictions=results["groot"].predictions, status=results["groot"].status,
-             peak=full_peak))
+        results["groot"].predictions)
+
+    # -- 9. streamed: phase 8's partitionings as packed launches, the budget route
+    report["streamed"] = streamed_phase(args, dev, drive, launches, kernels, params_path,
+                                        parts)
+    del parts
 
     total = {kn: sum(counts[kn] for counts in launches.values()) for kn in kernels}
     report["launches"] = launches

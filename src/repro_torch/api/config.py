@@ -1,6 +1,7 @@
 """`SessionConfig`: the port's session configuration (port of
-``repro/api/config.py``: the fields the full-graph and partitioned routes
-read, the streamed route's knobs that decide routing, plus ``device``)."""
+``repro/api/config.py``: the fields the full-graph, partitioned and
+streamed routes read, plus ``device``; the batched service's, tracing and
+fault-plan fields wait for the routes that read them)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +12,7 @@ from repro_torch.core.gnn import GNNConfig
 
 @dataclasses.dataclass(frozen=True)
 class SessionConfig:
-    """Knobs of the full-graph and partitioned verification routes."""
+    """Knobs of the full-graph, partitioned and streamed verification routes."""
 
     # design defaults (per-call ``verify(dataset=, bits=, seed=)`` win)
     dataset: str = "csa"
@@ -31,14 +32,23 @@ class SessionConfig:
     regrow_hops: int = 1
     partitioner: str = "multilevel"
     #: route partitioned designs through the streaming executor (True, the
-    #: reference's default; not ported yet, so a partition count or a budget
-    #: raises) or the sequential per-subgraph loop (False)
+    #: default) or the sequential per-subgraph loop (False)
     streaming: bool = True
     #: device budget: lets prepare() derive the partition count via
     #: choose_k when num_partitions is not set explicitly
     memory_budget_bytes: Optional[int] = None
-    #: partitions per modeled launch (choose_k's and the plan's memory model)
+    #: same-bucket partitions packed per launch
     stream_capacity: int = 2
+    #: packed batches the prefetch thread stages ahead of the device (0:
+    #: pack and launch in turn on the caller's thread)
+    stream_prefetch: int = 1
+    #: devices the streamed route shards over: None = every visible device
+    #: of the session's device type, 1 = one device; more than one asks for
+    #: the sharded route, which raises (ROADMAP Queue 1, item 7)
+    mesh_devices: Optional[int] = None
+    #: bucket floors of the streamed plan (the smallest padded slot shape)
+    min_nodes: int = 64
+    min_edges: int = 128
     #: where inference runs: None means ``cuda`` (and raises without a CUDA
     #: device); "cpu" runs every kernel wrapper's plain PyTorch version
     device: Optional[str] = None
@@ -66,5 +76,7 @@ class SessionConfig:
             seed=self.seed if seed is None else seed,
             memory_budget_bytes=self.memory_budget_bytes,
             stream_capacity=self.stream_capacity,
+            stream_prefetch=self.stream_prefetch,
             stream_dtype=self.stream_dtype,
+            mesh_devices=self.mesh_devices,
         )

@@ -3,19 +3,24 @@
     session.verify(design)      route + run + verify
     session.explain(design)     the routing decision, without running
 
-Two of the reference's modes are ported, on each of its five backends
-(``ref``, ``onehot``, ``groot``, ``groot_mxu``, ``groot_fused``; ``onehot``
-materialises an (E, N) one-hot, so it suits small designs only):
+Three of the reference's four modes are ported, on each of its five
+backends (``ref``, ``onehot``, ``groot``, ``groot_mxu``, ``groot_fused``;
+``onehot`` materialises an (E, N) one-hot, so it suits small designs only):
 
-  mode "full"         unpartitioned (no partition count, no budget)
+  mode "full"         unpartitioned: no partition count, no budget, or a
+                      budget the whole design fits
   mode "partitioned"  ``streaming=False``: the design is partitioned and
                       re-grown (Algorithm 1) and each subgraph runs the
                       full-graph forward in turn
+  mode "streamed"     ``streaming=True`` (the default) with a partition
+                      count or a budget the design does not fit: the
+                      ``repro_torch.exec`` executor runs the subgraphs as
+                      bucketed packed launches, a host thread packing the
+                      next batch while the device runs the current one
 
-With ``streaming=True`` (the reference's default) a partition count or a
-budget asks for the streamed or sharded route, which raises
-``NotImplementedError`` (ROADMAP Queue 1, items 2 and 7); so does an AIGER
-file or bytes as the design (ROADMAP Queue 1, item 5).
+The reference's mode "sharded" (the streamed route over more than one
+device) raises ``NotImplementedError`` (ROADMAP Queue 1, item 7); so does an
+AIGER file or bytes as the design (ROADMAP Queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -37,15 +42,17 @@ from repro_torch.kernels.plan_cache import PLAN_CACHE
 class RoutingDecision:
     """Why a design runs the way it runs (``session.explain()``)."""
 
-    mode: str                         # "full" | "partitioned"
+    mode: str                         # "full" | "partitioned" | "streamed"
     backend: str
     stream_dtype: Optional[str]       # effective staged-stream dtype (None=f32)
     k: int                            # partition count (1 for full)
-    num_buckets: int                  # compile-unit count (streamed mode: 0 here)
-    buckets: tuple                    # ((n_pad, e_pad), ...) (streamed mode: ())
+    num_buckets: int                  # compile-unit count (streamed mode)
+    buckets: tuple                    # ((n_pad, e_pad), ...) ascending
     modeled_full_bytes: int           # unpartitioned device-memory model
-    modeled_peak_bytes: int           # what is resident: the full bytes, or
-                                      # the largest subgraph's
+    modeled_peak_bytes: int           # what is resident: the full bytes, the
+                                      # largest subgraph's, or the packed-
+                                      # launch peak (capacity slots of the
+                                      # biggest bucket)
     memory_budget_bytes: Optional[int]
     num_nodes: int
     num_edges: int
@@ -69,39 +76,27 @@ class SessionResult:
     routing: RoutingDecision
     timings: dict
     plan_cache: dict                  # structural-cache deltas for this call
+    exec_stats: dict                  # streamed mode: executor probe deltas
     predictions: Optional[np.ndarray] = None   # verify(return_predictions=True)
 
 
-STREAMED_UNPORTED = (
-    "the streamed and sharded routes are not ported yet: ROADMAP Queue 1, items 2 "
-    "and 7 (a partition count or a memory budget with streaming=True asks for "
-    "them); pass streaming=False for the sequential partitioned loop"
-)
+def route_prepared(prep: P.PreparedDesign, cfg: SessionConfig, device=None) -> RoutingDecision:
+    """The routing decision ``verify`` executes and ``explain`` reports —
+    both read the same prepared design, so they cannot drift."""
+    return _route_with_plan(prep, cfg, device)[0]
 
 
-def check_ported(cfg: SessionConfig) -> None:
-    """Raise for a configuration only the unported routes serve: with
-    ``streaming=True`` a partition count or a budget plans packed streamed
-    launches (the reference routes a design that fits its budget to mode
-    "full", but on the streamed route's plan)."""
-    if cfg.streaming and (cfg.num_partitions > 1 or cfg.memory_budget_bytes is not None):
-        raise NotImplementedError(STREAMED_UNPORTED)
-
-
-def route_prepared(prep: P.PreparedDesign, cfg: SessionConfig) -> RoutingDecision:
-    """The routing decision ``verify`` executes and ``explain`` reports
-    (a partitioned ``prep`` under ``streaming=True`` asks for the streamed
-    route, whatever the session's own partition count)."""
-    check_ported(cfg)
-    if cfg.streaming and prep.subgraphs is not None:
-        raise NotImplementedError(STREAMED_UNPORTED)
+def _route_with_plan(prep: P.PreparedDesign, cfg: SessionConfig, device=None):
+    """Route + the PartitionPlan backing a streamed decision (None for the
+    other modes), so ``verify`` hands the planned buckets to the executor
+    instead of rebuilding them."""
     pcfg = prep.cfg
     full_bytes, peak_parts = prep.memory_bytes()
     budget = pcfg.memory_budget_bytes
     common = dict(
         backend=pcfg.backend, stream_dtype=P.effective_stream_dtype(cfg),
-        num_buckets=0, buckets=(), modeled_full_bytes=full_bytes,
-        memory_budget_bytes=budget, num_nodes=prep.num_nodes, num_edges=prep.num_edges,
+        modeled_full_bytes=full_bytes, memory_budget_bytes=budget,
+        num_nodes=prep.num_nodes, num_edges=prep.num_edges,
     )
     if prep.subgraphs is None:
         reason = (
@@ -109,14 +104,37 @@ def route_prepared(prep: P.PreparedDesign, cfg: SessionConfig) -> RoutingDecisio
             if budget is not None
             else "no partitioning requested (num_partitions <= 1, no budget)"
         )
-        return RoutingDecision(mode="full", k=1, modeled_peak_bytes=full_bytes,
-                               reason=reason, **common)
+        return RoutingDecision(mode="full", k=1, num_buckets=0, buckets=(),
+                               modeled_peak_bytes=full_bytes, reason=reason, **common), None
     k = prep.num_partitions
-    return RoutingDecision(
-        mode="partitioned", k=k, modeled_peak_bytes=peak_parts,
-        reason=f"k={k} partitions through the sequential loop (streaming disabled)",
-        **common,
+    if not cfg.streaming:
+        return RoutingDecision(
+            mode="partitioned", k=k, num_buckets=0, buckets=(), modeled_peak_bytes=peak_parts,
+            reason=f"k={k} partitions through the sequential loop (streaming disabled)",
+            **common,
+        ), None
+    from repro_torch.exec.plan import plan_from_subgraphs
+
+    P.check_unsharded(cfg.mesh_devices, device)
+    plan = plan_from_subgraphs(
+        list(prep.subgraphs), prep.num_nodes, num_edges=prep.num_edges,
+        regrow=pcfg.regrow, partitioner=pcfg.partitioner, seed=pcfg.seed,
+        min_nodes=cfg.min_nodes, min_edges=cfg.min_edges,
     )
+    if budget is not None and pcfg.num_partitions <= 1:
+        reason = (
+            f"modeled full-graph {full_bytes} B exceeds the {budget} B "
+            f"budget -> choose_k cut k={k}, streamed as "
+            f"{plan.num_buckets}-bucket packed launches"
+        )
+    else:
+        reason = f"k={k} partitions requested, streamed as {plan.num_buckets}-bucket packed launches"
+    return RoutingDecision(
+        mode="streamed", k=k, num_buckets=plan.num_buckets,
+        buckets=tuple((b.n_pad, b.e_pad) for b in plan.buckets),
+        modeled_peak_bytes=plan.peak_batch_memory_bytes(pcfg.gnn, cfg.stream_capacity),
+        reason=reason, **common,
+    ), plan
 
 
 def _as_model(params, device) -> gnn.GrootGNN:
@@ -130,7 +148,7 @@ def _as_model(params, device) -> gnn.GrootGNN:
 
 
 class Session:
-    """One front door over the full-graph and partitioned verification routes."""
+    """One front door over the full-graph, partitioned and streamed routes."""
 
     def __init__(self, params=None, config: Optional[SessionConfig] = None, **overrides):
         if config is None:
@@ -158,7 +176,6 @@ class Session:
                 bits: Optional[int] = None, seed: Optional[int] = None) -> P.PreparedDesign:
         """Host-side stage 1 for this session's config (features,
         partitioning, re-growth)."""
-        check_ported(self.config)
         pcfg = self.config.pipeline_config(dataset=dataset, bits=bits, seed=seed)
         return P.prepare(pcfg, self._resolve_design(design))
 
@@ -167,7 +184,19 @@ class Session:
         """The routing decision ``verify`` would take, without running
         inference.  Needs no params."""
         return route_prepared(
-            self.prepare(design, dataset=dataset, bits=bits, seed=seed), self.config
+            self.prepare(design, dataset=dataset, bits=bits, seed=seed), self.config,
+            self.device,
+        )
+
+    def _stream_executor(self):
+        from repro_torch.exec.stream import shared_executor
+
+        return shared_executor(
+            self.params, self.config.backend,
+            capacity=self.config.stream_capacity, prefetch=self.config.stream_prefetch,
+            stream_dtype=P.effective_stream_dtype(self.config),
+            min_nodes=self.config.min_nodes, min_edges=self.config.min_edges,
+            device=self.device,
         )
 
     def verify(self, design=None, *, dataset: Optional[str] = None,
@@ -182,7 +211,8 @@ class Session:
         :meth:`prepare`) skips the host stage 1 instead, e.g. to run one
         partitioning under several backends.  In mode "partitioned",
         ``on_partition(i, sg)`` is called after each subgraph's forward
-        (``gnn.predict_partitioned_loop``)."""
+        (``gnn.predict_partitioned_loop``); in mode "streamed" the result's
+        ``exec_stats`` carry the executor's probes for this call."""
         t_start = time.perf_counter()
         if prepared is None:
             prep = self.prepare(design, dataset=dataset, bits=bits, seed=seed)
@@ -190,11 +220,24 @@ class Session:
             prep = dataclasses.replace(prepared, cfg=dataclasses.replace(
                 prepared.cfg, backend=self.config.backend,
                 stream_dtype=self.config.stream_dtype, gnn=self.config.gnn))
-        decision = route_prepared(prep, self.config)
+        decision, plan = _route_with_plan(prep, self.config, self.device)
 
         t0 = time.perf_counter()
         pc_before = PLAN_CACHE.snapshot()
-        pred = P.infer(self.params, prep, device=self.device, on_partition=on_partition)
+        exec_stats: dict = {}
+        if decision.mode == "full":
+            pred = P.infer(self.params, prep, device=self.device)
+        elif decision.mode == "partitioned":
+            pred = gnn.predict_partitioned_loop(
+                self.params, prep.subgraphs, prep.feats, prep.num_nodes, prep.cfg.backend,
+                stream_dtype=decision.stream_dtype, device=self.device,
+                on_partition=on_partition,
+            )
+        else:
+            pred, exec_stats = P.infer_streaming(
+                self.params, prep, executor=self._stream_executor(), plan=plan,
+                device=self.device,
+            )
         pc_after = PLAN_CACHE.snapshot()
         t_inf = time.perf_counter() - t0
 
@@ -225,5 +268,6 @@ class Session:
                 "builds": pc_after.builds - pc_before.builds,
                 "hits": pc_after.hits - pc_before.hits,
             },
+            exec_stats=exec_stats,
             predictions=pred if return_predictions else None,
         )

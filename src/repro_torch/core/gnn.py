@@ -406,6 +406,51 @@ def structure_groups(subgraphs) -> list[list[int]]:
     return groups
 
 
+def predict_partitioned(
+    params: GrootGNN,
+    subgraphs,
+    features: np.ndarray,
+    num_nodes: int,
+    backend: str = "ref",
+    *,
+    streaming: bool = True,
+    capacity: int = 2,
+    prefetch: int = 1,
+    stream_dtype: Optional[str] = None,
+    device=None,
+) -> np.ndarray:
+    """DEPRECATED: per-partition inference; core-node predictions only.
+
+    Use :class:`repro_torch.api.Session` (whose router picks the streamed or
+    sequential path) or call
+    :func:`repro_torch.exec.stream.stream_predict_partitioned` /
+    :func:`predict_partitioned_loop` directly.  Kept as the reference's
+    behaviour-preserving shim: the subgraphs stream through the
+    ``repro_torch.exec`` executor by default, or run through the sequential
+    per-subgraph loop with ``streaming=False`` — the same core predictions
+    either way.
+    """
+    import warnings
+
+    warnings.warn(
+        "gnn.predict_partitioned is deprecated; use repro_torch.api.Session "
+        "(or stream_predict_partitioned / predict_partitioned_loop)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    if streaming:
+        from repro_torch.exec.stream import stream_predict_partitioned
+
+        return stream_predict_partitioned(
+            params, subgraphs, features, num_nodes, backend, capacity=capacity,
+            prefetch=prefetch, stream_dtype=stream_dtype, device=device,
+        )
+    return predict_partitioned_loop(
+        params, subgraphs, features, num_nodes, backend, stream_dtype=stream_dtype,
+        device=device,
+    )
+
+
 def predict_partitioned_loop(
     params: GrootGNN,
     subgraphs,

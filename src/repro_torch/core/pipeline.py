@@ -10,9 +10,10 @@ The three stages :class:`repro_torch.api.Session` composes:
   :func:`infer`            device: full-graph GNN prediction
   :func:`verify_prepared`  host: adder extraction + simulation check
 
-A partitioned design runs through the sequential per-subgraph loop
-(``gnn.predict_partitioned_loop``); the streamed executor is not ported yet
-(ROADMAP Queue 1, item 2).  The analytic device-memory model
+A partitioned design streams through the ``repro_torch.exec`` executor
+(:func:`infer_streaming`: bucketed packed launches, host prefetch); the
+sequential per-subgraph loop (``gnn.predict_partitioned_loop``) gives the
+same core predictions.  The analytic device-memory model
 (:func:`memory_model_bytes`) is the reference's, so routing decisions agree;
 partitioned runs count the PEAK over partitions.
 """
@@ -51,10 +52,15 @@ class PipelineConfig:
     # ``memory_budget_bytes`` set and num_partitions <= 1: prepare() derives
     # the partition count from the device budget via choose_k
     memory_budget_bytes: Optional[int] = None
-    stream_capacity: int = 2      # same-bucket partitions per modeled launch
+    stream_capacity: int = 2      # same-bucket partitions packed per launch
+    stream_prefetch: int = 1      # packed batches staged ahead of the device
     # edge-stream dtype for the hoisted groot* forward; None defers to
     # ``gnn.stream_dtype``
     stream_dtype: Optional[str] = None
+    # devices the streamed route shards over: None = every visible device of
+    # the run's device type; more than one asks for the sharded route, which
+    # is not ported (ROADMAP Queue 1, item 7)
+    mesh_devices: Optional[int] = None
 
 
 def memory_model_bytes(
@@ -79,6 +85,59 @@ def memory_model_bytes(
         p = cfg.in_features * h * 3 + (cfg.num_layers - 1) * 3 * h * h + h * cfg.num_classes
         bytes_ += p * f32
     return int(bytes_)
+
+
+def layer_traffic_model_bytes(
+    num_nodes: int,
+    num_edges: int,
+    cfg: gnn.GNNConfig,
+    *,
+    hoisted: bool = True,
+    stream_dtype: Optional[str] = None,
+    slots_in: Optional[int] = None,
+    slots_out: Optional[int] = None,
+    segments_in: int = 4,
+    segments_out: int = 4,
+) -> int:
+    """Modeled per-layer HBM traffic of the grouped aggregation hot path.
+
+    Counts the three per-layer terms the ForwardPlan hoisting targets
+    (array-accurate when the caller passes the real plan ``num_slots`` /
+    ``num_segments``; pow-2-padding estimates otherwise):
+
+      * **edge-message streams** — ``x[src]`` gathered once per direction
+        per layer: ``(slots_in + slots_out) * H * stream_bytes``.  Both
+        paths pay it; ``stream_dtype="bfloat16"`` halves it.
+      * **edge-weight streams** — pre-hoist each layer re-gathers the
+        (E, 4) fanin + (E, 2) fanout group weights into kernel layout;
+        hoisted stages them once per forward, so the per-layer share is
+        amortised by ``num_layers``.
+      * **output assembly** — pre-hoist each aggregation issues one
+        ``(N, H)`` scatter per LD bucket plus one for HD (each a
+        read-modify-write of the output array) plus the final read;
+        hoisted assembles with a single permutation gather (concat write
+        + gather read + result write: 3 passes).
+    """
+    f32 = 4
+    sdt = np.dtype(stream_dtype) if stream_dtype is not None else np.dtype("float32")
+    sb = sdt.itemsize
+    h = cfg.hidden
+    s_in = 2 * num_edges if slots_in is None else slots_in
+    s_out = 2 * num_edges if slots_out is None else slots_out
+    layers = max(cfg.num_layers, 1)
+
+    traffic = (s_in + s_out) * h * sb                 # message streams
+    w_bytes = (4 * s_in + 2 * s_out) * sb             # group-weight streams
+    traffic += w_bytes // layers if hoisted else w_bytes
+    out_plane = num_nodes * h * f32                   # one (N, H) pass
+    if hoisted:
+        traffic += 2 * 3 * out_plane                  # both directions
+    else:
+        # segments already counts the HD pass: 2 touches (read+write) per
+        # scatter segment, plus the final read of the assembled output
+        traffic += (2 * segments_in + 1) * out_plane
+        traffic += (2 * segments_out + 1) * out_plane
+    return int(traffic)
 
 
 @dataclasses.dataclass
@@ -196,23 +255,98 @@ def effective_stream_dtype(cfg) -> Optional[str]:
 
 
 def infer(params: gnn.GrootGNN, prep: PreparedDesign, *, backend: Optional[str] = None,
-          device=None, on_partition=None) -> np.ndarray:
-    """Stage 2 (device): per-node class predictions over the full graph,
-    or, for a partitioned design, through the sequential per-subgraph loop
-    (core predictions scattered back; ``on_partition`` as in
-    ``gnn.predict_partitioned_loop``).  The reference streams partitioned
-    designs; its streamed and looped core predictions are identical."""
-    backend = backend or prep.cfg.backend
-    if prep.subgraphs is not None:
-        return gnn.predict_partitioned_loop(
-            params, prep.subgraphs, prep.feats, prep.num_nodes, backend,
+          device=None) -> np.ndarray:
+    """Stage 2 (device): per-node class predictions over the full graph.
+
+    Partitioned designs stream (plan -> packed launches -> scatter);
+    :func:`infer_streaming` exposes the executor's probe counters too."""
+    if prep.subgraphs is None:
+        return gnn.predict(
+            params, prep.graph, prep.feats, backend=backend or prep.cfg.backend,
             stream_dtype=effective_stream_dtype(prep.cfg), device=device,
-            on_partition=on_partition,
         )
-    return gnn.predict(
-        params, prep.graph, prep.feats, backend=backend,
-        stream_dtype=effective_stream_dtype(prep.cfg), device=device,
+    pred, _ = infer_streaming(params, prep, backend=backend, device=device)
+    return pred
+
+
+def resolve_mesh_devices(mesh_devices: Optional[int], device=None) -> int:
+    """The devices a streamed route would shard over: ``mesh_devices``, or
+    with None every visible device of ``device``'s type (one for the CPU)."""
+    if mesh_devices is not None:
+        return max(1, int(mesh_devices))
+    from repro_torch import resolve_device
+
+    if resolve_device(device).type == "cuda":
+        import torch
+
+        return torch.cuda.device_count()
+    return 1
+
+
+def check_unsharded(mesh_devices: Optional[int], device=None) -> None:
+    """Raise where the streamed route would shard over more than one device
+    (:func:`resolve_mesh_devices`): the reference's mode "sharded" is not
+    ported, and streaming on one device instead would ignore the ask."""
+    devices = resolve_mesh_devices(mesh_devices, device)
+    if devices > 1:
+        raise NotImplementedError(
+            f"the sharded route is not ported yet: ROADMAP Queue 1, item 7 ({devices} "
+            f"devices asked for; pass mesh_devices=1 to stream on one device)"
+        )
+
+
+def infer_streaming(
+    params: gnn.GrootGNN,
+    prep: PreparedDesign,
+    *,
+    backend: Optional[str] = None,
+    executor=None,
+    plan=None,
+    device=None,
+) -> tuple[np.ndarray, dict]:
+    """Partitioned inference through the streaming executor.
+
+    Returns ``(pred, exec_stats)`` where ``exec_stats`` carries the executor
+    probes (compiles, launches, bytes_h2d, pack/device/wall seconds) plus
+    ``peak_packed_memory_bytes`` — the modeled device bytes of the largest
+    packed launch — and ``chosen_k``.  Without an ``executor`` the shared
+    one for (params, backend, knobs) on ``device`` runs it; more than one
+    device of that type asks for the sharded route, which raises.  The
+    reference's crash-resume journal is not ported (ROADMAP Queue 1, item 3).
+    """
+    from repro_torch.exec.plan import plan_from_subgraphs
+    from repro_torch.exec.stream import shared_executor
+
+    assert prep.subgraphs, "infer_streaming needs a partitioned PreparedDesign"
+    backend = backend or prep.cfg.backend
+    cfg = prep.cfg
+    if executor is None:
+        check_unsharded(cfg.mesh_devices, device)
+        executor = shared_executor(
+            params, backend, capacity=cfg.stream_capacity, prefetch=cfg.stream_prefetch,
+            stream_dtype=effective_stream_dtype(cfg), device=device,
+        )
+    if plan is None:
+        plan = plan_from_subgraphs(
+            list(prep.subgraphs), prep.num_nodes, num_edges=prep.num_edges,
+            regrow=cfg.regrow, partitioner=cfg.partitioner, seed=cfg.seed,
+            min_nodes=executor.min_nodes, min_edges=executor.min_edges,
+        )
+    before = dataclasses.replace(executor.stats)
+    pred = executor.run_plan(plan, prep.feats, gnn_cfg=cfg.gnn)
+    stats = dataclasses.asdict(executor.stats.delta(before))
+    stats["peak_packed_memory_bytes"] = plan.peak_batch_memory_bytes(
+        cfg.gnn, executor.capacity
     )
+    stats["num_buckets"] = plan.num_buckets
+    stats["chosen_k"] = prep.num_partitions
+    # model drift: the analytic model on real launched shapes over the
+    # plan-time prediction choose_k budgeted against (> 1: launches were
+    # bigger than modeled)
+    modeled, actual = stats["modeled_peak_bytes"], stats["actual_peak_bytes"]
+    if modeled:
+        stats["model_drift"] = actual / modeled
+    return pred, stats
 
 
 def verify_prepared(

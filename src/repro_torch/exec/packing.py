@@ -1,0 +1,88 @@
+"""Packing partition batches for the streaming executor (port of
+``repro/exec/packing.py``, host numpy).
+
+One :class:`PackedBatch` is one device launch: up to ``capacity``
+same-bucket subgraphs laid out as a disjoint union in the bucket's
+canonical padded shape (the paper's "batch size 16" of partitions).  The
+layout and the exactness contract (zero features on padding rows, padding
+edges self-looped on each slot's dummy row) are
+:func:`repro_torch.service.bucketing.pack_batch`'s — this module adds the
+feature *staging* (the host gather of each partition's global feature
+rows, the work the prefetch thread overlaps with device execution), the
+packed structure's plan-cache keys for the structure-keyed backends (hashed
+on the prefetch thread too), and the reverse *scatter* of core-node
+predictions into the global output.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.exec.plan import PartitionPlan
+from repro_torch.kernels.plan_cache import structure_keys
+from repro_torch.service.bucketing import (
+    BucketShape,
+    WorkItem,
+    item_from_subgraph,
+    pack_batch,
+    unpack_predictions,
+)
+
+
+@dataclasses.dataclass
+class PackedBatch:
+    """One staged device launch (host arrays, ready for transfer)."""
+
+    shape: BucketShape
+    indices: list[int]            # plan subgraph indices, slot order
+    items: list[WorkItem]
+    arrays: dict                  # pack_batch output (x/edge_*/num_nodes)
+    capacity: int
+    #: the packed structure's ``plan_cache.structure_keys`` (None unless the
+    #: packer was asked for them: the structure-keyed backends)
+    gkeys: Optional[tuple[str, str]] = None
+
+    @property
+    def nbytes(self) -> int:
+        """Host->device transfer size of this launch."""
+        return sum(
+            a.nbytes for a in self.arrays.values() if isinstance(a, np.ndarray)
+        )
+
+
+def pack_partitions(
+    plan: PartitionPlan,
+    indices: list[int],
+    features: np.ndarray,
+    shape: BucketShape,
+    capacity: int,
+    *,
+    keyed: bool = False,
+) -> PackedBatch:
+    """Stage one schedule entry: gather features, pad, pack into slots; with
+    ``keyed``, hash the packed structure for the plan cache as well."""
+    items = [
+        item_from_subgraph(0, i, plan.subgraphs[i], features) for i in indices
+    ]
+    arrays = pack_batch(items, shape, capacity)
+    gkeys = (structure_keys(arrays["edge_src"], arrays["edge_dst"], arrays["num_nodes"])
+             if keyed else None)
+    return PackedBatch(shape=shape, indices=list(indices), items=items, arrays=arrays,
+                       capacity=capacity, gkeys=gkeys)
+
+
+def scatter_core_predictions(
+    out: np.ndarray, batch: PackedBatch, pred: np.ndarray
+) -> int:
+    """Write each slot's CORE-node predictions to their global rows.
+
+    Halo rows are message-passing context only (paper §III-C); their
+    predictions are discarded.  Returns the number of core rows written.
+    """
+    written = 0
+    for it, p in zip(batch.items, unpack_predictions(pred, batch.items, batch.shape)):
+        out[it.global_ids[: it.num_core]] = p[: it.num_core]
+        written += it.num_core
+    return written

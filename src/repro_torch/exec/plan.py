@@ -1,26 +1,42 @@
-"""Partition plans and budget-driven partition counts (port of
-``repro/exec/plan.py``, host numpy).
+"""Partition execution plans: the host-side schedule of a streamed run
+(port of ``repro/exec/plan.py``, host numpy).
 
-A :class:`PartitionPlan` wraps one design's re-grown subgraphs with the
-pow-2 shape bucket each falls in, so the analytic memory model can size the
-largest launch.  :func:`choose_k` closes the loop with the device: given a
-memory budget it picks the partition count from
+A :class:`PartitionPlan` is everything the streaming executor needs to
+drive an arbitrarily large design through device-sized launches, computed
+ONCE per design:
+
+  * the k-way partition + boundary re-growth (paper §III-C / Algorithm 1),
+  * the pow-2 shape bucket each subgraph falls in,
+  * a deterministic batch schedule grouping same-bucket subgraphs into
+    ``capacity``-slot packed launches.
+
+Plans are pure functions of (graph structure, partition knobs), so
+:func:`build_partition_plan` caches them by content hash in
+:data:`EXEC_PLAN_CACHE`.  :func:`choose_k` closes the loop with the device:
+given a memory budget it picks the partition count from
 :func:`repro_torch.core.pipeline.memory_model_bytes`, accounting for halo
 growth, pow-2 padding and the ``capacity`` slots resident per launch.
-
-The plan builder with its content-hash cache (``build_partition_plan``)
-belongs to the streamed route and is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional
 
 import numpy as np
 
-from repro_torch.core.regrowth import Subgraph
+from repro_torch.core.graph import EdgeGraph
+from repro_torch.core.partition import PARTITIONERS
+from repro_torch.core.regrowth import Subgraph, boundary_edge_fraction, extract_partitions
 from repro_torch.kernels import ops
+from repro_torch.kernels.plan_cache import PlanCache, graph_key
 from repro_torch.service.bucketing import BucketShape
+
+#: Dedicated cache for execution plans, NOT the kernel-layer PLAN_CACHE: a
+#: PartitionPlan embeds every subgraph's arrays (roughly the whole design
+#: plus halo), so entries are design-sized and a small LRU bounds host
+#: memory.  Plans are built OUTSIDE the cache lock (peek/add).
+EXEC_PLAN_CACHE = PlanCache(capacity=8)
 
 #: Assumed relative halo growth of a re-grown partition (the paper observes
 #: ~10% boundary edges on METIS-partitioned AIGs; 15% is a safe planning
@@ -31,7 +47,7 @@ HALO_FRAC = 0.15
 
 @dataclasses.dataclass(frozen=True)
 class PartitionPlan:
-    """Partition + bucket assignment for one design (immutable)."""
+    """Partition + bucket assignment for one design (immutable, cacheable)."""
 
     num_nodes: int               # global node count (scatter target size)
     num_edges: int
@@ -54,6 +70,17 @@ class PartitionPlan:
     def num_buckets(self) -> int:
         return len(self.buckets)
 
+    def schedule(self, capacity: int) -> list[tuple[BucketShape, list[int]]]:
+        """Deterministic launch schedule: same-bucket subgraphs chunked
+        ``capacity`` at a time, buckets in ascending shape order."""
+        assert capacity >= 1
+        out: list[tuple[BucketShape, list[int]]] = []
+        for bi, shape in enumerate(self.buckets):
+            members = [i for i in range(self.num_parts) if self.bucket_of[i] == bi]
+            for j in range(0, len(members), capacity):
+                out.append((shape, members[j : j + capacity]))
+        return out
+
     def peak_batch_memory_bytes(self, gnn_cfg, capacity: int) -> int:
         """Modeled device bytes of the largest packed launch (``capacity``
         padded slots of the biggest bucket)."""
@@ -63,6 +90,21 @@ class PartitionPlan:
             return 0
         big = self.buckets[-1]
         return memory_model_bytes(capacity * big.n_pad, capacity * big.e_pad, gnn_cfg)
+
+    def peak_layer_traffic_bytes(
+        self, gnn_cfg, capacity: int, *, hoisted: bool = True,
+        stream_dtype: str | None = None,
+    ) -> int:
+        """Modeled per-layer HBM traffic of the largest packed launch."""
+        from repro_torch.core.pipeline import layer_traffic_model_bytes
+
+        if not self.buckets:
+            return 0
+        big = self.buckets[-1]
+        return layer_traffic_model_bytes(
+            capacity * big.n_pad, capacity * big.e_pad, gnn_cfg,
+            hoisted=hoisted, stream_dtype=stream_dtype,
+        )
 
 
 def _bucket_for(num_nodes: int, num_edges: int, min_nodes: int, min_edges: int) -> BucketShape:
@@ -105,6 +147,65 @@ def plan_from_subgraphs(
         bucket_of=np.array([index[s] for s in shapes], dtype=np.int32),
         boundary_edge_frac=0.0,
     )
+
+
+def build_partition_plan(
+    graph: EdgeGraph,
+    k: int,
+    *,
+    regrow: bool = True,
+    hops: int = 1,
+    partitioner: str = "multilevel",
+    seed: int = 0,
+    min_nodes: int = 64,
+    min_edges: int = 128,
+    use_cache: bool = True,
+) -> PartitionPlan:
+    """Partition + re-growth + bucket assignment for one design.
+
+    ``hops`` is the re-growth depth (iterated Algorithm 1).  Content-hash
+    cached: the same (structure, annotations, knobs) always returns the
+    SAME plan object, so repeated streamed runs over a recurring design
+    skip the whole host-side partitioning pass.
+    """
+
+    def _build() -> PartitionPlan:
+        part = PARTITIONERS[partitioner](graph, k, seed=seed)
+        bfrac = boundary_edge_fraction(graph, part) if part.size else 0.0
+        subs = extract_partitions(graph, part, regrow=regrow, hops=hops)
+        plan = plan_from_subgraphs(
+            subs, graph.num_nodes, num_edges=graph.num_edges, regrow=regrow,
+            partitioner=partitioner, seed=seed, min_nodes=min_nodes, min_edges=min_edges,
+        )
+        return dataclasses.replace(plan, k=k, boundary_edge_frac=bfrac)
+
+    if not use_cache:
+        return _build()
+    key = (
+        "exec_plan",
+        graph_key(graph.edge_src, graph.edge_dst, graph.num_nodes),
+        _annotation_key(graph),
+        k, regrow, hops, partitioner, seed, min_nodes, min_edges,
+    )
+    cached = EXEC_PLAN_CACHE.peek(key)
+    if cached is not None:
+        return cached
+    return EXEC_PLAN_CACHE.add(key, _build())
+
+
+def _annotation_key(graph: EdgeGraph) -> str:
+    """Digest of edge_inv/edge_slot.  ``graph_key`` hashes endpoints only,
+    but a PartitionPlan embeds the annotation slices in its Subgraphs: two
+    designs with the same connectivity and different inverter placement
+    must NOT share a cached plan."""
+    h = hashlib.sha256()
+    for arr in (graph.edge_inv, graph.edge_slot):
+        if arr is None:
+            h.update(b"~")
+        else:
+            h.update(np.ascontiguousarray(np.asarray(arr, np.uint8)).tobytes())
+        h.update(b"|")
+    return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------
@@ -178,3 +279,32 @@ def choose_k(
             return k
         k *= 2
     return min(k, cap)
+
+
+def choose_k_for_caps(
+    num_nodes: int,
+    num_edges: int,
+    max_bucket_nodes: int,
+    max_bucket_edges: Optional[int] = None,
+    *,
+    halo_frac: float = HALO_FRAC,
+    min_nodes: int = 64,
+    min_edges: int = 128,
+) -> int:
+    """Smallest power-of-two k whose per-partition bucket fits a shape cap
+    (the service's chooser: it bounds its compile units by the largest
+    allowed bucket shape rather than a byte budget)."""
+    if num_nodes <= 0:
+        return 1
+    k = 1
+    while k < num_nodes:
+        n_pad, e_pad = _estimated_partition_bucket(
+            num_nodes, num_edges, k,
+            halo_frac=halo_frac, min_nodes=min_nodes, min_edges=min_edges,
+        )
+        if n_pad <= max_bucket_nodes and (
+            max_bucket_edges is None or e_pad <= max_bucket_edges
+        ):
+            return k
+        k *= 2
+    return min(k, num_nodes)

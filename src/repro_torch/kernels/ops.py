@@ -153,12 +153,13 @@ def _onehot_pair(edge_src, edge_dst, num_nodes, device) -> AggPair:
 
 
 def _groot_pair(edge_src, edge_dst, num_nodes, *, mxu: bool, fused: bool,
-                device) -> AggPair:
+                device, gkeys=None) -> AggPair:
     src = np.asarray(edge_src)
     dst = np.asarray(edge_dst)
-    in_plan = pc.cached_plan(src, dst, num_nodes)
-    out_plan = pc.cached_plan(dst, src, num_nodes)
-    fwd_plan = pc.cached_forward_plan(src, dst, num_nodes)
+    gkeys = gkeys or pc.structure_keys(src, dst, num_nodes)
+    in_plan = pc.cached_plan(src, dst, num_nodes, gkey=gkeys[0])
+    out_plan = pc.cached_plan(dst, src, num_nodes, gkey=gkeys[1])
+    fwd_plan = pc.cached_forward_plan(src, dst, num_nodes, gkeys=gkeys)
     # copy the index arrays to the device now, not inside the first forward
     in_plan.on(device)
     out_plan.on(device)
@@ -330,28 +331,31 @@ def pad_graph_arrays(
     return src, dst, inv, slot
 
 
-def _build_pair(edge_src, edge_dst, num_nodes: int, backend: str, device) -> AggPair:
+def _build_pair(edge_src, edge_dst, num_nodes: int, backend: str, device,
+                gkeys=None) -> AggPair:
     if backend == "ref":
         return _segment_pair(edge_src, edge_dst, num_nodes, device)
     if backend == "onehot":
         return _onehot_pair(edge_src, edge_dst, num_nodes, device)
     if backend in ("groot", "groot_mxu", "groot_fused"):
         return _groot_pair(edge_src, edge_dst, num_nodes, mxu=backend == "groot_mxu",
-                           fused=backend == "groot_fused", device=device)
+                           fused=backend == "groot_fused", device=device, gkeys=gkeys)
     raise ValueError(f"unknown backend {backend!r} (want one of {BACKENDS})")
 
 
 def make_agg_pair(edge_src, edge_dst, num_nodes: int, backend: str = "ref", *,
-                  device, cache: bool = True) -> AggPair:
+                  device, cache: bool = True, gkeys=None) -> AggPair:
     """Build (or fetch from the structural cache) the aggregation pair of a
     graph under a backend, with its index arrays on ``device``.
 
     ``cache=False`` builds a pair the cache does not keep (its host plans
     still come from, and stay in, the cache); with :func:`release_device`
-    after use, nothing of it stays on the device."""
+    after use, nothing of it stays on the device.  ``gkeys`` are the
+    structure's ``plan_cache.structure_keys`` where the caller hashed it
+    already (the streaming executor, on its prefetch thread)."""
     device = torch.device(device)
     if not cache:
-        return _build_pair(edge_src, edge_dst, num_nodes, backend, device)
+        return _build_pair(edge_src, edge_dst, num_nodes, backend, device, gkeys)
     key = ("pair", pc.graph_key(edge_src, edge_dst, num_nodes), backend, str(device))
     return pc.PLAN_CACHE.get_or_build(
         key, lambda: _build_pair(edge_src, edge_dst, num_nodes, backend, device)

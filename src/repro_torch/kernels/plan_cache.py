@@ -63,6 +63,32 @@ class PlanCache:
                 self.stats.evictions += 1
             return value
 
+    def peek(self, key: Hashable) -> object | None:
+        """Lookup without building (counts as hit/miss).  Pair with
+        :meth:`add` for SLOW builders that must not run under the cache
+        lock (e.g. whole-design partitioning): peek, build outside, add."""
+        with self._lock:
+            if key in self._data:
+                self._data.move_to_end(key)
+                self.stats.hits += 1
+                return self._data[key]
+            self.stats.misses += 1
+            return None
+
+    def add(self, key: Hashable, value: object) -> object:
+        """Insert a value built outside the lock; an earlier racer's entry
+        wins (returns the canonical value, preserving same-object reuse)."""
+        with self._lock:
+            if key in self._data:
+                self._data.move_to_end(key)
+                return self._data[key]
+            self.stats.builds += 1
+            self._data[key] = value
+            while len(self._data) > self.capacity:
+                self._data.popitem(last=False)
+                self.stats.evictions += 1
+            return value
+
     def snapshot(self) -> PlanCacheStats:
         with self._lock:
             return dataclasses.replace(self.stats)
@@ -83,30 +109,44 @@ def graph_key(edge_src, edge_dst, num_nodes: int) -> str:
     return h.hexdigest()
 
 
-def cached_plan(edge_src, edge_dst, num_nodes: int, *, e_t: int | None = None):
-    """``build_plan`` through the process-wide cache."""
+def structure_keys(edge_src, edge_dst, num_nodes: int) -> tuple[str, str]:
+    """The (fanin, fanout) :func:`graph_key` pair of a structure: what the
+    plan cache looks its two direction plans up by.  The streaming executor
+    hashes packed batches on its prefetch thread, off the launch path."""
+    return (graph_key(edge_src, edge_dst, num_nodes),
+            graph_key(edge_dst, edge_src, num_nodes))
+
+
+def cached_plan(edge_src, edge_dst, num_nodes: int, *, e_t: int | None = None,
+                gkey: str | None = None):
+    """``build_plan`` through the process-wide cache.  ``gkey`` is the
+    structure's :func:`graph_key` where the caller has hashed it already."""
     from repro_torch.kernels.groot_spmm import E_T, build_plan
 
     e_t = E_T if e_t is None else e_t
-    key = ("plan", graph_key(edge_src, edge_dst, num_nodes), e_t)
+    gkey = graph_key(edge_src, edge_dst, num_nodes) if gkey is None else gkey
+    key = ("plan", gkey, e_t)
     return PLAN_CACHE.get_or_build(
         key, lambda: build_plan(edge_src, edge_dst, num_nodes, e_t=e_t)
     )
 
 
-def cached_forward_plan(edge_src, edge_dst, num_nodes: int, *, e_t: int | None = None):
+def cached_forward_plan(edge_src, edge_dst, num_nodes: int, *, e_t: int | None = None,
+                        gkeys: tuple[str, str] | None = None):
     """The graph's :class:`~repro_torch.kernels.forward_plan.ForwardPlan`
     through the process-wide cache (direction plans come from
-    :func:`cached_plan`, so a recurring structure builds nothing)."""
+    :func:`cached_plan`, so a recurring structure builds nothing).
+    ``gkeys`` are :func:`structure_keys` where the caller has them."""
     from repro_torch.kernels.forward_plan import build_forward_plan
     from repro_torch.kernels.groot_spmm import E_T
 
     e_t = E_T if e_t is None else e_t
-    key = ("fwd", graph_key(edge_src, edge_dst, num_nodes), e_t)
+    k_in, k_out = gkeys or (graph_key(edge_src, edge_dst, num_nodes), None)
+    key = ("fwd", k_in, e_t)
     return PLAN_CACHE.get_or_build(
         key,
         lambda: build_forward_plan(
-            cached_plan(edge_src, edge_dst, num_nodes, e_t=e_t),
-            cached_plan(edge_dst, edge_src, num_nodes, e_t=e_t),
+            cached_plan(edge_src, edge_dst, num_nodes, e_t=e_t, gkey=k_in),
+            cached_plan(edge_dst, edge_src, num_nodes, e_t=e_t, gkey=k_out),
         ),
     )

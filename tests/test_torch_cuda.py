@@ -635,3 +635,86 @@ def test_partitioned_loop_holds_one_structure(cuda, backend):
         gnn.params_from_numpy(params), prep.subgraphs, prep.feats, prep.num_nodes, backend,
         device="cpu")
     np.testing.assert_array_equal(pred, on_cpu)
+
+
+@pytest.mark.parametrize("backend", ["groot", "groot_mxu", "groot_fused"])
+def test_streamed_route_on_card_matches_the_loop(cuda, backend):
+    """The streamed route (default ``streaming=True``, k=4 at csa-32, two
+    packed launches of two slots) gives the card's loop predictions on the
+    same subgraphs (PERF.md's limit: at most 1e-5 of the nodes differ),
+    launches the grouped kernels, peaks no higher than its largest packed
+    launch alone (1%) and leaves no bytes allocated."""
+    from repro_torch.exec.packing import pack_partitions
+    from repro_torch.exec.plan import plan_from_subgraphs
+    from repro_torch.service.scheduler import BucketRunner
+
+    params = gnn.load_params(NPZ)
+    prep = Session(device="cpu", num_partitions=4).prepare(dataset="csa", bits=32)
+    sess = Session(params, backend=backend)
+    kernel = {"groot": gs.ld_grouped_apply, "groot_mxu": gs.ld_grouped_mxu_apply,
+              "groot_fused": fs.fused_ld_matmul_grouped}[backend]
+
+    def streamed():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r = sess.verify(prepared=prep, return_predictions=True)
+        torch.cuda.synchronize()
+        return r, torch.cuda.max_memory_allocated() - base, torch.cuda.memory_allocated() - base
+
+    streamed()                    # warm: the kernels' libraries, cuBLAS's workspace
+    before = kernel.launches
+    r, peak, left = streamed()
+    assert kernel.launches > before and r.routing.mode == "streamed"
+    assert r.exec_stats["batches"] == 2 and r.exec_stats["capacity_halvings"] == 0
+    assert left <= 0, left
+    loop = Session(params, backend=backend, streaming=False).verify(
+        prepared=prep, return_predictions=True)
+    assert int((r.predictions != loop.predictions).sum()) <= 1e-5 * prep.num_nodes
+    assert r.status == loop.status
+    plan = plan_from_subgraphs(prep.subgraphs, prep.num_nodes)
+    alone = []
+    for shape, indices in plan.schedule(2):
+        runner = BucketRunner(sess.params, backend, device=cuda)
+        batch = pack_partitions(plan, indices, prep.feats, shape, 2, keyed=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runner(batch.arrays, batch.gkeys)
+        torch.cuda.synchronize()
+        alone.append(torch.cuda.max_memory_allocated() - base)
+        runner.release()
+        assert torch.cuda.memory_allocated() <= base
+    assert 0 < peak <= 1.01 * max(alone), (peak, alone)
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+def test_hd_body_on_a_packed_dummy_row(cuda, groups):
+    """A packed batch parks each slot's padding edges as self-loops on its
+    last row: one HD row of 14,000 chunks of 512 slots (7,168,000 edges)
+    beside ordinary ones.  K2 against its plain version there, with the
+    mean-normalised weights of the model's walks."""
+    rng = np.random.default_rng(groups)
+    n, pad = 4096, 14_000 * 512
+    src = np.concatenate([rng.integers(0, n - 1, 40_000), np.full(pad, n - 1)]).astype(np.int32)
+    dst = np.concatenate([rng.integers(0, 8, 40_000), np.full(pad, n - 1)]).astype(np.int32)
+    plan = gs.build_plan(src, dst, n)
+    counts = plan.hd.row_chunks()[:, 1]
+    assert counts.max() == 14_000 and plan.hd.rows.shape[0] == 9
+    deg = np.bincount(dst, minlength=n)[dst].astype(np.float32)
+    wg = torch.as_tensor(np.repeat((1.0 / deg)[:, None], groups, axis=1), device=cuda)
+    x_p = gs.pad_features(torch.as_tensor(rng.standard_normal((n, 32)), dtype=torch.float32,
+                                          device=cuda))
+    staged = gs.stage_group_weights(plan, wg)
+    dp = plan.on(cuda)
+    before = gs.hd_grouped_apply.launches
+    got = gs.hd_grouped_apply(x_p, dp.hd_cols, staged.hd, dp.hd_meta, dp.hd_row_chunks, 512)
+    assert gs.hd_grouped_apply.launches == before + 1
+    want = gs.hd_grouped_plain(x_p, dp.hd_cols, staged.hd, dp.hd_meta, 9, 512)
+    _close(got, want)
+    # the dummy row sums 7,168,000 slots of x[n - 1] / 7,168,000: x[n - 1],
+    # up to the f32 rounding of 14,000 equal chunk sums added in turn (each
+    # add off by at most 2^-24 of the running sum: 8.3e-4 of it in all)
+    dummy = int(np.flatnonzero(plan.hd.rows == n - 1)[0])
+    torch.testing.assert_close(got[:, dummy], x_p[n - 1].expand(groups, -1), rtol=1e-3,
+                               atol=1e-6)

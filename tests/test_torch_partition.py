@@ -254,11 +254,17 @@ def test_prepared_design_runs_under_other_backends():
 
 def test_verify_prepared_under_streaming_raises():
     """A partitioned ``prepared`` design under a session left at
-    ``streaming=True`` asks for the streamed route, which is not ported."""
+    ``streaming=True`` takes the streamed route (the loop's predictions),
+    which raises only where it would shard over more than one device."""
     prep = Session(NPZ, device="cpu", streaming=False, num_partitions=4).prepare(
         dataset="csa", bits=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Session(NPZ, device="cpu").verify(prepared=prep)
+        Session(NPZ, device="cpu", mesh_devices=2).verify(prepared=prep)
+    streamed = Session(NPZ, device="cpu").verify(prepared=prep, return_predictions=True)
+    looped = Session(NPZ, device="cpu", streaming=False).verify(prepared=prep,
+                                                                return_predictions=True)
+    assert (streamed.routing.mode, looped.routing.mode) == ("streamed", "partitioned")
+    assert_same(streamed.predictions, looped.predictions)
     full = Session(NPZ, device="cpu").prepare(dataset="csa", bits=8)
     assert Session(NPZ, device="cpu").verify(prepared=full).routing.mode == "full"
 

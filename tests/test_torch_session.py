@@ -61,10 +61,14 @@ def test_explain_is_full_and_matches_reference():
         assert getattr(got, f) == getattr(want, f), f
 
 
-@pytest.mark.parametrize("overrides", [{"num_partitions": 4}, {"memory_budget_bytes": 1 << 20}])
+@pytest.mark.parametrize("overrides", [{"num_partitions": 4}, {"memory_budget_bytes": 200_000}])
 def test_unported_routes_raise(overrides):
+    """The streamed route over more than one device (the reference's mode
+    "sharded") is the one route not ported; on one device it streams."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Session(NPZ, device="cpu", **overrides).verify(dataset="csa", bits=6)
+        Session(NPZ, device="cpu", mesh_devices=2, **overrides).verify(dataset="csa", bits=6)
+    r = Session(NPZ, device="cpu", **overrides).verify(dataset="csa", bits=6)
+    assert r.routing.mode == "streamed" and r.exec_stats["launches"] > 0
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
