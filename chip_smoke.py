@@ -53,8 +53,9 @@ Phases (any failure raises and the script exits non-zero):
               against ``ref`` at csa-32 (its (E, N) one-hot cannot exist at
               csa-1024).
  6. main path ``repro_torch.api.Session(params=<groot_csa8.npz>, backend=b)
-              .verify(dataset="csa", bits=<bits>)`` for ``groot``,
-              ``groot_mxu`` and ``groot_fused``, then ``ref`` (no kernel).
+              .verify(dataset="csa", bits=<bits>)`` for ``groot``, then
+              ``.verify(prepared=...)`` of the same design (generated once)
+              for ``groot_mxu``, ``groot_fused`` and ``ref`` (no kernel).
               Verdicts must equal ``ref``'s and predictions may differ on at
               most 1e-5 of the nodes.  Then ``groot_fused`` and
               ``groot_mxu`` at ``hidden`` 24 and 64 (params from a seeded
@@ -136,8 +137,29 @@ Phases (any failure raises and the script exits non-zero):
               (d) csa-<ONEHOT_BITS> cut PART_K ways: each packed launch's
               core-row logits against the loop's, on the kernel backends and
               ``ref`` (within LOGIT_TOL).
+10. cli       the command-line verify path: (a) ``Session.train("csa", 8,
+              epochs=TRAIN_EPOCHS)`` on the card (no kernel launches: it
+              trains on the segment-sum path), its first TRAIN_CHECK_STEPS
+              losses within TRAIN_LOSS_RTOL relative of the CPU's from the
+              same init, and the card-trained params' verdict on phase 6's
+              csa-<bits> design (``groot``) equal to phase 6's; (b) phase 9
+              (c)'s budget cut of csa-<BUDGET_BITS> streamed on ``groot``,
+              ``groot_fused`` and ``groot_mxu`` with a journal under
+              ``chiprun_out/``, killed by an injected fatal fault at the
+              second packed launch, then resumed by a fresh session that
+              runs only the partitions not committed: predictions bit-equal
+              to the uninterrupted run's (and on ``groot`` to phase 9
+              (c)'s), the journal gone, no bytes left; (c) that design
+              through ``io.aiger.dump``/``load``: arrays and structural hash
+              equal; (d) ``python -m repro_torch.cli verify`` on that file
+              (``groot``, the same budget as ``--budget-mb``,
+              ``--checkpoint-dir``, ``--explain``) and ``explain`` on it, two
+              fresh processes at once: exit 0, mode "streamed", the same
+              routing lines; then ``Session.verify(file)`` twice in this
+              process, the second ``cached=True`` with no kernel launched.
+              Training, hashing, parsing and resume times are printed.
 
-Every driven path of phases 4-9 runs with each kernel's launch count set to
+Every driven path of phases 4-10 runs with each kernel's launch count set to
 0 just before it and read just after; a kernel's ``launches`` in the summary
 is the sum over those paths, and every kernel must have been launched.  The
 line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -150,6 +172,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -157,6 +180,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+PARAMS_PATH = ROOT / "src" / "repro_torch" / "data" / "groot_csa8.npz"
 
 # NVIDIA H100 SXM published peaks (dense): HBM3 bandwidth and the f32 rate
 # outside the tensor cores, which the kernels' FMA loops run on.
@@ -229,6 +253,14 @@ PART_A_BITS = 640
 # the streamed phase's budget route: csa-<BUDGET_BITS> under half its modeled
 # full-graph bytes
 BUDGET_BITS = 256
+# the command-line phase: Session.train at the reference's train_model
+# settings (csa-8, TRAIN_EPOCHS), its first TRAIN_CHECK_STEPS losses within
+# TRAIN_LOSS_RTOL relative of the CPU's from the same init (f32 sums in other
+# orders: index_add_ adds with atomics on the card); the journal, AIGER and
+# the CLI on phase 9 (c)'s csa-<BUDGET_BITS> budget cut (csa-640 took the
+# script to 1,096 s of its 1,200), each CLI process given CLI_TIMEOUT_S
+TRAIN_EPOCHS, TRAIN_CHECK_STEPS, TRAIN_LOSS_RTOL = 300, 20, 1e-4
+CLI_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -1053,14 +1085,15 @@ def partitioned_phase(args, dev, drive, launches: dict, kernels: dict, model,
 
 
 def streamed_phase(args, dev, drive, launches: dict, kernels: dict, params_path,
-                   parts: dict) -> dict:
+                   parts: dict) -> tuple[dict, dict]:
     """Phase 9: the streamed route (``streaming=True``, the default) on phase
     8's partitionings, (a) csa-<PART_A_BITS> k=PART_K on every kernel backend and
     ``ref``, (b) PART_BATCH x csa-<bits> in PART_BATCH_K stripes on ``groot``
     and ``ref``, then (c) the budget route at csa-<BUDGET_BITS> and (d) the
     packed launches' logits against the loop's at csa-<ONEHOT_BITS>.  ``parts``
     holds phase 8's prepared designs, loop predictions, wall times and
-    statuses."""
+    statuses.  Returns the report and, for phase 10, (c)'s prepared cut, its
+    budget and its ``groot`` predictions."""
     import torch
 
     from repro_torch.api import Session, route_prepared
@@ -1330,6 +1363,248 @@ def streamed_phase(args, dev, drive, launches: dict, kernels: dict, params_path,
     rep["d"] = dict(bits=ONEHOT_BITS, max_logit_gap_vs_loop=gaps)
     log(f"streamed (d) csa-{ONEHOT_BITS} k={PART_K}: largest |packed logit - loop logit| on "
         f"core rows {json.dumps(gaps)} (limit {LOGIT_TOL:g} x max(1, |logit|))")
+    return rep, dict(prep=prep, budget=budget, groot=r.predictions)
+
+def cli_phase(args, dev, drive, launches: dict, full_prep, full_groot, budget_cut) -> dict:
+    """Phase 10: the command-line verify path.  (a) ``Session.train`` on the
+    card (the reference's ``train_model`` settings), its first
+    TRAIN_CHECK_STEPS losses against the CPU's from the same init, and the
+    card-trained params' csa-<bits> verdict (``full_prep``, phase 6's design)
+    against phase 6's (``full_groot``); (b) streamed verifies of phase 9
+    (c)'s budget cut of csa-<BUDGET_BITS> (``budget_cut``: the prepared
+    design, the budget and phase 9's ``groot`` predictions) killed at their
+    second packed launch with a journal under ``chiprun_out/`` and resumed
+    by a fresh session, bit-equal to the uninterrupted run; (c) the AIGER
+    round trip of that design; (d) ``python -m repro_torch.cli verify`` and
+    ``explain`` (two processes at once) on csa-<CLI_BITS> written as a file,
+    then the same file verified twice in this process (the second from the
+    result cache, no launch)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import faults
+    from repro_torch.api import Session
+    from repro_torch.core import aig as A
+    from repro_torch.core import gnn
+    from repro_torch.core.features import groot_features
+    from repro_torch.io import aiger
+
+    rep: dict = {}
+    t_phase = time.perf_counter()
+
+    # -- (a) train on the card --------------------------------------------------
+    sess = Session(device=dev.type, backend="groot")
+    hist, wall = drive("cli (a) session.train", lambda: sess.train(
+        "csa", 8, epochs=TRAIN_EPOCHS, seed=0))
+    if any(launches["cli (a) session.train"].values()):
+        fail(f"training launched kernels: {launches['cli (a) session.train']}")
+    design8 = A.make_design("csa", 8)
+    feats8, labels8 = groot_features(design8), design8.label.astype(np.int32)
+    init = gnn.init_params(gnn.GNNConfig(), torch.Generator().manual_seed(0))
+    losses = {}
+    for where in ("cpu", dev):
+        batch = gnn.make_batch(design8, feats8, labels8, device=where)
+        _, steps = gnn.train(init.to(where), batch, epochs=TRAIN_CHECK_STEPS, log_every=1)
+        losses[str(where)] = np.array([loss for _, loss in steps])
+    gap = float(np.max(np.abs(losses[str(dev)] - losses["cpu"]) / np.abs(losses["cpu"])))
+    r, verify_wall = drive("cli (a) session.verify trained groot", lambda: Session(
+        params=sess.params, backend="groot", device=dev.type).verify(prepared=full_prep))
+    rep["a"] = dict(epochs=TRAIN_EPOCHS, train_s=wall, s_per_epoch=wall / TRAIN_EPOCHS,
+                    history=hist, first_losses_card=losses[str(dev)].tolist(),
+                    first_losses_cpu=losses["cpu"].tolist(), max_rel_loss_gap=gap,
+                    status=r.status, accuracy=r.accuracy, shipped_status=full_groot.status,
+                    shipped_accuracy=full_groot.accuracy, verify_wall_s=verify_wall,
+                    timings=r.timings,
+                    launches={k: v for k, v in launches["cli (a) session.verify trained groot"]
+                              .items() if v})
+    log(f"cli (a) Session.train csa-8 {TRAIN_EPOCHS} epochs on the card: {wall:.2f} s "
+        f"({wall / TRAIN_EPOCHS * 1e3:.2f} ms an epoch), loss {hist[0][1]:.4g} -> "
+        f"{hist[-1][1]:.4g}; first {TRAIN_CHECK_STEPS} losses within {gap:.2e} relative of "
+        f"the CPU's from the same init (limit {TRAIN_LOSS_RTOL:g})")
+    log(f"cli (a) card-trained params at csa-{args.bits} on groot: status {r.status} accuracy "
+        f"{r.accuracy:.6f} (phase 6, shipped params: {full_groot.status} "
+        f"{full_groot.accuracy:.6f}); verify wall {verify_wall:.1f} s (the prepared design "
+        f"skips gen) inference {r.timings['inference']:.3f} s verify {r.timings['verify']:.1f} s")
+    if gap > TRAIN_LOSS_RTOL:
+        fail(f"cli (a): the card's first losses differ from the CPU's by {gap:.2e} relative")
+    if r.status != full_groot.status:
+        fail(f"cli (a): card-trained verdict {r.status} != phase 6's {full_groot.status}")
+    if not rep["a"]["launches"].get("ld_grouped") or not rep["a"]["launches"].get("hd_grouped"):
+        fail(f"cli (a): groot verify launched {rep['a']['launches']}")
+    del r
+
+    # -- (b) journal: kill at the second packed launch, resume -----------------
+    prep = budget_cut["prep"]
+    design = prep.design
+    jroot = ROOT / "chiprun_out" / "journal"
+    shutil.rmtree(jroot, ignore_errors=True)
+    t0 = time.perf_counter()
+    key = aiger.structural_hash(design)
+    hash_s = time.perf_counter() - t0
+    kw = dict(memory_budget_bytes=budget_cut["budget"], device=dev.type)
+    expect = {"groot": "ld_grouped", "groot_fused": "fused_ld_grouped",
+              "groot_mxu": "ld_grouped_mxu"}
+    total = prep.num_partitions
+    rep["b"] = dict(bits=BUDGET_BITS, nodes=design.num_nodes, k=total, hash_s=hash_s)
+    for backend, kname in expect.items():
+        whole, whole_wall = drive(f"cli (b) uninterrupted {backend}", lambda: Session(
+            params=PARAMS_PATH, backend=backend, **kw).verify(
+                prepared=prep, verify=False, return_predictions=True))
+        killed = Session(params=PARAMS_PATH, backend=backend, checkpoint_dir=str(jroot), **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+
+        def kill():
+            with faults.injected("exec.launch:nth=2,kind=fatal"):
+                try:
+                    killed.verify(prepared=prep, verify=False)
+                except faults.FatalFault:
+                    return True
+            return False
+
+        raised, kill_wall = drive(f"cli (b) killed {backend}", kill)
+        torch.cuda.synchronize()
+        left_killed = torch.cuda.memory_allocated() - base
+        committed = len(list((jroot / key).glob("part_*.npz")))
+        resumed = Session(params=PARAMS_PATH, backend=backend, checkpoint_dir=str(jroot), **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        r, wall = drive(f"cli (b) resumed {backend}", lambda: resumed.verify(
+            prepared=prep, verify=False, return_predictions=True))
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - base
+        mism = int((r.predictions != whole.predictions).sum())
+        if backend == "groot":
+            mism += int((r.predictions != budget_cut["groot"]).sum())
+        st = r.exec_stats
+        used = {k: v for k, v in launches[f"cli (b) resumed {backend}"].items() if v}
+        journal_left = (jroot / key).exists()
+        rep["b"][backend] = dict(
+            raised=raised, killed_wall_s=kill_wall, committed=committed, total=total,
+            resumed_partitions=st["resumed_partitions"], partitions=st["partitions"],
+            launches=st["launches"], uninterrupted_launches=whole.exec_stats["launches"],
+            kernel_launches=used, wall_s=wall, inference_s=r.timings["inference"],
+            uninterrupted_wall_s=whole_wall, pred_mismatch=mism, left_bytes=left,
+            left_bytes_killed=left_killed, journal_left=journal_left)
+        log(f"cli (b) csa-{BUDGET_BITS} k={total} {backend}: killed at launch 2 after "
+            f"{committed} of {total} partitions committed ({kill_wall:.2f} s); resumed "
+            f"{st['resumed_partitions']}, ran {st['partitions']} in {st['launches']} launches "
+            f"of {whole.exec_stats['launches']}, wall {wall:.2f} s (uninterrupted "
+            f"{whole_wall:.2f} s); {mism} predictions differ from the uninterrupted run's"
+            f"{' and phase 9 (c)' if backend == 'groot' else ''}; bytes left {left_killed} / "
+            f"{left}; journal left {journal_left}; launches {json.dumps(used)}")
+        if not raised or not 0 < committed < total:
+            fail(f"cli (b) {backend}: the killed run raised {raised}, committed {committed} "
+                 f"of {total}")
+        if st["resumed_partitions"] != committed or st["partitions"] != total - committed:
+            fail(f"cli (b) {backend}: resumed {st['resumed_partitions']} and ran "
+                 f"{st['partitions']}, expected {committed} and {total - committed}")
+        if mism or journal_left or left > 0 or left_killed > 0:
+            fail(f"cli (b) {backend}: {mism} predictions differ, journal left {journal_left}, "
+                 f"bytes left {left_killed} / {left}")
+        if not used.get(kname):
+            fail(f"cli (b) {backend}: {kname} never launched on the resumed run")
+        del whole, killed, resumed, r
+    shutil.rmtree(jroot, ignore_errors=True)   # empty: each run removed its journal
+    log(f"cli (b) structural hash of csa-{BUDGET_BITS} ({design.num_nodes} nodes): "
+        f"{hash_s:.3f} s")
+
+    # -- (c) AIGER round trip of that design -------------------------------------
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        path = tmp / f"csa{BUDGET_BITS}.aig"
+        t0 = time.perf_counter()
+        aiger.dump(design, path)
+        dump_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = aiger.load(path)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back_key = aiger.structural_hash(back)
+        rehash_s = time.perf_counter() - t0
+        same = {f: bool(np.array_equal(getattr(back, f), getattr(design, f)))
+                for f in ("kind", "fanin0", "fanin1", "label", "pos")}
+        rep["c"] = dict(bits=BUDGET_BITS, bytes=path.stat().st_size, dump_s=dump_s,
+                        load_s=load_s, structural_hash_s=rehash_s, equal=same,
+                        hash_equal=back_key == key)
+        log(f"cli (c) AIGER round trip csa-{BUDGET_BITS}: {rep['c']['bytes']} B, dump "
+            f"{dump_s:.3f} s, load {load_s:.3f} s, structural_hash {rehash_s:.3f} s; arrays "
+            f"equal {json.dumps(same)}, hashes equal {back_key == key}")
+        if not all(same.values()) or back_key != key:
+            fail(f"cli (c): round trip arrays {same}, hashes equal {back_key == key}")
+        del back
+
+        # -- (d) the CLI on that file, then the result cache in-process ---------
+        budget_mb = budget_cut["budget"] / 1e6
+        common = ["--backend", "groot", "--budget-mb", repr(budget_mb)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        ck = ROOT / "chiprun_out" / "cli_journal"
+        # both processes at once: explain is host work only, and each pays
+        # its own interpreter start and imports
+        t0 = time.perf_counter()
+        procs = {what: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.cli", what, str(path), *common, *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+            for what, extra in (("verify", ("--checkpoint-dir", str(ck), "--explain")),
+                                ("explain", ()))}
+        outs = {}
+        for what, proc in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                for other in procs.values():
+                    other.kill()
+                    other.communicate()
+                fail(f"cli (d): {what} ran past {CLI_TIMEOUT_S} s")
+            outs[what] = subprocess.CompletedProcess(proc.args, proc.returncode, stdout, stderr)
+        both_s = time.perf_counter() - t0
+        v, e = outs["verify"], outs["explain"]
+        for what, out in (("verify", v), ("explain", e)):
+            log(f"cli (d) `python -m repro_torch.cli {what}` exit {out.returncode}:")
+            for line in out.stdout.splitlines():
+                log(f"  | {line}")
+            if out.returncode:
+                log(out.stderr[-4000:])
+                fail(f"cli (d): {what} exited {out.returncode}")
+        lines = v.stdout.splitlines()
+        row = next((ln.split() for ln in lines if ln.split()[:1] == [design.name]), [])
+        at = next(i for i, ln in enumerate(lines) if ln.startswith("  routing: "))
+        routed = [lines[at][len("  routing: "):]] + lines[at + 1:at + 3]
+        e_lines = e.stdout.splitlines()
+        explained = [e_lines[0][len(f"{path}: "):]] + e_lines[1:3]
+        rep["d"] = dict(bits=BUDGET_BITS, budget_mb=budget_mb, verify_and_explain_s=both_s,
+                        row=row, routing=routed, explain=explained,
+                        journal_left=ck.exists() and any(ck.iterdir()))
+        log(f"cli (d) csa-{BUDGET_BITS} under {budget_mb:.3f} MB: verify and explain in "
+            f"{both_s:.1f} s (two fresh processes at once); row {row}; the routing lines equal: "
+            f"{routed == explained}; journal left {rep['d']['journal_left']}")
+        if row[1:2] != ["streamed"] or routed != explained or rep["d"]["journal_left"]:
+            fail(f"cli (d): row {row}, routing {routed} vs explain {explained}, journal left "
+                 f"{rep['d']['journal_left']}")
+        shutil.rmtree(ck, ignore_errors=True)
+        inproc = Session(params=sess.params, backend="groot", device=dev.type,
+                         memory_budget_bytes=budget_cut["budget"])
+        first, first_wall = drive("cli (d) session.verify file", lambda: inproc.verify(path))
+        hit, hit_wall = drive("cli (d) session.verify file again", lambda: inproc.verify(path))
+        used = {k: v for k, v in launches["cli (d) session.verify file again"].items() if v}
+        rep["d"].update(first_status=first.status, first_mode=first.routing.mode,
+                        first_wall_s=first_wall, cached=hit.cached, cached_wall_s=hit_wall,
+                        cached_total_s=hit.timings["total"], cached_launches=used,
+                        first_launches={k: v for k, v in
+                                        launches["cli (d) session.verify file"].items() if v})
+        log(f"cli (d) in-process Session.verify(file): {first.routing.mode} {first.status} "
+            f"accuracy {first.accuracy:.6f} in {first_wall:.2f} s; again: cached={hit.cached} "
+            f"in {hit_wall * 1e3:.2f} ms (of it the structural hash of the parsed file), "
+            f"launches {json.dumps(used)}")
+        if not hit.cached or used or hit.status != first.status:
+            fail(f"cli (d): the repeat verify cached={hit.cached}, launches {used}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"cli phase: {rep['phase_s']:.1f} s")
     return rep
 
 
@@ -1384,7 +1659,7 @@ def main() -> int:
     report["staged_build"] = staged_build_report()
 
     # -- host stages for the design the main path runs -------------------------
-    params_path = ROOT / "src" / "repro_torch" / "data" / "groot_csa8.npz"
+    params_path = PARAMS_PATH
     model = gnn.params_from_numpy(gnn.load_params(params_path), device=dev)
     t0 = time.perf_counter()
     prep = P.prepare(P.PipelineConfig(dataset="csa", bits=args.bits))
@@ -1991,8 +2266,12 @@ def main() -> int:
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
+        # groot runs the front door from the generator; the others take the
+        # design prepared above (the same csa-<bits>, seed 0), so the host
+        # generates it once, not four times (about 25 s each)
         r, wall = drive(path, lambda: Session(params=params_path, backend=b).verify(
-            dataset="csa", bits=args.bits, return_predictions=True))
+            **(dict(dataset="csa", bits=args.bits) if b == "groot" else dict(prepared=prep)),
+            return_predictions=True))
         if b == "groot":
             full_peak = torch.cuda.max_memory_allocated() - base
             log(f"session.verify groot: device peak {full_peak / 2**30:.3f} GiB above the "
@@ -2061,9 +2340,13 @@ def main() -> int:
         results["groot"].predictions)
 
     # -- 9. streamed: phase 8's partitionings as packed launches, the budget route
-    report["streamed"] = streamed_phase(args, dev, drive, launches, kernels, params_path,
-                                        parts)
+    report["streamed"], budget_cut = streamed_phase(args, dev, drive, launches, kernels,
+                                                    params_path, parts)
     del parts
+
+    # -- 10. the command-line path: train on the card, journal, AIGER, the CLI ---
+    report["cli"] = cli_phase(args, dev, drive, launches, prep, results["groot"], budget_cut)
+    del budget_cut
 
     total = {kn: sum(counts[kn] for counts in launches.values()) for kn in kernels}
     report["launches"] = launches

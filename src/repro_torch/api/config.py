@@ -1,7 +1,8 @@
 """`SessionConfig`: the port's session configuration (port of
 ``repro/api/config.py``: the fields the full-graph, partitioned and
-streamed routes read, plus ``device``; the batched service's, tracing and
-fault-plan fields wait for the routes that read them)."""
+streamed routes, the result cache, the crash-resume journal and the fault
+plan read, plus ``device``; the batched service's and tracing fields wait
+for the routes that read them, ROADMAP Queue 1, item 6)."""
 from __future__ import annotations
 
 import dataclasses
@@ -52,6 +53,20 @@ class SessionConfig:
     #: where inference runs: None means ``cuda`` (and raises without a CUDA
     #: device); "cpu" runs every kernel wrapper's plain PyTorch version
     device: Optional[str] = None
+    #: entries of the structural-hash result LRU (``Session.results``)
+    cache_capacity: int = 1024
+    # -- failure domains (repro_torch.faults) --------------------------------
+    #: fault-injection plan for chaos runs: a :class:`repro_torch.faults.
+    #: FaultPlan` or its spec string (``"site:p=0.1,kind=transient;..."``).
+    #: Installed process-wide when the Session is constructed; None leaves
+    #: whatever ``$REPRO_FAULT_PLAN`` installed.  Not in ``cache_key_part``:
+    #: faults perturb execution, not the verdict a run would produce.
+    fault_plan: Optional[object] = None
+    #: crash-safe resume for streamed runs: journal per-partition core
+    #: predictions under this directory (keyed by the design's structural
+    #: hash); ``resume=False`` wipes any prior journal instead of restoring it
+    checkpoint_dir: Optional[str] = None
+    resume: bool = True
 
     def pipeline_config(
         self,
@@ -79,4 +94,16 @@ class SessionConfig:
             stream_prefetch=self.stream_prefetch,
             stream_dtype=self.stream_dtype,
             mesh_devices=self.mesh_devices,
+            checkpoint_dir=self.checkpoint_dir,
+            resume=self.resume,
+        )
+
+    def cache_key_part(self) -> tuple:
+        """Everything outcome-relevant for the session result LRU."""
+        return (
+            self.backend, self.stream_dtype, self.gnn, self.batch,
+            self.num_partitions, self.regrow, self.regrow_hops,
+            self.partitioner, self.streaming, self.memory_budget_bytes,
+            self.stream_capacity, self.min_nodes, self.min_edges,
+            self.mesh_devices,
         )

@@ -1,7 +1,14 @@
 """`Session`: the port's front door (port of ``repro/api/session.py``).
 
+    session.train(...)          train a small model and adopt its params
     session.verify(design)      route + run + verify
     session.explain(design)     the routing decision, without running
+
+A design is None (generated from ``dataset``/``bits``), an AIG/LUT object,
+AIGER bytes, or an AIGER file path.  A structural-hash result LRU
+(``session.results``) answers a repeated design under the same config
+without touching the device; with ``checkpoint_dir`` set, a streamed run
+journals each partition so a killed run resumes where it stopped.
 
 Three of the reference's four modes are ported, on each of its five
 backends (``ref``, ``onehot``, ``groot``, ``groot_mxu``, ``groot_fused``;
@@ -19,8 +26,9 @@ backends (``ref``, ``onehot``, ``groot``, ``groot_mxu``, ``groot_fused``;
                       next batch while the device runs the current one
 
 The reference's mode "sharded" (the streamed route over more than one
-device) raises ``NotImplementedError`` (ROADMAP Queue 1, item 7); so does an
-AIGER file or bytes as the design (ROADMAP Queue 1, item 5).
+device) raises ``NotImplementedError`` (ROADMAP Queue 1, item 7).  Its
+batched service (``submit``/``poll``), tracer, metrics and flight recorder
+wait for ROADMAP Queue 1, item 6.
 """
 from __future__ import annotations
 
@@ -32,10 +40,12 @@ import numpy as np
 
 from repro_torch import resolve_device
 from repro_torch.api.config import SessionConfig
+from repro_torch.core import aig as A
 from repro_torch.core import gnn
 from repro_torch.core import pipeline as P
 from repro_torch.core.verify import VerifyResult
 from repro_torch.kernels.plan_cache import PLAN_CACHE
+from repro_torch.service.cache import ResultCache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +78,7 @@ class SessionResult:
     accuracy: float
     core_accuracy: float
     verdict: Optional[VerifyResult]
+    cached: bool                      # answered from the result LRU
     num_nodes: int
     num_edges: int
     peak_memory_bytes: int            # peak over partitions (full bytes if k=1)
@@ -157,20 +168,69 @@ class Session:
             config = dataclasses.replace(config, **overrides)
         self.config = config
         self.device = resolve_device(config.device)
+        if config.fault_plan is not None:
+            # chaos sessions: fire sites are global, so the plan is installed
+            # for the whole process, once, at construction
+            from repro_torch import faults
+
+            faults.install(config.fault_plan)
         self._params = None if params is None else _as_model(params, self.device)
+        #: structural-hash result LRU: a resubmitted design under the same
+        #: config skips prepare + inference + verification entirely
+        self.results = ResultCache(config.cache_capacity)
+
+    # -- params lifecycle ----------------------------------------------------
 
     @property
     def params(self) -> gnn.GrootGNN:
         if self._params is None:
-            raise RuntimeError("session has no params: pass them to Session(params=...)")
+            raise RuntimeError(
+                "session has no params: pass them to Session(params=...) or call "
+                "session.train() first")
         return self._params
 
+    @property
+    def has_params(self) -> bool:
+        return self._params is not None
+
+    def train(self, dataset: Optional[str] = None, bits: int = 8, *,
+              epochs: int = 300, seed: Optional[int] = None) -> list:
+        """Train on a small design (the paper trains on 8-bit) on the
+        session's device and adopt the params; returns the loss history."""
+        params, hist = P.train_model(
+            dataset or self.config.dataset, bits, cfg=self.config.gnn, epochs=epochs,
+            seed=self.config.seed if seed is None else seed, device=self.device,
+        )
+        self.set_params(params)
+        return hist
+
+    def set_params(self, params) -> None:
+        """Adopt new params (anything ``Session(params=...)`` takes) and drop
+        the result LRU: its keys carry no params fingerprint, so stale
+        entries would be served as fresh.  The executor pool needs nothing:
+        it is keyed on params identity."""
+        self._params = _as_model(params, self.device)
+        self.results = ResultCache(self.config.cache_capacity)
+
+    def options(self, **overrides) -> "Session":
+        """A derived session: the same params (shared, not copied), the
+        config overridden, a fresh result LRU."""
+        derived = Session(config=dataclasses.replace(self.config, **overrides))
+        derived._params = self._params
+        return derived
+
+    # -- design resolution ---------------------------------------------------
+
     def _resolve_design(self, design):
+        """None (generate from config), an AIG/LUT object, AIGER bytes, or
+        an AIGER file path."""
         if design is None or hasattr(design, "to_edge_graph"):
             return design
-        raise NotImplementedError(
-            "AIGER ingestion is not ported yet: ROADMAP Queue 1, item 5"
-        )
+        from repro_torch.io import aiger
+
+        if isinstance(design, (bytes, bytearray)):
+            return aiger.loads(bytes(design))
+        return aiger.load(design)      # str / PathLike
 
     def prepare(self, design=None, *, dataset: Optional[str] = None,
                 bits: Optional[int] = None, seed: Optional[int] = None) -> P.PreparedDesign:
@@ -188,6 +248,22 @@ class Session:
             self.device,
         )
 
+    def _result_key(self, design, pcfg, verify: bool, signed):
+        if pcfg.batch != 1:
+            return None
+        if design is None:
+            h = f"gen:{pcfg.dataset}:{pcfg.bits}:{pcfg.seed}"
+        elif isinstance(design, A.AIG):
+            from repro_torch.io import aiger
+
+            h = aiger.structural_hash(design)
+        else:
+            return None
+        return ResultCache.key(
+            h,
+            self.config.cache_key_part() + (pcfg.dataset, pcfg.bits, pcfg.seed, verify, signed),
+        )
+
     def _stream_executor(self):
         from repro_torch.exec.stream import shared_executor
 
@@ -202,24 +278,47 @@ class Session:
     def verify(self, design=None, *, dataset: Optional[str] = None,
                bits: Optional[int] = None, seed: Optional[int] = None,
                verify: bool = True, signed: Optional[bool] = None,
+               use_cache: bool = True,
                return_predictions: bool = False,
                prepared: Optional[P.PreparedDesign] = None,
                on_partition=None) -> SessionResult:
         """Prepare, infer on the session's device, and (optionally) verify
-        one design.  ``design`` is an AIG/LUT object, or None to generate
-        ``dataset``/``bits`` from the config; ``prepared`` (from
-        :meth:`prepare`) skips the host stage 1 instead, e.g. to run one
-        partitioning under several backends.  In mode "partitioned",
-        ``on_partition(i, sg)`` is called after each subgraph's forward
+        one design.  ``design`` is anything :meth:`_resolve_design` accepts;
+        None generates ``dataset``/``bits`` from the config.  A repeated
+        design under the same config is answered from the result LRU
+        (``cached=True``, no inference); ``use_cache=False`` bypasses it, and
+        so does a caller asking for predictions (cached entries hold none).
+
+        ``prepared`` (from :meth:`prepare`) skips the host stage 1 instead,
+        e.g. to run one partitioning under several backends: the session's
+        backend, stream dtype, GNN config and journal knobs
+        (``checkpoint_dir``, ``resume``) apply to it, and such a run bypasses
+        the result LRU.  In mode "partitioned", ``on_partition(i, sg)`` is
+        called after each subgraph's forward
         (``gnn.predict_partitioned_loop``); in mode "streamed" the result's
         ``exec_stats`` carry the executor's probes for this call."""
         t_start = time.perf_counter()
+        key = None
         if prepared is None:
-            prep = self.prepare(design, dataset=dataset, bits=bits, seed=seed)
+            design = self._resolve_design(design)
+            pcfg = self.config.pipeline_config(dataset=dataset, bits=bits, seed=seed)
+            key = self._result_key(design, pcfg, verify, signed)
+            if use_cache and key is not None and not return_predictions:
+                hit = self.results.get(key)
+                if hit is not None:
+                    # fresh dicts: callers may mutate their result without
+                    # corrupting the cached copy or other hits
+                    return dataclasses.replace(
+                        hit, cached=True, plan_cache=dict(hit.plan_cache),
+                        exec_stats=dict(hit.exec_stats),
+                        timings={**hit.timings, "total": time.perf_counter() - t_start},
+                    )
+            prep = P.prepare(pcfg, design)
         else:  # this session's execution knobs over the prepared partitioning
             prep = dataclasses.replace(prepared, cfg=dataclasses.replace(
                 prepared.cfg, backend=self.config.backend,
-                stream_dtype=self.config.stream_dtype, gnn=self.config.gnn))
+                stream_dtype=self.config.stream_dtype, gnn=self.config.gnn,
+                checkpoint_dir=self.config.checkpoint_dir, resume=self.config.resume))
         decision, plan = _route_with_plan(prep, self.config, self.device)
 
         t0 = time.perf_counter()
@@ -246,12 +345,13 @@ class Session:
         verdict = P.verify_prepared(prep, pred, signed=signed) if verify else None
         t_verify = time.perf_counter() - t0
         mem_full, mem_peak = prep.memory_bytes()
-        return SessionResult(
+        result = SessionResult(
             name=getattr(prep.design, "name", f"{prep.cfg.dataset}:{prep.cfg.bits}"),
             status=verdict.status if verdict is not None else "classified",
             accuracy=acc,
             core_accuracy=acc,
             verdict=verdict,
+            cached=False,
             num_nodes=prep.num_nodes,
             num_edges=prep.num_edges,
             peak_memory_bytes=mem_peak,
@@ -269,5 +369,14 @@ class Session:
                 "hits": pc_after.hits - pc_before.hits,
             },
             exec_stats=exec_stats,
-            predictions=pred if return_predictions else None,
         )
+        if key is not None:
+            # cache a predictions-free copy with its own dicts: the LRU must
+            # stay O(results), not O(designs), and must not alias the
+            # mutable stats the caller receives
+            self.results.put(key, dataclasses.replace(
+                result, timings=dict(result.timings), plan_cache=dict(result.plan_cache),
+                exec_stats=dict(result.exec_stats)))
+        if return_predictions:
+            result.predictions = pred
+        return result

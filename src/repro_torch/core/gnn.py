@@ -1,6 +1,6 @@
 """GraphSAGE for AIG node classification (paper §III-C/D), in PyTorch.
 
-Port of ``repro/core/gnn.py`` (inference).  Direction- and
+Port of ``repro/core/gnn.py`` (inference and training).  Direction- and
 polarity-separated SAGE: each layer aggregates its fanin edges in four
 (slot x polarity) groups and its fanout edges in two, with separate weights:
 
@@ -11,6 +11,12 @@ applied as ``h @ W``, as in the reference).  They are bridged from and to
 the reference's numpy tree ``{"layers": [{w_self, w_in_*, w_out_*, b}],
 "head": {w, b}}`` by :func:`params_from_numpy` / :func:`params_to_numpy`,
 and stored as a flat ``.npz`` (:func:`load_params` / :func:`save_params`).
+
+Training (:func:`init_params`, :func:`loss_fn`, :func:`train_step`,
+:func:`train`) runs the segment-sum path (``agg=None``), as the reference's
+does, with the hand-written AdamW of ``repro_torch.training.optimizer``.  The
+CUDA kernels have no backward: :func:`forward` on any other backend raises
+when a gradient is asked for, and the predict paths run without a graph.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.core import aig as A
 from repro_torch.kernels import ref as kref
+from repro_torch.training import optimizer as opt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +94,28 @@ class GrootGNN(nn.Module):
 # Params bridge
 # ---------------------------------------------------------------------------
 
+def init_params(cfg: GNNConfig, generator: torch.Generator) -> GrootGNN:
+    """Fresh trainable params: the reference's uniform(±1/sqrt(fan_in))
+    weights and zero biases, drawn from ``generator`` (layer by layer in
+    ``LAYER_WEIGHTS`` order, then the head).  The values differ from the
+    reference's ``jax.random`` draws; cross them through numpy to compare."""
+    model = GrootGNN(cfg)
+    dims = [cfg.in_features] + [cfg.hidden] * cfg.num_layers
+    with torch.no_grad():
+        for i, layer in enumerate(model.layers):
+            s = 1.0 / np.sqrt(dims[i])
+            for nm in LAYER_WEIGHTS:
+                getattr(layer, nm).uniform_(-s, s, generator=generator)
+        s = 1.0 / np.sqrt(cfg.hidden)
+        model.head.w.uniform_(-s, s, generator=generator)
+    return model
+
+
 def params_from_numpy(tree: dict, device="cpu") -> GrootGNN:
     """Build a :class:`GrootGNN` from the reference's params tree (numpy or
-    anything ``np.asarray`` takes); values are copied exactly."""
+    anything ``np.asarray`` takes); values are copied exactly.  The params
+    are for inference (``requires_grad`` off): :func:`train` makes its own
+    trainable copy."""
     layers = tree["layers"]
     cfg = GNNConfig(
         in_features=int(np.shape(layers[0]["w_self"])[0]),
@@ -101,10 +127,10 @@ def params_from_numpy(tree: dict, device="cpu") -> GrootGNN:
     with torch.no_grad():
         for mod, layer in zip(model.layers, layers):
             for nm in LAYER_WEIGHTS + ("b",):
-                getattr(mod, nm).copy_(torch.as_tensor(np.asarray(layer[nm], np.float32)))
-        model.head.w.copy_(torch.as_tensor(np.asarray(tree["head"]["w"], np.float32)))
-        model.head.b.copy_(torch.as_tensor(np.asarray(tree["head"]["b"], np.float32)))
-    return model.to(device)
+                getattr(mod, nm).copy_(torch.as_tensor(np.array(layer[nm], np.float32)))
+        model.head.w.copy_(torch.as_tensor(np.array(tree["head"]["w"], np.float32)))
+        model.head.b.copy_(torch.as_tensor(np.array(tree["head"]["b"], np.float32)))
+    return model.requires_grad_(False).to(device)
 
 
 def params_to_numpy(model: GrootGNN) -> dict:
@@ -165,7 +191,11 @@ def _head(params: GrootGNN, h: torch.Tensor) -> torch.Tensor:
     return h @ params.head.w + params.head.b
 
 
-@torch.no_grad()
+def _wants_grad(params: GrootGNN, x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in params.parameters()))
+
+
 def forward(
     params: GrootGNN,
     x: torch.Tensor,
@@ -197,8 +227,26 @@ def forward(
       * **per-group loop** (ref / onehot / None): aggregate per group, then
         post-scale by the per-destination norm.
 
-    Inference only: there is no backward through the CUDA kernels.
+    Only the plain reference (``agg=None``) records a graph for autograd.
+    The CUDA kernels have no backward: on any other backend, a call with
+    grad mode on and params (or ``x``) that require grad raises instead of
+    returning logits whose gradient would silently be zero; otherwise it
+    runs under ``torch.no_grad()``.
     """
+    if agg is None:
+        return _forward(params, x, edge_src, edge_dst, edge_inv, edge_slot,
+                        num_nodes=num_nodes, agg=None, stream_dtype=stream_dtype)
+    if _wants_grad(params, x):
+        raise RuntimeError(
+            "the aggregation kernels have no backward: train on the plain "
+            "reference (agg=None), or run this backend under torch.no_grad()")
+    with torch.no_grad():
+        return _forward(params, x, edge_src, edge_dst, edge_inv, edge_slot,
+                        num_nodes=num_nodes, agg=agg, stream_dtype=stream_dtype)
+
+
+def _forward(params, x, edge_src, edge_dst, edge_inv, edge_slot, *, num_nodes, agg,
+             stream_dtype):
     if getattr(agg, "in_agg_grouped", None) is not None and \
             getattr(agg, "out_agg_grouped", None) is not None:
         wg_in, wg_out = grouped_edge_weights(edge_src, edge_dst, edge_inv, edge_slot,
@@ -329,6 +377,83 @@ def _forward_hoisted(params, x, wg_in, wg_out, agg, fp, stream_dtype):
 
 
 # ---------------------------------------------------------------------------
+# Training (the segment-sum path, as the reference trains)
+# ---------------------------------------------------------------------------
+
+def loss_fn(params: GrootGNN, batch: dict) -> torch.Tensor:
+    """Mean cross-entropy of the logits against ``batch["labels"]``, over
+    the rows ``batch["mask"]`` selects where it is given."""
+    logits = forward(
+        params, batch["x"], batch["edge_src"], batch["edge_dst"],
+        batch.get("edge_inv"), batch.get("edge_slot"), num_nodes=batch["x"].shape[0],
+    )
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(1, batch["labels"].long()[:, None])[:, 0]
+    mask = batch.get("mask")
+    if mask is not None:
+        return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return -ll.mean()
+
+
+def train_step(params: GrootGNN, state: opt.AdamWState, batch: dict,
+               optimizer: opt.AdamW) -> tuple[GrootGNN, opt.AdamWState, torch.Tensor]:
+    """One AdamW step on ``params`` (updated in place); returns (params,
+    state, the loss before the step)."""
+    ps = list(params.parameters())
+    loss = loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, ps)
+    updates, state = optimizer.update(grads, state, ps)
+    with torch.no_grad():
+        for p, new in zip(ps, opt.apply_updates(ps, updates)):
+            p.copy_(new)
+    return params, state, loss.detach()
+
+
+def make_batch(design, features: np.ndarray, labels: np.ndarray, device=None) -> dict:
+    """The training batch of a design on ``device`` (``cuda`` unless named)."""
+    device = resolve_device(device)
+    g = design.to_edge_graph() if hasattr(design, "to_edge_graph") else design
+    src, dst, inv, slot = graph_tensors(g, device)
+    batch = {
+        "x": torch.as_tensor(np.asarray(features, np.float32)).to(device),
+        "edge_src": src,
+        "edge_dst": dst,
+        "labels": torch.as_tensor(labels.astype(np.int32)).to(device),
+    }
+    if inv is not None:
+        batch["edge_inv"] = inv
+    if slot is not None:
+        batch["edge_slot"] = slot
+    return batch
+
+
+def train(
+    params: GrootGNN,
+    batch: dict,
+    *,
+    epochs: int = 200,
+    lr: float = 5e-3,
+    log_every: int = 0,
+) -> tuple[GrootGNN, list]:
+    """``epochs`` AdamW steps (``lr``, weight decay 1e-4) on a trainable
+    copy of ``params`` (the input is left as it is); returns the trained
+    copy and ``[(epoch, loss), ...]`` every ``log_every`` epochs and at the
+    last.  On a CUDA device ``index_add_`` adds with atomics, so the losses
+    are repeatable only to rounding."""
+    import copy
+
+    params = copy.deepcopy(params).requires_grad_(True)
+    optimizer = opt.AdamW(lr=lr, weight_decay=1e-4)
+    state = optimizer.init(list(params.parameters()))
+    history = []
+    for e in range(epochs):
+        params, state, loss = train_step(params, state, batch, optimizer)
+        if log_every and (e % log_every == 0 or e == epochs - 1):
+            history.append((e, float(loss)))
+    return params, history
+
+
+# ---------------------------------------------------------------------------
 # Prediction
 # ---------------------------------------------------------------------------
 
@@ -365,6 +490,7 @@ def _params_on(params: GrootGNN, device) -> torch.device:
     return device
 
 
+@torch.no_grad()
 def _predict_graph(params, num_nodes: int, tensors, features, agg, stream_dtype,
                    device) -> np.ndarray:
     x = torch.as_tensor(np.asarray(features, np.float32)).to(device)

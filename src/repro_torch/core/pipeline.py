@@ -11,11 +11,13 @@ The three stages :class:`repro_torch.api.Session` composes:
   :func:`verify_prepared`  host: adder extraction + simulation check
 
 A partitioned design streams through the ``repro_torch.exec`` executor
-(:func:`infer_streaming`: bucketed packed launches, host prefetch); the
-sequential per-subgraph loop (``gnn.predict_partitioned_loop``) gives the
-same core predictions.  The analytic device-memory model
-(:func:`memory_model_bytes`) is the reference's, so routing decisions agree;
-partitioned runs count the PEAK over partitions.
+(:func:`infer_streaming`: bucketed packed launches, host prefetch; with
+``checkpoint_dir`` set, each partition's predictions are journalled so a
+killed run resumes); the sequential per-subgraph loop
+(``gnn.predict_partitioned_loop``) gives the same core predictions.
+:func:`train_model` trains the GNN on a small design.  The analytic
+device-memory model (:func:`memory_model_bytes`) is the reference's, so
+routing decisions agree; partitioned runs count the PEAK over partitions.
 """
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import aig as A
 from repro_torch.core import gnn
 from repro_torch.core.features import groot_features
@@ -61,6 +65,13 @@ class PipelineConfig:
     # the run's device type; more than one asks for the sharded route, which
     # is not ported (ROADMAP Queue 1, item 7)
     mesh_devices: Optional[int] = None
+    # crash-safe resume for streamed runs: when ``checkpoint_dir`` is set
+    # (and the design has a structural hash), every launched partition's
+    # core predictions are journalled atomically, and a re-run restores
+    # committed partitions instead of re-executing them.  ``resume=False``
+    # keeps journalling but ignores (wipes) any prior journal.
+    checkpoint_dir: Optional[str] = None
+    resume: bool = True
 
 
 def memory_model_bytes(
@@ -295,6 +306,26 @@ def check_unsharded(mesh_devices: Optional[int], device=None) -> None:
         )
 
 
+def _journal_for(prep: PreparedDesign):
+    """The crash-resume journal of a streamed run, or None.
+
+    Journalling needs a durable identity for "the same work": the design's
+    structural hash (the result cache's key).  Only single-AIG runs have
+    one, so batched/LUT runs stream unjournalled.  ``resume=False`` wipes
+    any prior journal before the run — fresh execution, fresh journal.
+    """
+    cfg = prep.cfg
+    if not cfg.checkpoint_dir or cfg.batch != 1 or not isinstance(prep.design, A.AIG):
+        return None
+    from repro_torch.checkpoint import PartitionJournal
+    from repro_torch.io import aiger
+
+    journal = PartitionJournal(cfg.checkpoint_dir, aiger.structural_hash(prep.design))
+    if not cfg.resume:
+        journal.complete()  # discard any prior partial run
+    return journal
+
+
 def infer_streaming(
     params: gnn.GrootGNN,
     prep: PreparedDesign,
@@ -303,6 +334,7 @@ def infer_streaming(
     executor=None,
     plan=None,
     device=None,
+    journal=None,
 ) -> tuple[np.ndarray, dict]:
     """Partitioned inference through the streaming executor.
 
@@ -311,8 +343,11 @@ def infer_streaming(
     ``peak_packed_memory_bytes`` — the modeled device bytes of the largest
     packed launch — and ``chosen_k``.  Without an ``executor`` the shared
     one for (params, backend, knobs) on ``device`` runs it; more than one
-    device of that type asks for the sharded route, which raises.  The
-    reference's crash-resume journal is not ported (ROADMAP Queue 1, item 3).
+    device of that type asks for the sharded route, which raises.
+
+    ``journal``: an explicit :class:`~repro_torch.checkpoint.PartitionJournal`;
+    when None one is derived from ``cfg.checkpoint_dir`` (keyed by the
+    design's structural hash) if configured — see :func:`_journal_for`.
     """
     from repro_torch.exec.plan import plan_from_subgraphs
     from repro_torch.exec.stream import shared_executor
@@ -332,8 +367,10 @@ def infer_streaming(
             regrow=cfg.regrow, partitioner=cfg.partitioner, seed=cfg.seed,
             min_nodes=executor.min_nodes, min_edges=executor.min_edges,
         )
+    if journal is None:
+        journal = _journal_for(prep)
     before = dataclasses.replace(executor.stats)
-    pred = executor.run_plan(plan, prep.feats, gnn_cfg=cfg.gnn)
+    pred = executor.run_plan(plan, prep.feats, gnn_cfg=cfg.gnn, journal=journal)
     stats = dataclasses.asdict(executor.stats.delta(before))
     stats["peak_packed_memory_bytes"] = plan.peak_batch_memory_bytes(
         cfg.gnn, executor.capacity
@@ -369,3 +406,25 @@ def verify_prepared(
         signed=signed,
         simulate=bits <= 64,
     )
+
+
+def train_model(
+    dataset: str = "csa",
+    bits: int = 8,
+    *,
+    cfg: Optional[gnn.GNNConfig] = None,
+    epochs: int = 300,
+    seed: int = 0,
+    device=None,
+):
+    """Train the GNN on a small design (the paper trains on 8-bit) on
+    ``device`` (``cuda`` unless named): the init is drawn on the host from
+    ``seed``, so every device starts from the same params.  Returns
+    ``(params, [(epoch, loss), ...])``."""
+    cfg = cfg or gnn.GNNConfig()
+    device = resolve_device(device)
+    design = A.make_design(dataset, bits, seed=seed)
+    feats = groot_features(design)
+    batch = gnn.make_batch(design, feats, design.label.astype(np.int32), device=device)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(seed)).to(device)
+    return gnn.train(params, batch, epochs=epochs, log_every=50)

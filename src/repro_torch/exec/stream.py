@@ -26,9 +26,13 @@ what the reference would trace (first sight of a packed signature) on the
 shape-stable backends and host plan builds on the structure-keyed ones: a
 recurring structure builds nothing.
 
+Crash resume: ``run_plan(..., journal=)`` takes a
+:class:`~repro_torch.checkpoint.PartitionJournal`, restores the partitions
+it committed before the schedule runs, skips them, and commits each
+launch's core predictions after its scatter.
+
 The reference's metrics, spans and gauges (``repro.obs``) are not ported
 (ROADMAP Queue 1, item 6): :class:`StreamStats` carries the same numbers.
-Nor is its crash-resume journal (``journal=``, ROADMAP Queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -63,9 +67,9 @@ class StreamStats:
     device_s: float = 0.0         # device execution + readback time
     wall_s: float = 0.0           # end-to-end streamed time
     max_queue_depth: int = 0      # prefetch occupancy high-water mark
-    # launches replayed at reduced pack capacity after a device resource
-    # error, and partitions skipped on a resumed run (always 0 here: the
-    # port takes no journal)
+    # failure-domain counters: launches replayed at reduced pack capacity
+    # after a device resource error, and partitions skipped on a resumed
+    # run because a journal already held their core predictions
     capacity_halvings: int = 0
     resumed_partitions: int = 0
     # model-vs-actual memory accounting (high-water marks): what the plan
@@ -162,7 +166,7 @@ class StreamingExecutor:
     # -- execution ----------------------------------------------------------
 
     def run_plan(self, plan: PartitionPlan, features: np.ndarray,
-                 gnn_cfg=None) -> np.ndarray:
+                 gnn_cfg=None, journal=None) -> np.ndarray:
         """Stream every partition batch; returns (num_nodes,) int32 global
         predictions with every core row written (halo rows are computed
         under their owning partition).
@@ -171,6 +175,12 @@ class StreamingExecutor:
         modeled packed-launch peak and the same analytic model evaluated on
         every REAL launched padded shape land in ``stats``.  The runner's
         device copies of the last packed structure are released at the end.
+
+        ``journal`` (a :class:`repro_torch.checkpoint.PartitionJournal`)
+        makes the run crash-safe: each launched partition's core predictions
+        are committed as they land, previously committed partitions are
+        restored into ``out`` and dropped from the schedule, and the journal
+        is cleared once every partition has been written.
         """
         t_wall = time.perf_counter()
         schedule = plan.schedule(self.capacity)
@@ -181,6 +191,15 @@ class StreamingExecutor:
                 plan.peak_batch_memory_bytes(gnn_cfg, self.capacity),
             )
         out = np.zeros(plan.num_nodes, dtype=np.int32)
+        if journal is not None:
+            restored = journal.restore(plan, out)
+            if restored:
+                schedule = [
+                    (shape, kept)
+                    for shape, indices in schedule
+                    if (kept := [i for i in indices if i not in restored])
+                ]
+                self.stats.resumed_partitions += len(restored)
         compiles_before = self.runner.compile_count
         # per-run degradation state: a device resource error halves the
         # effective pack capacity for the REST of this run (mutated by
@@ -192,11 +211,15 @@ class StreamingExecutor:
                 # synchronous path (also the degenerate 0/1-batch case)
                 for shape, indices in schedule:
                     batch = self._pack_timed(plan, indices, features, shape)
-                    self._launch_degradable(plan, batch, out, features, gnn_cfg, degrade)
+                    self._launch_degradable(plan, batch, out, features, gnn_cfg, degrade,
+                                            journal)
             else:
-                self._run_prefetched(plan, schedule, out, features, gnn_cfg, degrade)
+                self._run_prefetched(plan, schedule, out, features, gnn_cfg, degrade,
+                                     journal)
         finally:
             self.runner.release()
+        if journal is not None:
+            journal.complete()
 
         self.stats.runs += 1
         # delta, not the runner's cumulative count: a shared runner's
@@ -205,7 +228,8 @@ class StreamingExecutor:
         self.stats.wall_s += time.perf_counter() - t_wall
         return out
 
-    def _run_prefetched(self, plan, schedule, out, features, gnn_cfg, degrade) -> None:
+    def _run_prefetched(self, plan, schedule, out, features, gnn_cfg, degrade,
+                        journal) -> None:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()  # consumer died: unblock producer
 
@@ -242,7 +266,7 @@ class StreamingExecutor:
                     break
                 if isinstance(got, BaseException):
                     raise got
-                self._launch_degradable(plan, got, out, features, gnn_cfg, degrade)
+                self._launch_degradable(plan, got, out, features, gnn_cfg, degrade, journal)
         finally:
             # a launch failure leaves the producer blocked mid-put; the stop
             # flag makes its bounded put give up promptly
@@ -307,7 +331,7 @@ class StreamingExecutor:
         return batch
 
     def _launch_degradable(self, plan, batch: PackedBatch, out: np.ndarray,
-                           features, gnn_cfg, degrade: dict) -> None:
+                           features, gnn_cfg, degrade: dict, journal=None) -> None:
         """Launch with graceful capacity degradation.
 
         On a device resource error (a CUDA out-of-memory and friends,
@@ -321,26 +345,28 @@ class StreamingExecutor:
         if len(batch.indices) > cap:
             # capacity already degraded earlier in the run: split batches
             # packed (by the prefetch thread) at the old capacity
-            self._relaunch_split(plan, batch, out, features, gnn_cfg, degrade, cap)
+            self._relaunch_split(plan, batch, out, features, gnn_cfg, degrade, journal, cap)
             return
         try:
-            self._launch(batch, out, gnn_cfg)
+            self._launch(batch, out, gnn_cfg, journal)
         except Exception as e:
             if not faults.is_resource_error(e) or len(batch.indices) <= 1:
                 raise
             degrade["cap"] = cap = max(1, min(cap, len(batch.indices)) // 2)
             self.stats.capacity_halvings += 1
-            self._relaunch_split(plan, batch, out, features, gnn_cfg, degrade, cap)
+            self._relaunch_split(plan, batch, out, features, gnn_cfg, degrade, journal, cap)
 
-    def _relaunch_split(self, plan, batch, out, features, gnn_cfg, degrade,
+    def _relaunch_split(self, plan, batch, out, features, gnn_cfg, degrade, journal,
                         cap: int) -> None:
         indices = list(batch.indices)
         for at in range(0, len(indices), cap):
             repacked = self._pack_timed(plan, indices[at:at + cap], features, batch.shape,
                                         capacity=cap)
-            self._launch_degradable(plan, repacked, out, features, gnn_cfg, degrade)
+            self._launch_degradable(plan, repacked, out, features, gnn_cfg, degrade,
+                                    journal)
 
-    def _launch(self, batch: PackedBatch, out: np.ndarray, gnn_cfg=None) -> None:
+    def _launch(self, batch: PackedBatch, out: np.ndarray, gnn_cfg=None,
+                journal=None) -> None:
         if gnn_cfg is not None:
             # the same analytic model, evaluated on the padded shapes this
             # launch ACTUALLY ships (capacity*n_pad rows, capacity*e_pad edges)
@@ -357,6 +383,13 @@ class StreamingExecutor:
         self.stats.batches += 1
         self.stats.partitions += len(batch.items)
         self.stats.core_rows += scatter_core_predictions(out, batch, pred)
+        if journal is not None:
+            # commit core predictions partition by partition AFTER the
+            # scatter: each journal file is written atomically, so a crash
+            # between launches loses at most the in-flight batch
+            for idx, it in zip(batch.indices, batch.items):
+                ids = it.global_ids[: it.num_core]
+                journal.commit(int(idx), ids, out[ids])
 
 
 #: small identity-keyed executor reuse pool: repeated partitioned runs with

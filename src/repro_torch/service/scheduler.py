@@ -118,6 +118,8 @@ class BucketRunner:
                     device=self.device, cache=False)
             x, inv, slot = (torch.from_numpy(batch[k]).to(self.device)
                             for k in ("x", "edge_inv", "edge_slot"))
-            logits = gnn.forward(self.params, x, src, dst, inv, slot, num_nodes=num_nodes,
-                                 agg=agg, stream_dtype=self._stream_dtype)
+            with torch.no_grad():
+                logits = gnn.forward(self.params, x, src, dst, inv, slot,
+                                     num_nodes=num_nodes, agg=agg,
+                                     stream_dtype=self._stream_dtype)
             return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()

@@ -718,3 +718,60 @@ def test_hd_body_on_a_packed_dummy_row(cuda, groups):
     dummy = int(np.flatnonzero(plan.hd.rows == n - 1)[0])
     torch.testing.assert_close(got[:, dummy], x_p[n - 1].expand(groups, -1), rtol=1e-3,
                                atol=1e-6)
+
+
+def test_training_steps_on_the_card_follow_the_cpu(cuda):
+    """20 AdamW steps at csa-8 from one init on the card and on the CPU:
+    losses within 1e-4 relative (``index_add_`` adds in another order on
+    the card)."""
+    from repro_torch.core import aig as A
+    from repro_torch.core.features import groot_features
+
+    design = A.make_design("csa", 8)
+    feats, labels = groot_features(design), design.label.astype(np.int32)
+    init = gnn.init_params(gnn.GNNConfig(), torch.Generator().manual_seed(0))
+    losses = {}
+    for dev in ("cpu", cuda):
+        batch = gnn.make_batch(design, feats, labels, device=dev)
+        _, hist = gnn.train(init.to(dev), batch, epochs=20, log_every=1)
+        losses[str(dev)] = np.array([loss for _, loss in hist])
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4)
+
+
+def test_killed_streamed_run_resumes_on_the_card(cuda, tmp_path):
+    """csa-12 cut 6 ways on ``groot``: killed at the second packed launch,
+    resumed by a fresh session that runs only the rest, bit-equal to the
+    uninterrupted run, the journal gone afterwards."""
+    from repro_torch import faults
+
+    kw = dict(num_partitions=6, stream_capacity=1, backend="groot", device="cuda")
+    prep = Session(**kw).prepare(dataset="csa", bits=12)
+    want = Session(params=NPZ, **kw).verify(prepared=prep, return_predictions=True)
+    with faults.injected("exec.launch:nth=2,kind=fatal"):
+        with pytest.raises(faults.FatalFault):
+            Session(params=NPZ, checkpoint_dir=str(tmp_path), **kw).verify(prepared=prep)
+    (jdir,) = tmp_path.iterdir()
+    committed = len(list(jdir.glob("part_*.npz")))
+    assert 0 < committed < prep.num_partitions
+    before = gs.ld_grouped_apply.launches
+    r = Session(params=NPZ, checkpoint_dir=str(tmp_path), **kw).verify(
+        prepared=prep, return_predictions=True)
+    assert gs.ld_grouped_apply.launches > before
+    np.testing.assert_array_equal(r.predictions, want.predictions)
+    assert r.exec_stats["resumed_partitions"] == committed
+    assert r.exec_stats["partitions"] == prep.num_partitions - committed
+    assert not any(tmp_path.iterdir())
+
+
+def test_cli_verify_on_the_card(cuda, tmp_path, capsys):
+    from repro_torch import cli
+    from repro_torch.core import aig as A
+    from repro_torch.io import aiger
+
+    path = tmp_path / "csa8.aig"
+    aiger.dump(A.make_design("csa", 8), path)
+    before = gs.ld_grouped_apply.launches
+    assert cli.main(["verify", str(path), "--backend", "groot", "--epochs", "20"]) == 0
+    assert gs.ld_grouped_apply.launches > before
+    row = capsys.readouterr().out.splitlines()[-1].split()
+    assert row[:2] == ["csa_mult_8b", "full"] and row[2] in ("verified", "inconclusive")
