@@ -159,7 +159,29 @@ Phases (any failure raises and the script exits non-zero):
               process, the second ``cached=True`` with no kernel launched.
               Training, hashing, parsing and resume times are printed.
 
-Every driven path of phases 4-10 runs with each kernel's launch count set to
+11. service   the batched service route: a ``groot`` Session (shipped params,
+              ``warmup=True``, ``max_inflight_per_tenant=4``, bucket ceiling
+              SERVICE_MAX_BUCKET_NODES) takes, from two tenants while its
+              device worker is held on the first pack, csa-<SERVICE_BITS>,
+              two more identical csa-128 (coalesced: ``cached=True``), an
+              AIGER csa-128, a fifth ticket of one tenant (``AdmissionError``),
+              a garbage AIGER named by its ``groot-name`` comment (fails
+              alone), a 1 ms deadline (``DeadlineExceeded``), csa-<
+              SERVICE_STREAM_BITS> (over the ceiling: partitioned and streamed
+              through ``exec``), a priority-0 csa-128 that must overtake, an
+              AIGER csa-64 named ``poison`` whose pack a ``kind=fatal`` fault
+              fails (bisected: only it fails) and a csa-<SERVICE_RETRY_BITS>
+              whose first launch a ``kind=transient`` fault fails (retried);
+              then csa-<SERVICE_MIX_BITS> on ``groot_fused`` and ``groot_mxu``.
+              Every successful ticket has a sync ``Session.verify``'s status
+              and at most MAX_PRED_MISMATCH of its nodes' predictions
+              differing; after ``close()`` no worker thread is alive and no
+              byte of the engine is left on the card.  Prints the phase wall,
+              tickets per second, each ticket's flight stages,
+              ``stats()["service"]``, the launches by kernel and the card's
+              idle share over the mix (profiler).
+
+Every driven path of phases 4-11 runs with each kernel's launch count set to
 0 just before it and read just after; a kernel's ``launches`` in the summary
 is the sum over those paths, and every kernel must have been launched.  The
 line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -261,6 +283,15 @@ BUDGET_BITS = 256
 # script to 1,096 s of its 1,200), each CLI process given CLI_TIMEOUT_S
 TRAIN_EPOCHS, TRAIN_CHECK_STEPS, TRAIN_LOSS_RTOL = 300, 20, 1e-4
 CLI_TIMEOUT_S = 300
+# the service phase: csa-<b> for b in SERVICE_BITS submitted concurrently to a
+# groot Session's batched engine, whose bucket ceiling streams
+# csa-<SERVICE_STREAM_BITS>; then SERVICE_MIX_BITS on groot_fused and groot_mxu
+SERVICE_BITS = (64, 128, 256)
+SERVICE_RETRY_BITS = 96
+SERVICE_STREAM_BITS = 512
+SERVICE_MAX_BUCKET_NODES = 2**20
+SERVICE_MIX_BITS = (64, 128, 256)
+SERVICE_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -1403,7 +1434,7 @@ def cli_phase(args, dev, drive, launches: dict, full_prep, full_groot, budget_cu
         fail(f"training launched kernels: {launches['cli (a) session.train']}")
     design8 = A.make_design("csa", 8)
     feats8, labels8 = groot_features(design8), design8.label.astype(np.int32)
-    init = gnn.init_params(gnn.GNNConfig(), torch.Generator().manual_seed(0))
+    init = gnn.init_params(gnn.GNNConfig(), 0)
     losses = {}
     for where in ("cpu", dev):
         batch = gnn.make_batch(design8, feats8, labels8, device=where)
@@ -1605,6 +1636,273 @@ def cli_phase(args, dev, drive, launches: dict, full_prep, full_groot, budget_cu
         shutil.rmtree(tmp, ignore_errors=True)
     rep["phase_s"] = time.perf_counter() - t_phase
     log(f"cli phase: {rep['phase_s']:.1f} s")
+    return rep
+
+
+def service_phase(args, dev, drive, launches: dict) -> dict:
+    """Phase 11: the batched service route (``Session.submit``/``result``)
+    on the card; see the module docstring.  Fails unless every ticket that
+    should succeed matches a sync ``Session.verify`` of the same design and
+    config, and the engine leaves no thread and no byte behind."""
+    import threading
+
+    import torch
+
+    from repro_torch import faults
+    from repro_torch.api import Session, SessionConfig
+    from repro_torch.core import aig as A
+    from repro_torch.core import gnn
+    from repro_torch.exec.plan import choose_k_for_caps
+    from repro_torch.io import aiger
+    from repro_torch.kernels import ops
+    from repro_torch.service import AdmissionError
+
+    rep: dict = {}
+    t_phase = time.perf_counter()
+    params = gnn.load_params(PARAMS_PATH)
+    designs = {b: A.make_design("csa", b) for b in
+               sorted(set(SERVICE_BITS) | {SERVICE_RETRY_BITS, SERVICE_STREAM_BITS})}
+
+    def bucket(bits):
+        g = designs[bits].to_edge_graph()
+        return ops.padded_shape(g.num_nodes, g.num_edges, min_nodes=64, min_edges=128)
+
+    def engine_threads():
+        return [t.name for t in threading.enumerate()
+                if t.is_alive() and t.name.startswith(("svc-", "exec-prefetch"))]
+
+    class Gate:
+        """Holds the device worker inside its first pack until released, so
+        the submissions below queue behind it deterministically."""
+
+        def __init__(self, inner):
+            self.inner, self.open, self.entered = inner, threading.Event(), threading.Event()
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+        def __call__(self, batch, gkeys=None):
+            self.entered.set()
+            if not self.open.wait(timeout=SERVICE_TIMEOUT_S):
+                fail("service: the gate was never opened")
+            return self.inner(batch, gkeys)
+
+    def capture(svc):
+        """The predictions each ticket's finalize receives (on the host)."""
+        preds, inner = {}, svc._finalize
+
+        def finalize(req, key, prep, pred, timings):
+            preds[req.req_id] = pred.copy()
+            return inner(req, key, prep, pred, timings)
+
+        svc._finalize = finalize
+        return preds
+
+    def sync_check(tag, backend, tickets, results, preds, cfg_of):
+        """Each successful ticket against a sync verify of its design."""
+        out = {}
+        for name, (t, bits) in tickets.items():
+            r = results[name]
+            kw = cfg_of(bits)
+            want = Session(params, SessionConfig(backend=backend, **kw)).verify(
+                designs[bits], return_predictions=True, use_cache=False)
+            # a coalesced follower carries its leader's outcome: no run of its own
+            mism = (int((preds[t][: want.num_nodes] != want.predictions).sum())
+                    if t in preds else 0)
+            out[name] = dict(status=r.status, sync_status=want.status, mismatch=mism,
+                             nodes=want.num_nodes, accuracy=r.accuracy, cached=r.cached,
+                             sync_route=want.routing.mode)
+            log(f"service {tag} {name}: {r.status} (sync {want.status}, {want.routing.mode}), "
+                f"{mism} of {want.num_nodes} predictions differ")
+            if r.status != want.status or mism > MAX_PRED_MISMATCH * want.num_nodes:
+                fail(f"service {tag} {name}: status {r.status} vs sync {want.status}, "
+                     f"{mism} predictions differ")
+        return out
+
+    # -- (a) groot: the concurrent mix ------------------------------------------
+    shapes = tuple(sorted({bucket(b) for b in SERVICE_BITS + (SERVICE_RETRY_BITS,)}))
+    lo, mid, hi = SERVICE_BITS
+    poison = A.make_design("csa", lo)
+    poison.name = "poison"
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    cfg = SessionConfig(backend="groot", warmup=True, warmup_shapes=shapes,
+                        max_inflight_per_tenant=4, max_bucket_nodes=SERVICE_MAX_BUCKET_NODES,
+                        fault_plan=(f"service.device:match=poison,every=1,kind=fatal;"
+                                    f"service.device:match=csa:{SERVICE_RETRY_BITS},nth=1,"
+                                    f"kind=transient"))
+    sess = Session(params, cfg)
+    (_, warm_wall) = drive("service (a) warm groot", lambda: sess.warm())
+    svc = sess._service_engine()
+    rep["warm"] = dict(wall_s=warm_wall, shapes=list(shapes),
+                       warm_compiles=svc.stats()["warm_compiles"])
+    preds = capture(svc)
+    gate = Gate(svc.scheduler.runner)
+    svc.scheduler.runner = gate
+    tickets: dict = {}
+    # finished from their leader's execution (mid_aig hashes to the
+    # structure of the mid design, dup2 is generated as dup1 is)
+    FOLLOWERS = ("mid_aig", "mid_dup2")
+
+    def submit_all():
+        tickets["small"] = (sess.submit(designs[lo], tenant="a"), lo)
+        if not gate.entered.wait(timeout=SERVICE_TIMEOUT_S):
+            fail("service: the first pack never reached the device")
+        tickets["mid"] = (sess.submit(designs[mid], tenant="a"), mid)
+        tickets["large"] = (sess.submit(designs[hi], tenant="a"), hi)
+        tickets["mid_aig"] = (sess.submit(aiger.dumps(designs[mid]), tenant="a"), mid)
+        try:
+            sess.submit(designs[lo], tenant="a", seed=5)
+            fail("service: a fifth ticket of tenant a was admitted past the cap of 4")
+        except AdmissionError as e:
+            rep["admission_error"] = str(e)
+        tickets["mid_dup1"] = (sess.submit(dataset="csa", bits=mid, tenant="b"), mid)
+        tickets["mid_dup2"] = (sess.submit(dataset="csa", bits=mid, tenant="b"), mid)
+        extra = dict(
+            garbage=sess.submit(b"not an aiger header\nc\ngroot-name garbage_rev\n"),
+            deadline=sess.submit(designs[lo], seed=7, deadline_s=1e-3),
+            # seed 1: its own cache key, not a follower of the small ticket
+            poison=sess.submit(aiger.dumps(poison), seed=1))
+        tickets["small_mate"] = (sess.submit(dataset="csa", bits=lo, seed=2), lo)
+        tickets["streamed"] = (sess.submit(designs[SERVICE_STREAM_BITS]),
+                                      SERVICE_STREAM_BITS)
+        tickets["retried"] = (
+            sess.submit(dataset="csa", bits=SERVICE_RETRY_BITS), SERVICE_RETRY_BITS)
+        tickets["express"] = (sess.submit(dataset="csa", bits=mid, seed=3, priority=0), mid)
+        # open the gate once every request but the coalesced followers is
+        # prepared (or already failed), so the pool sees them all at once
+        waiting = [t for n, (t, _) in tickets.items() if n not in FOLLOWERS] + list(
+            extra.values())
+        deadline = time.perf_counter() + SERVICE_TIMEOUT_S
+        while time.perf_counter() < deadline and not all(
+                svc._requests[t].event.is_set() or svc._requests[t].coalesced
+                or any(m == "prepared" for m, _ in svc._requests[t].marks)
+                for t in waiting if t != tickets["small"][0]):
+            time.sleep(0.01)
+        gate.open.set()
+        results = {name: sess.result(t, timeout=SERVICE_TIMEOUT_S)
+                   for name, (t, _) in tickets.items()}
+        others = {name: sess.result(t, timeout=SERVICE_TIMEOUT_S) for name, t in extra.items()}
+        return results, others, extra
+
+    t0 = time.perf_counter()
+    ((results, others, extra), prof), wall = drive(
+        "service (a) mix groot", lambda: device_profile("service (a) mix groot", submit_all))
+    rep["mix_wall_s"] = wall
+    n_tickets = len(results) + len(others)
+    rep["tickets_per_s"] = n_tickets / wall
+    rep["profile"] = dict(wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                          idle_share=1 - prof["device_ms"] / prof["wall_ms"])
+    log(f"service (a): {n_tickets} tickets in {wall:.2f} s ({rep['tickets_per_s']:.2f} "
+        f"tickets/s, profiler on), card idle share {rep['profile']['idle_share']:.3f}")
+    st = sess.stats()["service"]
+    log(f"service (a) stats: {json.dumps(st, default=str)}")
+    rep["stats"] = json.loads(json.dumps(st, default=str))
+    for name in FOLLOWERS:
+        if not results[name].cached:
+            fail(f"service: {name} was not coalesced (cached=False)")
+    if others["garbage"].status != "error" or others["garbage"].name != "garbage_rev":
+        fail(f"service: garbage AIGER gave {others['garbage'].status} named "
+             f"{others['garbage'].name!r}")
+    if not (others["deadline"].error or "").startswith("DeadlineExceeded"):
+        fail(f"service: the 1 ms ticket gave {others['deadline'].error!r}")
+    if others["poison"].status != "error" or "FatalFault" not in (others["poison"].error or ""):
+        fail(f"service: the poisoned ticket gave {others['poison'].status}")
+    failed = [n for n, r in results.items() if r.status == "error"]
+    if failed:
+        fail(f"service: tickets {failed} failed: {[results[n].error for n in failed]}")
+    counters = st["obs"]["counters"]
+    for key, least in (("service.bisections", 1), ("service.retries", 1),
+                       ("service.coalesced", 1), ("service.rejected", 1),
+                       ("service.deadline_exceeded", 1)):
+        if counters.get(key, 0) < least:
+            fail(f"service: {key} = {counters.get(key, 0)}, expected >= {least}")
+    if st["streamed_items"] < 1:
+        fail(f"service: csa-{SERVICE_STREAM_BITS} did not stream")
+    order = [ids for _, ids, _ in svc.scheduler.pack_log]
+    express = tickets["express"][0]
+    lead128 = tickets["mid"][0]
+    pos = {t: i for i, ids in enumerate(order) for t in ids}
+    if pos.get(express, 1 << 30) > pos.get(lead128, -1):
+        fail(f"service: the priority-0 ticket did not overtake (pack order {order})")
+    flights = {f.req_id: f for f in sess.flights()}
+    rep["flights"] = {}
+    for name, (t, _) in list(tickets.items()) + [(n, (t, 0)) for n, t in extra.items()]:
+        f = flights[t]
+        rep["flights"][name] = dict(status=f.status, stages=f.stages, bucket=f.bucket,
+                                    streamed=f.streamed, cached=f.cached,
+                                    coalesced=f.coalesced, retries=f.retries)
+        log(f"service flight {name}: {f.status} stages "
+            f"{json.dumps({k: round(v, 4) for k, v in f.stages.items()})} bucket {f.bucket} "
+            f"streamed {f.streamed} cached {f.cached} retries {f.retries}")
+    used = {k: v for k, v in launches["service (a) mix groot"].items() if v}
+    log(f"service (a) launches: {json.dumps(used)}")
+    rep["launches"] = used
+    for kn in ("ld_grouped", "hd_grouped"):
+        if not used.get(kn):
+            fail(f"service (a): {kn} did not launch on the groot service path")
+    sess.close()
+    faults.uninstall()
+    del svc, gate
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base_bytes
+    alive = engine_threads()
+    log(f"service (a) after close: threads alive {alive}, bytes above the level before the "
+        f"session {left} (the session's params included)")
+    rep["after_close"] = dict(threads=alive, bytes_left=left)
+    if alive:
+        fail(f"service: threads alive after close: {alive}")
+    del sess
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base_bytes
+    rep["after_close"]["bytes_left_without_session"] = left
+    # (negative where the process-wide plan cache evicted older entries)
+    if left > 0:
+        fail(f"service: {left} bytes left on the card after close")
+
+    # each successful ticket against a sync verify of its design and config
+    g512 = designs[SERVICE_STREAM_BITS].to_edge_graph()
+    k = choose_k_for_caps(g512.num_nodes, g512.num_edges, SERVICE_MAX_BUCKET_NODES,
+                          min_nodes=64, min_edges=128)
+    from repro_torch.exec.plan import build_partition_plan
+
+    while k < g512.num_nodes and any(b.n_pad > SERVICE_MAX_BUCKET_NODES for b in
+                                     build_partition_plan(g512, k).buckets):
+        k *= 2
+    rep["stream_k"] = k
+
+    def cfg_of(bits):
+        return dict(num_partitions=k) if bits == SERVICE_STREAM_BITS else {}
+
+    rep["groot"] = sync_check("(a)", "groot", tickets, results, preds, cfg_of)
+
+    # -- (b) groot_fused and groot_mxu: a short mix ----------------------------
+    expect = {"groot_fused": "fused_ld_grouped", "groot_mxu": "ld_grouped_mxu"}
+    for backend, kn in expect.items():
+        s2 = Session(params, backend=backend)
+        svc2 = s2._service_engine()
+        p2 = capture(svc2)
+
+        def mix():
+            ts = {f"csa{b}": (s2.submit(designs[b], tenant="a"), b) for b in SERVICE_MIX_BITS}
+            return ts, {n: s2.result(t, timeout=SERVICE_TIMEOUT_S) for n, (t, _) in ts.items()}
+
+        (ts, rs), wall = drive(f"service (b) mix {backend}", mix)
+        s2.close()
+        used = {k_: v for k_, v in launches[f"service (b) mix {backend}"].items() if v}
+        log(f"service (b) {backend}: {len(rs)} tickets in {wall:.2f} s, launches "
+            f"{json.dumps(used)}")
+        if not used.get(kn):
+            fail(f"service (b) {backend}: {kn} did not launch")
+        rep[backend] = dict(wall_s=wall, launches=used,
+                            tickets=sync_check(f"(b) {backend}", backend, ts, rs, p2,
+                                               lambda b: {}))
+        del s2, svc2
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"service phase: {rep['phase_s']:.1f} s")
     return rep
 
 
@@ -2347,6 +2645,9 @@ def main() -> int:
     # -- 10. the command-line path: train on the card, journal, AIGER, the CLI ---
     report["cli"] = cli_phase(args, dev, drive, launches, prep, results["groot"], budget_cut)
     del budget_cut
+
+    # -- 11. the batched service: concurrent tickets, coalescing, faults -------
+    report["service"] = service_phase(args, dev, drive, launches)
 
     total = {kn: sum(counts[kn] for counts in launches.values()) for kn in kernels}
     report["launches"] = launches

@@ -1,5 +1,8 @@
-"""The port's public front door: :class:`Session` over the full-graph route."""
-from repro_torch.api.config import SessionConfig
+"""The port's public front door: :class:`Session` over the full-graph,
+partitioned, streamed and batched-service routes."""
+from repro_torch.api.config import SessionConfig, resolve_backend_alias  # noqa: F401
 from repro_torch.api.session import RoutingDecision, Session, SessionResult, route_prepared
+from repro_torch.obs import Report  # noqa: F401 — Session.report()'s return type
 
-__all__ = ["RoutingDecision", "Session", "SessionConfig", "SessionResult", "route_prepared"]
+__all__ = ["Report", "RoutingDecision", "Session", "SessionConfig", "SessionResult",
+           "route_prepared"]

@@ -1,11 +1,15 @@
 """`repro-torch`: the port's console entry point over
-:class:`repro_torch.api.Session` (port of ``repro/cli.py``: ``verify`` and
-``explain``, with the reference's flags and printed table).
+:class:`repro_torch.api.Session` (port of ``repro/cli.py``: ``verify``,
+``explain``, ``serve`` and ``top``, with the reference's flags and printed
+tables).
 
     python -m repro_torch.cli verify design.aig            # train, route, verify
     python -m repro_torch.cli verify csa:32 booth:16 --backend groot --partitions 8
     python -m repro_torch.cli verify big.aig --budget-mb 64 --checkpoint-dir ck
+    python -m repro_torch.cli verify csa:32 --trace trace.json   # Chrome trace
     python -m repro_torch.cli explain design.aig --budget-mb 64   # routing only
+    python -m repro_torch.cli serve --designs csa:8,csa:16 --metrics-port 9100
+    python -m repro_torch.cli top 127.0.0.1:9100           # live view of /stats
 
 ``verify``/``explain`` accept AIGER files (``.aig``/``.aag``) and
 ``family:bits`` generator specs interchangeably.  ``explain`` needs no
@@ -14,10 +18,8 @@ trained model — routing is host-side only.  A streamed ``verify`` with
 after a kill and only the unfinished partitions run.
 
 Everything runs on ``cuda`` unless the caller of :func:`main` passes
-``device="cpu"``.  The reference's ``serve`` and ``top`` commands and
-``--trace`` (its observability layer, ROADMAP Queue 1, item 6) and
-``--devices`` above 1 (the sharded route, item 7) are not ported: they exit
-non-zero and say so.
+``device="cpu"``.  ``--devices`` above 1 (the reference's sharded route,
+ROADMAP Queue 1, item 7) is not ported: it exits non-zero and says so.
 """
 from __future__ import annotations
 
@@ -83,6 +85,7 @@ def _make_session(args, device):
         memory_budget_bytes=budget,
         stream_dtype=args.stream_dtype,
         mesh_devices=args.devices,
+        trace=bool(getattr(args, "trace", None)),
         checkpoint_dir=args.checkpoint_dir,
         resume=args.resume,
         fault_plan=args.fault_plan,
@@ -150,15 +153,75 @@ def cmd_verify(args, device) -> int:
               f"{r.peak_memory_bytes/1e6:8.1f} {r.timings['total']:8.3f}")
         if args.explain:
             _print_decision("  routing", r.routing)
+    if args.trace:
+        sess.save_trace(args.trace)
+        print(f"\ntrace written to {args.trace}")
     return 1 if bad else 0
+
+
+def cmd_top(args) -> int:
+    """Live terminal view of a running service: poll its ``/stats`` JSON
+    endpoint (``serve --metrics-port N``) and render the hot
+    numbers.  ``--iterations`` bounds the loop (tests; one-shot peeks)."""
+    import json
+    import time
+    import urllib.request
+
+    url = args.url.rstrip("/")
+    if "://" not in url:
+        url = f"http://{url}"
+    n = 0
+    while args.iterations is None or n < args.iterations:
+        try:
+            with urllib.request.urlopen(f"{url}/stats", timeout=5) as resp:
+                stats = json.load(resp)
+        except OSError as e:
+            print(f"{PROG} top: cannot reach {url}/stats ({e})", file=sys.stderr)
+            return 1
+        svc = stats.get("service", stats)
+        obs = svc.get("obs", {})
+        gauges, hists = obs.get("gauges", {}), obs.get("histograms", {})
+        flights = svc.get("flights", {})
+        cache = svc.get("cache", {})
+        if isinstance(cache, str):       # dataclass stringified by the server
+            cache = {}
+        if n:
+            print()
+        print(f"-- {PROG} top @ {time.strftime('%H:%M:%S')} ({url}) --")
+        print(f"queue depth {gauges.get('service.queue_depth', {}).get('value', 0):>4}"
+              f"  (peak {gauges.get('service.queue_depth', {}).get('max', 0)})"
+              f"   slots {gauges.get('service.slot_occupancy', {}).get('value', 0):>3}"
+              f"  (peak {gauges.get('service.slot_occupancy', {}).get('max', 0)})")
+        print(f"device calls {svc.get('device_calls', 0):>5}"
+              f"   compiles {svc.get('compile_count', 0):>4}"
+              f"   cold {svc.get('cold_compiles', 0):>3}"
+              f"   streamed {svc.get('streamed_items', 0):>4}")
+        print(f"flights: {flights.get('recorded', 0)} recorded, "
+              f"{flights.get('failures', 0)} failed, "
+              f"{flights.get('retained', 0)}/{flights.get('capacity', 0)} retained")
+        for stage in ("prepare_s", "queue_wait_s", "infer_s", "verify_s"):
+            h = hists.get(f"service.{stage}")
+            if h:
+                print(f"  {stage:<13} n={h.get('count', 0):<6} "
+                      f"p50={h.get('p50', 0) * 1e3:8.2f} ms  "
+                      f"p95={h.get('p95', 0) * 1e3:8.2f} ms")
+        n += 1
+        if args.iterations is None or n < args.iterations:
+            time.sleep(args.interval)
+    return 0
 
 
 def main(argv: Optional[list] = None, device=None) -> int:
     """Run one command; ``device`` is where sessions run (``cuda`` unless
     named, as every entry point of the port)."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in ("serve", "top"):
-        return _not_ported(f"`{argv[0]}` (the batched service and its live view)", 6)
+    if argv and argv[0] == "serve":
+        # hand everything (flags included) to the service CLI untouched —
+        # argparse.REMAINDER cannot capture leading options
+        from repro_torch.service.server import main as serve_main
+
+        serve_main(argv[1:], device=device)
+        return 0
 
     ap = argparse.ArgumentParser(
         prog=PROG, description="GROOT verification stack on PyTorch (repro_torch.api)"
@@ -174,7 +237,9 @@ def main(argv: Optional[list] = None, device=None) -> int:
     v.add_argument("--explain", action="store_true",
                    help="also print each design's routing decision")
     v.add_argument("--trace", metavar="OUT.json", default=None,
-                   help="span tracing; not ported (ROADMAP Queue 1, item 6)")
+                   help="record spans for every verify and write a "
+                        "Chrome-trace JSON (open in chrome://tracing "
+                        "or Perfetto)")
     v.set_defaults(fn=cmd_verify)
 
     e = sub.add_parser("explain",
@@ -182,13 +247,23 @@ def main(argv: Optional[list] = None, device=None) -> int:
     _session_args(e)
     e.set_defaults(fn=cmd_explain)
 
-    # listed for --help only; refused above before parsing
-    sub.add_parser("serve", help="the batched verification service (not ported)")
-    sub.add_parser("top", help="live view of a running service (not ported)")
+    # listed for --help only; dispatched above before parsing
+    sub.add_parser("serve", help="run the batched verification service "
+                                 "(args pass through to repro_torch.service.server)")
+
+    t = sub.add_parser("top", help="live view of a running service "
+                                   "(polls serve --metrics-port's /stats)")
+    t.add_argument("url", nargs="?", default="127.0.0.1:9100",
+                   help="host:port of the service's metrics endpoint")
+    t.add_argument("--interval", type=float, default=2.0,
+                   help="seconds between polls")
+    t.add_argument("--iterations", type=int, default=None,
+                   help="stop after N polls (default: run until ^C)")
+    t.set_defaults(fn=cmd_top)
 
     args = ap.parse_args(argv)
-    if getattr(args, "trace", None):
-        return _not_ported("--trace (span tracing)", 6)
+    if args.cmd == "top":
+        return args.fn(args)
     if args.devices is not None and args.devices > 1:
         return _not_ported(f"--devices {args.devices} (the sharded route)", 7)
     return args.fn(args, device)

@@ -29,7 +29,9 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.core import aig as A
+from repro_torch.core import prng
 from repro_torch.kernels import ref as kref
+from repro_torch.obs import REGISTRY, span
 from repro_torch.training import optimizer as opt
 
 
@@ -94,21 +96,29 @@ class GrootGNN(nn.Module):
 # Params bridge
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: GNNConfig, generator: torch.Generator) -> GrootGNN:
-    """Fresh trainable params: the reference's uniform(±1/sqrt(fan_in))
-    weights and zero biases, drawn from ``generator`` (layer by layer in
-    ``LAYER_WEIGHTS`` order, then the head).  The values differ from the
-    reference's ``jax.random`` draws; cross them through numpy to compare."""
-    model = GrootGNN(cfg)
+def init_params(cfg: GNNConfig, seed: int = 0, device="cpu") -> GrootGNN:
+    """Fresh trainable params, drawn as the reference's
+    ``init_params(cfg, jax.random.key(seed))`` draws them
+    (:mod:`repro_torch.core.prng`): per layer ``split(key, 8)``, the first
+    key carrying on and the other seven drawing ``w_self``, the four
+    ``IN_GROUPS`` and the two ``OUT_GROUPS`` uniform(+-1/sqrt(fan_in)); then
+    ``split(key, 2)`` for the head; zero biases.  The values are built on
+    the host and moved to ``device``, so every device starts alike."""
     dims = [cfg.in_features] + [cfg.hidden] * cfg.num_layers
-    with torch.no_grad():
-        for i, layer in enumerate(model.layers):
-            s = 1.0 / np.sqrt(dims[i])
-            for nm in LAYER_WEIGHTS:
-                getattr(layer, nm).uniform_(-s, s, generator=generator)
-        s = 1.0 / np.sqrt(cfg.hidden)
-        model.head.w.uniform_(-s, s, generator=generator)
-    return model
+    key = prng.key(seed)
+    tree = {"layers": []}
+    for i in range(cfg.num_layers):
+        key, *keys = prng.split(key, 1 + len(LAYER_WEIGHTS))
+        s = 1.0 / np.sqrt(dims[i])
+        layer = {nm: prng.uniform(kk, (dims[i], dims[i + 1]), -s, s)
+                 for nm, kk in zip(LAYER_WEIGHTS, keys)}
+        layer["b"] = np.zeros(dims[i + 1], np.float32)
+        tree["layers"].append(layer)
+    key, kh = prng.split(key, 2)
+    s = 1.0 / np.sqrt(cfg.hidden)
+    tree["head"] = {"w": prng.uniform(kh, (cfg.hidden, cfg.num_classes), -s, s),
+                    "b": np.zeros(cfg.num_classes, np.float32)}
+    return params_from_numpy(tree, device=device).requires_grad_(True)
 
 
 def params_from_numpy(tree: dict, device="cpu") -> GrootGNN:
@@ -131,6 +141,16 @@ def params_from_numpy(tree: dict, device="cpu") -> GrootGNN:
         model.head.w.copy_(torch.as_tensor(np.array(tree["head"]["w"], np.float32)))
         model.head.b.copy_(torch.as_tensor(np.array(tree["head"]["b"], np.float32)))
     return model.requires_grad_(False).to(device)
+
+
+def as_model(params, device) -> GrootGNN:
+    """Params as a model on ``device``: a :class:`GrootGNN` (copied, never
+    moved in place), the reference's numpy tree, or a ``.npz`` path."""
+    if isinstance(params, GrootGNN):
+        params = params_to_numpy(params)
+    elif not isinstance(params, dict):
+        params = load_params(params)
+    return params_from_numpy(params, device=device)
 
 
 def params_to_numpy(model: GrootGNN) -> dict:
@@ -196,6 +216,23 @@ def _wants_grad(params: GrootGNN, x: torch.Tensor) -> bool:
         x.requires_grad or any(p.requires_grad for p in params.parameters()))
 
 
+#: forward signatures seen by this process: the port runs eagerly, so
+#: ``gnn.forward_traces`` counts what the reference's jit would trace, the
+#: first forward of each (shape, backend, dtype, grad) signature
+_TRACED: set = set()
+_TRACED_MAX = 4096
+
+
+def _count_trace(x, edge_src, num_nodes, agg, stream_dtype) -> None:
+    sig = (tuple(x.shape), int(edge_src.shape[0]), int(num_nodes),
+           None if agg is None else agg.backend, stream_dtype, torch.is_grad_enabled())
+    if sig not in _TRACED:
+        if len(_TRACED) >= _TRACED_MAX:
+            _TRACED.clear()
+        _TRACED.add(sig)
+        REGISTRY.counter("gnn.forward_traces").inc()
+
+
 def forward(
     params: GrootGNN,
     x: torch.Tensor,
@@ -233,6 +270,7 @@ def forward(
     returning logits whose gradient would silently be zero; otherwise it
     runs under ``torch.no_grad()``.
     """
+    _count_trace(x, edge_src, num_nodes, agg, stream_dtype)
     if agg is None:
         return _forward(params, x, edge_src, edge_dst, edge_inv, edge_slot,
                         num_nodes=num_nodes, agg=None, stream_dtype=stream_dtype)
@@ -506,8 +544,14 @@ def predict(params: GrootGNN, design, features, backend: str = "ref", *,
     ``device`` (``cuda`` unless the caller names another)."""
     device = _params_on(params, device)
     g = design.to_edge_graph() if hasattr(design, "to_edge_graph") else design
-    return _predict_graph(params, g.num_nodes, graph_tensors(g, device), features,
-                          _make_agg(g, backend, device), stream_dtype, device)
+    feats = np.asarray(features)
+    # staged h2d bytes: features + the edge index/annotation arrays
+    REGISTRY.counter("gnn.bytes_staged").inc(
+        feats.nbytes + 2 * g.edge_src.nbytes + 2 * g.edge_dst.nbytes)
+    with span("gnn.predict", backend=backend, nodes=g.num_nodes):
+        REGISTRY.counter("gnn.predicts").inc()
+        return _predict_graph(params, g.num_nodes, graph_tensors(g, device), feats,
+                              _make_agg(g, backend, device), stream_dtype, device)
 
 
 def _same_structure(a, b) -> bool:
@@ -613,8 +657,12 @@ def predict_partitioned_loop(
         agg = _make_agg(g, backend, device, cache=False)
         for i in group:
             sg = subgraphs[i]
-            pred = _predict_graph(params, g.num_nodes, tensors, features[sg.global_ids],
-                                  agg, stream_dtype, device)
+            feats = features[sg.global_ids]
+            REGISTRY.counter("gnn.loop_launches").inc()
+            REGISTRY.counter("gnn.bytes_staged").inc(
+                int(feats.nbytes) + 2 * sg.edge_src.nbytes + 2 * sg.edge_dst.nbytes)
+            pred = _predict_graph(params, g.num_nodes, tensors, feats, agg, stream_dtype,
+                                  device)
             out[sg.global_ids[: sg.num_core]] = pred[: sg.num_core]
             if i == group[-1]:
                 if agg is not None:

@@ -26,7 +26,6 @@ import time
 from typing import Optional
 
 import numpy as np
-import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import aig as A
@@ -36,6 +35,38 @@ from repro_torch.core.graph import EdgeGraph, batch_graphs
 from repro_torch.core.partition import PARTITIONERS
 from repro_torch.core.regrowth import Subgraph, boundary_edge_fraction, extract_partitions
 from repro_torch.core.verify import VerifyResult, verify
+from repro_torch.obs import REGISTRY, span
+
+
+def resolve_backend_alias(backend: Optional[str], aggregate: Optional[str],
+                          *, owner: str) -> str:
+    """Collapse the ``aggregate``/``backend`` naming split to ``backend``.
+
+    ``aggregate=`` (the old ``PipelineConfig`` spelling) keeps working as
+    a write-only alias: it warns, fills ``backend`` when that is unset,
+    and conflicts loudly instead of silently preferring one.  Returns the
+    resolved backend (default ``"ref"``).  Lives here (not ``repro_torch.api``)
+    so the core layer never imports upward.
+    """
+    if aggregate is not None:
+        import warnings
+
+        warnings.warn(
+            f"{owner}(aggregate=...) is deprecated; the knob is named "
+            f"backend= everywhere now",
+            DeprecationWarning,
+            # resolve_backend_alias <- __post_init__ <- generated __init__
+            # <- the user's call site
+            stacklevel=4,
+        )
+        if backend is None:
+            backend = aggregate
+        elif backend != aggregate:
+            raise ValueError(
+                f"{owner}: backend={backend!r} and its deprecated alias "
+                f"aggregate={aggregate!r} disagree — pass only backend="
+            )
+    return "ref" if backend is None else backend
 
 
 @dataclasses.dataclass
@@ -200,18 +231,20 @@ def prepare(cfg: PipelineConfig, design=None) -> PreparedDesign:
     until the built plan's modeled peak launch fits.
     """
     t0 = time.perf_counter()
-    if design is None:
-        design = A.make_design(cfg.dataset, cfg.bits, seed=cfg.seed)
-    labels = design.label
-    feats = groot_features(design)
-    g1 = design.to_edge_graph()
-    if cfg.batch > 1:
-        g = batch_graphs([g1] * cfg.batch)
-        feats = np.tile(feats, (cfg.batch, 1))
-        labels = np.tile(labels, cfg.batch)
-    else:
-        g = g1
+    with span("prepare.features"):
+        if design is None:
+            design = A.make_design(cfg.dataset, cfg.bits, seed=cfg.seed)
+        labels = design.label
+        feats = groot_features(design)
+        g1 = design.to_edge_graph()
+        if cfg.batch > 1:
+            g = batch_graphs([g1] * cfg.batch)
+            feats = np.tile(feats, (cfg.batch, 1))
+            labels = np.tile(labels, cfg.batch)
+        else:
+            g = g1
     t_gen = time.perf_counter() - t0
+    REGISTRY.counter("pipeline.prepares").inc()
 
     t0 = time.perf_counter()
     k = cfg.num_partitions
@@ -234,22 +267,25 @@ def prepare(cfg: PipelineConfig, design=None) -> PreparedDesign:
     if k <= 1:
         subs, bfrac, t_part = None, 0.0, 0.0
     else:
-        part, subs = _cut(k)
-        if budgeted and subs:
-            # the estimate can undershoot real halo growth: validate the
-            # BUILT plan's packed peak and re-split finer until it fits
-            from repro_torch.exec.plan import plan_from_subgraphs
+        with span("prepare.partition", k=k, partitioner=cfg.partitioner) as sp:
+            part, subs = _cut(k)
+            if budgeted and subs:
+                # the estimate can undershoot real halo growth: validate the
+                # BUILT plan's packed peak and re-split finer until it fits
+                from repro_torch.exec.plan import plan_from_subgraphs
 
-            while k < g.num_nodes and plan_from_subgraphs(
-                subs, g.num_nodes
-            ).peak_batch_memory_bytes(
-                cfg.gnn, cfg.stream_capacity
-            ) > cfg.memory_budget_bytes:
-                k *= 2
-                part, subs = _cut(k)
-        bfrac = boundary_edge_fraction(g, part)
-        if not subs:  # empty graph: fall back to the unpartitioned path
-            subs = None
+                while k < g.num_nodes and plan_from_subgraphs(
+                    subs, g.num_nodes
+                ).peak_batch_memory_bytes(
+                    cfg.gnn, cfg.stream_capacity
+                ) > cfg.memory_budget_bytes:
+                    k *= 2
+                    part, subs = _cut(k)
+            bfrac = boundary_edge_fraction(g, part)
+            if not subs:  # empty graph: fall back to the unpartitioned path
+                subs = None
+            sp.set(final_k=len(subs) if subs else 1)
+        REGISTRY.counter("pipeline.partition_cuts").inc()
         t_part = time.perf_counter() - t0
     return PreparedDesign(
         cfg=cfg, design=design, labels=labels, feats=feats, graph=g,
@@ -399,13 +435,15 @@ def verify_prepared(
     bits = prep.design.n_pi // 2
     if signed is None:
         signed = prep.cfg.dataset == "booth" or prep.design.name.startswith("booth")
-    return verify(
-        prep.design,
-        pred[: prep.design.num_nodes],
-        bits=bits,
-        signed=signed,
-        simulate=bits <= 64,
-    )
+    with span("pipeline.verify_prepared", bits=bits):
+        REGISTRY.counter("pipeline.verifications").inc()
+        return verify(
+            prep.design,
+            pred[: prep.design.num_nodes],
+            bits=bits,
+            signed=signed,
+            simulate=bits <= 64,
+        )
 
 
 def train_model(
@@ -426,5 +464,5 @@ def train_model(
     design = A.make_design(dataset, bits, seed=seed)
     feats = groot_features(design)
     batch = gnn.make_batch(design, feats, design.label.astype(np.int32), device=device)
-    params = gnn.init_params(cfg, torch.Generator().manual_seed(seed)).to(device)
+    params = gnn.init_params(cfg, seed, device=device)
     return gnn.train(params, batch, epochs=epochs, log_every=50)

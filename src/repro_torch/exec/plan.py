@@ -30,6 +30,7 @@ from repro_torch.core.partition import PARTITIONERS
 from repro_torch.core.regrowth import Subgraph, boundary_edge_fraction, extract_partitions
 from repro_torch.kernels import ops
 from repro_torch.kernels.plan_cache import PlanCache, graph_key
+from repro_torch.obs import REGISTRY, span
 from repro_torch.service.bucketing import BucketShape
 
 #: Dedicated cache for execution plans, NOT the kernel-layer PLAN_CACHE: a
@@ -170,14 +171,16 @@ def build_partition_plan(
     """
 
     def _build() -> PartitionPlan:
-        part = PARTITIONERS[partitioner](graph, k, seed=seed)
-        bfrac = boundary_edge_fraction(graph, part) if part.size else 0.0
-        subs = extract_partitions(graph, part, regrow=regrow, hops=hops)
-        plan = plan_from_subgraphs(
-            subs, graph.num_nodes, num_edges=graph.num_edges, regrow=regrow,
-            partitioner=partitioner, seed=seed, min_nodes=min_nodes, min_edges=min_edges,
-        )
-        return dataclasses.replace(plan, k=k, boundary_edge_frac=bfrac)
+        with span("exec.plan_build", k=k, partitioner=partitioner):
+            REGISTRY.counter("exec.plan_builds").inc()
+            part = PARTITIONERS[partitioner](graph, k, seed=seed)
+            bfrac = boundary_edge_fraction(graph, part) if part.size else 0.0
+            subs = extract_partitions(graph, part, regrow=regrow, hops=hops)
+            plan = plan_from_subgraphs(
+                subs, graph.num_nodes, num_edges=graph.num_edges, regrow=regrow,
+                partitioner=partitioner, seed=seed, min_nodes=min_nodes, min_edges=min_edges,
+            )
+            return dataclasses.replace(plan, k=k, boundary_edge_frac=bfrac)
 
     if not use_cache:
         return _build()
@@ -189,6 +192,7 @@ def build_partition_plan(
     )
     cached = EXEC_PLAN_CACHE.peek(key)
     if cached is not None:
+        REGISTRY.counter("exec.plan_cache_hits").inc()
         return cached
     return EXEC_PLAN_CACHE.add(key, _build())
 

@@ -31,8 +31,14 @@ Crash resume: ``run_plan(..., journal=)`` takes a
 it committed before the schedule runs, skips them, and commits each
 launch's core predictions after its scatter.
 
-The reference's metrics, spans and gauges (``repro.obs``) are not ported
-(ROADMAP Queue 1, item 6): :class:`StreamStats` carries the same numbers.
+Instruments (``repro_torch.obs``, under the reference's names): the
+``exec.runs``/``exec.compiles``/``exec.launches``/``exec.bytes_h2d``/
+``exec.resumed_partitions``/``exec.capacity_halvings``/``exec.prefetch_deaths``
+counters, the ``exec.queue_depth``/``exec.*_peak_bytes``/
+``exec.effective_capacity`` gauges and the ``exec.*_s`` histograms of the
+process-wide ``REGISTRY``, and the ``exec.stream``/``exec.pack``/
+``exec.launch`` spans (the prefetch thread's pack spans parent under the
+run's stream span).  :class:`StreamStats` keeps the per-executor numbers.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from repro_torch.core.graph import EdgeGraph
 from repro_torch.core.regrowth import Subgraph
 from repro_torch.exec.packing import PackedBatch, pack_partitions, scatter_core_predictions
 from repro_torch.exec.plan import PartitionPlan, build_partition_plan, plan_from_subgraphs
+from repro_torch.obs import REGISTRY, current_tracer, span
 from repro_torch.service.scheduler import BucketRunner
 
 
@@ -186,10 +193,9 @@ class StreamingExecutor:
         schedule = plan.schedule(self.capacity)
         self.buckets_seen.update(plan.buckets)
         if gnn_cfg is not None:
-            self.stats.modeled_peak_bytes = max(
-                self.stats.modeled_peak_bytes,
-                plan.peak_batch_memory_bytes(gnn_cfg, self.capacity),
-            )
+            modeled = plan.peak_batch_memory_bytes(gnn_cfg, self.capacity)
+            self.stats.modeled_peak_bytes = max(self.stats.modeled_peak_bytes, modeled)
+            REGISTRY.gauge("exec.modeled_peak_bytes").set(modeled)
         out = np.zeros(plan.num_nodes, dtype=np.int32)
         if journal is not None:
             restored = journal.restore(plan, out)
@@ -200,22 +206,26 @@ class StreamingExecutor:
                     if (kept := [i for i in indices if i not in restored])
                 ]
                 self.stats.resumed_partitions += len(restored)
+                REGISTRY.counter("exec.resumed_partitions").inc(len(restored))
         compiles_before = self.runner.compile_count
+        tracer = current_tracer()
         # per-run degradation state: a device resource error halves the
         # effective pack capacity for the REST of this run (mutated by
         # _launch_degradable), so one undersized device doesn't turn every
         # remaining batch into its own failure
         degrade = {"cap": self.capacity}
         try:
-            if self.prefetch == 0 or len(schedule) <= 1:
-                # synchronous path (also the degenerate 0/1-batch case)
-                for shape, indices in schedule:
-                    batch = self._pack_timed(plan, indices, features, shape)
-                    self._launch_degradable(plan, batch, out, features, gnn_cfg, degrade,
-                                            journal)
-            else:
-                self._run_prefetched(plan, schedule, out, features, gnn_cfg, degrade,
-                                     journal)
+            with tracer.span("exec.stream", partitions=plan.num_parts,
+                             batches=len(schedule)) as stream_sp:
+                if self.prefetch == 0 or len(schedule) <= 1:
+                    # synchronous path (also the degenerate 0/1-batch case)
+                    for shape, indices in schedule:
+                        batch = self._pack_timed(plan, indices, features, shape)
+                        self._launch_degradable(plan, batch, out, features, gnn_cfg,
+                                                degrade, journal)
+                else:
+                    self._run_prefetched(plan, schedule, out, features, gnn_cfg, degrade,
+                                         journal, tracer, stream_sp.span_id)
         finally:
             self.runner.release()
         if journal is not None:
@@ -224,12 +234,17 @@ class StreamingExecutor:
         self.stats.runs += 1
         # delta, not the runner's cumulative count: a shared runner's
         # earlier work must not be attributed to this stream
-        self.stats.compiles += self.runner.compile_count - compiles_before
-        self.stats.wall_s += time.perf_counter() - t_wall
+        run_compiles = self.runner.compile_count - compiles_before
+        self.stats.compiles += run_compiles
+        wall = time.perf_counter() - t_wall
+        self.stats.wall_s += wall
+        REGISTRY.counter("exec.runs").inc()
+        REGISTRY.counter("exec.compiles").inc(run_compiles)
+        REGISTRY.histogram("exec.wall_s").observe(wall)
         return out
 
     def _run_prefetched(self, plan, schedule, out, features, gnn_cfg, degrade,
-                        journal) -> None:
+                        journal, tracer, stream_id) -> None:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()  # consumer died: unblock producer
 
@@ -243,24 +258,29 @@ class StreamingExecutor:
             return False
 
         def _producer():
-            try:
-                for shape, indices in schedule:
-                    faults.fire("exec.prefetch", tag=lambda: f"parts={len(indices)}")
-                    if not _put(self._pack_timed(plan, indices, features, shape)):
-                        return
-                _put(_SENTINEL)
-            except faults.WorkerKilled:
-                # simulated abrupt thread death: deliver NOTHING — the
-                # consumer-side watchdog must catch this
-                return
-            except BaseException as e:  # noqa: BLE001 — forwarded to consumer
-                _put(e)
+            # pack spans parent under this run's stream span, not under
+            # whatever this thread did last
+            with tracer.adopt(stream_id):
+                try:
+                    for shape, indices in schedule:
+                        faults.fire("exec.prefetch", tag=lambda: f"parts={len(indices)}")
+                        if not _put(self._pack_timed(plan, indices, features, shape)):
+                            return
+                    _put(_SENTINEL)
+                except faults.WorkerKilled:
+                    # simulated abrupt thread death: deliver NOTHING — the
+                    # consumer-side watchdog must catch this
+                    return
+                except BaseException as e:  # noqa: BLE001 — forwarded to consumer
+                    _put(e)
 
         th = threading.Thread(target=_producer, name="exec-prefetch", daemon=True)
         th.start()
         try:
             while True:
-                self.stats.max_queue_depth = max(self.stats.max_queue_depth, q.qsize())
+                depth = q.qsize()
+                self.stats.max_queue_depth = max(self.stats.max_queue_depth, depth)
+                REGISTRY.gauge("exec.queue_depth").set(depth)
                 got = self._next_batch(q, th)
                 if got is _SENTINEL:
                     break
@@ -316,18 +336,25 @@ class StreamingExecutor:
                 return q.get(timeout=0.2)
             except queue.Empty:
                 if not th.is_alive():
+                    REGISTRY.counter("exec.prefetch_deaths").inc()
                     raise RuntimeError(
-                        "prefetch thread died without delivering a batch or an error"
+                        "prefetch thread died without delivering a batch or an error "
+                        "(see exec.prefetch_deaths)"
                     ) from None
 
     def _pack_timed(self, plan, indices, features, shape,
                     capacity: Optional[int] = None) -> PackedBatch:
         t0 = time.perf_counter()
-        batch = pack_partitions(plan, indices, features, shape, capacity or self.capacity,
-                                keyed=self.runner.structure_keyed)
+        with span("exec.pack", parts=len(indices)) as sp:
+            batch = pack_partitions(plan, indices, features, shape, capacity or self.capacity,
+                                    keyed=self.runner.structure_keyed)
+            sp.set(bytes=batch.nbytes)
+        dt = time.perf_counter() - t0
         with self._pack_lock:
-            self.stats.pack_s += time.perf_counter() - t0
+            self.stats.pack_s += dt
             self.stats.bytes_h2d += batch.nbytes
+        REGISTRY.counter("exec.bytes_h2d").inc(batch.nbytes)
+        REGISTRY.histogram("exec.pack_s").observe(dt)
         return batch
 
     def _launch_degradable(self, plan, batch: PackedBatch, out: np.ndarray,
@@ -354,6 +381,8 @@ class StreamingExecutor:
                 raise
             degrade["cap"] = cap = max(1, min(cap, len(batch.indices)) // 2)
             self.stats.capacity_halvings += 1
+            REGISTRY.counter("exec.capacity_halvings").inc()
+            REGISTRY.gauge("exec.effective_capacity").set(cap)
             self._relaunch_split(plan, batch, out, features, gnn_cfg, degrade, journal, cap)
 
     def _relaunch_split(self, plan, batch, out, features, gnn_cfg, degrade, journal,
@@ -372,17 +401,23 @@ class StreamingExecutor:
             # launch ACTUALLY ships (capacity*n_pad rows, capacity*e_pad edges)
             from repro_torch.core.pipeline import memory_model_bytes
 
-            self.stats.actual_peak_bytes = max(self.stats.actual_peak_bytes, memory_model_bytes(
-                int(batch.arrays["x"].shape[0]), int(batch.arrays["edge_src"].shape[0]),
-                gnn_cfg))
+            actual = memory_model_bytes(int(batch.arrays["x"].shape[0]),
+                                        int(batch.arrays["edge_src"].shape[0]), gnn_cfg)
+            self.stats.actual_peak_bytes = max(self.stats.actual_peak_bytes, actual)
+            REGISTRY.gauge("exec.actual_peak_bytes").set(actual)
         t0 = time.perf_counter()
-        faults.fire("exec.launch", tag=lambda: f"parts={len(batch.items)} shape={batch.shape}")
-        pred = self.runner(batch.arrays, batch.gkeys)
-        self.stats.device_s += time.perf_counter() - t0
+        with span("exec.launch", parts=len(batch.items)):
+            faults.fire("exec.launch",
+                        tag=lambda: f"parts={len(batch.items)} shape={batch.shape}")
+            pred = self.runner(batch.arrays, batch.gkeys)
+        dt = time.perf_counter() - t0
+        self.stats.device_s += dt
         self.stats.launches += 1
         self.stats.batches += 1
         self.stats.partitions += len(batch.items)
         self.stats.core_rows += scatter_core_predictions(out, batch, pred)
+        REGISTRY.counter("exec.launches").inc()
+        REGISTRY.histogram("exec.device_s").observe(dt)
         if journal is not None:
             # commit core predictions partition by partition AFTER the
             # scatter: each journal file is written atomically, so a crash

@@ -9,9 +9,10 @@ injection mechanism:
   * **named sites** — the places a production failure can actually enter
     the system (:data:`SITES`, the reference's names).  The port fires
     ``io.parse`` (AIGER parsing), ``exec.prefetch`` (the streaming
-    executor's prefetch thread), ``exec.launch`` (a packed device launch)
-    and ``cache.load`` (the result cache and the partition journal); the
-    others belong to routes not ported yet.  Each site is a single :func:`fire` call in the
+    executor's prefetch thread), ``exec.launch`` (a packed device launch),
+    ``service.prepare`` and ``service.device`` (the batched service's
+    prepare pool and device worker) and ``cache.load`` (the result cache
+    and the partition journal).  Each site is a single :func:`fire` call in the
     product code; when no plan is installed that call is one global read
     and a ``None`` check.
   * **a FaultPlan** — per-site trigger specs (probability, exact

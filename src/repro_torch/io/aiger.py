@@ -33,8 +33,9 @@ a node).  Here the binary writer encodes every gate's LEB128 deltas at once
 with numpy, and the binary reader decodes a well-formed AND section the same
 way; any file the vectorised decode finds malformed is parsed again by the
 reference's gate-by-gate reader, so a bad file raises the same error at the
-same byte offset.  The ASCII paths are the reference's.  The reference's
-metrics and spans (``repro.obs``) are not ported (ROADMAP Queue 1, item 6).
+same byte offset.  The ASCII paths are the reference's.  ``loads`` records
+the ``io.aiger.loads`` span and the ``io.aiger.parses``/``io.aiger.bytes``
+counters (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ import numpy as np
 
 from repro_torch import faults
 from repro_torch.core import aig as A
+from repro_torch.obs import REGISTRY, span
 
 __all__ = [
     "dump", "dumps", "load", "loads", "peek_name", "source_bytes", "structural_hash",
@@ -304,8 +306,13 @@ def peek_name(data: bytes) -> Optional[str]:
 
 def loads(data: bytes, *, name: str = "aiger") -> A.AIG:
     """Parse AIGER bytes (either format) into an :class:`AIG`."""
-    faults.fire("io.parse", tag=lambda: peek_name(data) or name)
-    return _loads(data, name=name)
+    with span("io.aiger.loads", bytes=len(data)) as sp:
+        faults.fire("io.parse", tag=lambda: peek_name(data) or name)
+        aig = _loads(data, name=name)
+        sp.set(nodes=aig.num_nodes)
+    REGISTRY.counter("io.aiger.parses").inc()
+    REGISTRY.counter("io.aiger.bytes").inc(len(data))
+    return aig
 
 
 def _loads(data: bytes, *, name: str) -> A.AIG:

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.groot_spmm import (
+    PROBE,
     MAX_SMEM,
     SLICE,
     check_deg,
@@ -98,6 +99,7 @@ def _staged_fused(name: str, x_p: torch.Tensor, cols: torch.Tensor, wg: Optional
                 stream(xs),
             )
             build.check(rc, name)
+            PROBE["pallas_calls"] += 1
             if scratch:
                 if i == 0:
                     out[:, h0:h0 + real].copy_(dst[:, :real])

@@ -53,6 +53,34 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
+from repro_torch.obs.metrics import REGISTRY, CounterGroup
+
+# ---------------------------------------------------------------------------
+# Probe counters (the reference's ``PROBE``): a dict-shaped view over the
+# process-wide registry's ``kernels.spmm.<key>`` counters.
+#   ``edge_stream_gathers``/``kernel_walks``  plan walks (one per SpMM)
+#   ``weight_gathers``   edge-weight streams staged
+#   ``pallas_calls``     hand-written kernel launches (on a CUDA tensor)
+#   ``output_scatters``  output scatters (none: assembly is a gather)
+#   ``stream_bytes``     modeled bytes of the gathered edge streams
+# The reference bumps them at trace time; the port runs eagerly and bumps
+# them on every call.
+# ---------------------------------------------------------------------------
+PROBE = CounterGroup(
+    REGISTRY,
+    "kernels.spmm",
+    ("edge_stream_gathers", "kernel_walks", "pallas_calls", "weight_gathers",
+     "output_scatters", "stream_bytes"),
+)
+
+
+def reset_probe() -> None:
+    for k in PROBE:
+        PROBE[k] = 0
+
+
+def probe_snapshot() -> dict:
+    return dict(PROBE)
 
 # Paper §IV thresholds: HD rows have degree > E_T; LD buckets are the
 # power-of-two degrees up to E_T.  LD_TILE_EDGES and SUBLANE keep
@@ -341,12 +369,14 @@ def stage_group_weights(plan: SpmmPlan, wg: torch.Tensor, *, dtype=None) -> Stag
     """Gather the (E, G) group-weight matrix into every bucket's ELL layout
     and the HD chunk layout in ONE ``index_select`` (``dtype`` casts the
     staged streams, e.g. bf16 — kernels accumulate in f32 regardless)."""
+    PROBE["weight_gathers"] += 1
     dp = plan.on(wg.device)
     g = wg.shape[1]
     wg_p = torch.cat([wg.float(), wg.new_zeros((1, g), dtype=torch.float32)])  # row E = 0
     cat = wg_p.index_select(0, dp.cat_eids)
     if dtype is not None:
         cat = cat.to(dtype)
+    PROBE["stream_bytes"] += int(dp.cat_eids.numel()) * g * cat.element_size()
     chunks, off = [], 0
     for b in plan.buckets:
         chunks.append(cat[off : off + b.eids.size])
@@ -578,6 +608,7 @@ def ld_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor, de
         rows, deg, g, feat, out.stride(0), int(x_p.dtype == torch.bfloat16), stream(x_p),
     )
     build.check(rc, "ld_grouped_apply")
+    PROBE["pallas_calls"] += 1
     ld_grouped_apply.launches += 1
     return out
 
@@ -624,6 +655,7 @@ def ld_grouped_mxu_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor
             dst.stride(0), dst.stride(1), int(xs.dtype == torch.bfloat16), stream(xs),
         )
         build.check(rc, "ld_grouped_mxu_apply")
+        PROBE["pallas_calls"] += 1
         ld_grouped_mxu_apply.launches += 1
         if scratch:
             out[..., c0:c0 + valid].copy_(dst[..., :valid])
@@ -696,6 +728,7 @@ def _staged_hd(name: str, x_p: torch.Tensor, cols: torch.Tensor, w: Optional[tor
             sw, valid, piece.bit_length() - 1, gstride, rstride, int(round_product), bf16, st,
         )
         build.check(rc, name)
+        PROBE["pallas_calls"] += 1
     return len(slices)
 
 
@@ -779,6 +812,7 @@ def _staged_ld(name: str, x_p: torch.Tensor, cols: torch.Tensor, w: Optional[tor
             int(mxu), int(round_product), int(xs.dtype == torch.bfloat16), stream(xs),
         )
         build.check(rc, name)
+        PROBE["pallas_calls"] += 1
         if scratch:
             out[:, c0:c0 + valid].copy_(dst[:, :valid])
     return len(slices)
@@ -898,8 +932,14 @@ def apply_plan(plan: SpmmPlan, x: torch.Tensor, w: Optional[torch.Tensor] = None
     ``x`` (N, F) f32/bf16, ``w`` (E,) or None; returns (N, F) in
     ``x.dtype``.  Matches :func:`repro_torch.kernels.ref.spmm_ref`.
     """
+    PROBE["edge_stream_gathers"] += 1
+    PROBE["kernel_walks"] += 1
+    if w is not None:
+        PROBE["weight_gathers"] += 1
+        PROBE["stream_bytes"] += plan.num_slots * x.element_size()
     dp = plan.on(x.device)
     x_p = pad_features(x)
+    PROBE["stream_bytes"] += plan.num_slots * x_p.shape[1] * x.element_size()
     w_buckets, w_hd = stage_weight(plan, w, x.dtype)
     cat = torch.empty((plan.asm_rows, x.shape[1]), dtype=torch.float32, device=x.device)
     cat[-1].zero_()
@@ -917,6 +957,9 @@ def apply_plan_grouped_staged(plan: SpmmPlan, x_p: torch.Tensor, staged: StagedW
     """Hoisted grouped walk: pre-padded features (see :func:`pad_features`)
     + pre-staged weight streams in, ``(G, N, F)`` f32 out.  ``mxu`` runs
     the LD buckets of degree > 1 through K4."""
+    PROBE["edge_stream_gathers"] += 1
+    PROBE["kernel_walks"] += 1
+    PROBE["stream_bytes"] += plan.num_slots * x_p.shape[1] * x_p.element_size()
     dp = plan.on(x_p.device)
     g, feat = staged.groups, x_p.shape[1]
     cat = torch.empty((g, plan.asm_rows, feat), dtype=torch.float32, device=x_p.device)

@@ -33,6 +33,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels.forward_plan import ForwardPlan
 from repro_torch.kernels.fused_sage import fused_ld_matmul, fused_ld_matmul_grouped
 from repro_torch.kernels.groot_spmm import (
+    PROBE,
     SpmmPlan,
     StagedWeights,
     apply_plan,
@@ -223,6 +224,10 @@ def _apply_plan_fused(plan: SpmmPlan, x: torch.Tensor, w: Optional[torch.Tensor]
     reduce through K6 and contract outside (HD rows are few).  Assembly is
     one permutation gather — no scatters.
     """
+    PROBE["edge_stream_gathers"] += 1
+    PROBE["kernel_walks"] += 1
+    if w is not None:
+        PROBE["weight_gathers"] += 1
     dp = plan.on(x.device)
     x_p = pad_features(x)
     w_mat = w_mat.float().contiguous()
@@ -248,6 +253,9 @@ def _apply_plan_fused_grouped_staged(plan: SpmmPlan, x_p: torch.Tensor,
     the stack outside (HD rows are few).  Assembly is one permutation
     gather — no scatters.
     """
+    PROBE["edge_stream_gathers"] += 1
+    PROBE["kernel_walks"] += 1
+    PROBE["stream_bytes"] += plan.num_slots * x_p.shape[1] * x_p.element_size()
     dp = plan.on(x_p.device)
     hid = w_stack.shape[2]
     cat = torch.empty((plan.asm_rows, hid), dtype=torch.float32, device=x_p.device)

@@ -729,7 +729,7 @@ def test_training_steps_on_the_card_follow_the_cpu(cuda):
 
     design = A.make_design("csa", 8)
     feats, labels = groot_features(design), design.label.astype(np.int32)
-    init = gnn.init_params(gnn.GNNConfig(), torch.Generator().manual_seed(0))
+    init = gnn.init_params(gnn.GNNConfig(), 0)
     losses = {}
     for dev in ("cpu", cuda):
         batch = gnn.make_batch(design, feats, labels, device=dev)
@@ -775,3 +775,58 @@ def test_cli_verify_on_the_card(cuda, tmp_path, capsys):
     assert gs.ld_grouped_apply.launches > before
     row = capsys.readouterr().out.splitlines()[-1].split()
     assert row[:2] == ["csa_mult_8b", "full"] and row[2] in ("verified", "inconclusive")
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**32 + 5])
+def test_init_params_on_the_card_equal_the_cpus(cuda, seed):
+    """The init is drawn on the host and moved, so every device starts alike."""
+    cfg = gnn.GNNConfig()
+    on_card = gnn.params_to_numpy(gnn.init_params(cfg, seed, device=cuda))
+    on_cpu = gnn.params_to_numpy(gnn.init_params(cfg, seed))
+    for got, want in zip(on_card["layers"] + [on_card["head"]],
+                         on_cpu["layers"] + [on_cpu["head"]]):
+        for k in want:
+            assert np.array_equal(got[k].view(np.uint32), want[k].view(np.uint32))
+
+
+@pytest.mark.parametrize("backend", ["groot", "groot_fused", "groot_mxu"])
+def test_service_on_the_card_matches_sync_verify(cuda, backend):
+    """Concurrent tickets through the batched engine on the card: the sync
+    verify's status, predictions differing on at most 1e-5 of the nodes;
+    after ``close()`` no worker thread and no byte of the engine is left."""
+    import threading
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    sess = Session(params=NPZ, backend=backend, max_inflight_per_tenant=4)
+    svc = sess._service_engine()
+    preds, inner = {}, svc._finalize
+
+    def finalize(req, key, prep, pred, timings):
+        preds[req.req_id] = pred.copy()
+        return inner(req, key, prep, pred, timings)
+
+    svc._finalize = finalize
+    bits = (8, 12, 16, 12)
+    tickets = [sess.submit(dataset="csa", bits=b, seed=i, tenant="t")
+               for i, b in enumerate(bits)]
+    results = [sess.result(t, timeout=300) for t in tickets]
+    launched = gs.ld_grouped_apply.launches + fs.fused_ld_matmul_grouped.launches
+    sess.close()
+    del svc, inner, finalize
+    torch.cuda.synchronize()
+    assert not [t for t in threading.enumerate()
+                if t.is_alive() and t.name.startswith(("svc-", "exec-prefetch"))]
+    del sess
+    import gc
+
+    gc.collect()
+    # the process-wide plan cache may have evicted (and freed) older entries
+    assert torch.cuda.memory_allocated() <= before
+    assert launched > 0
+    for t, b, r in zip(tickets, bits, results):
+        want = Session(params=NPZ, backend=backend).verify(
+            dataset="csa", bits=b, return_predictions=True, use_cache=False)
+        assert r.status == want.status
+        mism = int((preds[t] != want.predictions).sum())
+        assert mism <= 1e-5 * want.num_nodes, (b, mism)

@@ -270,11 +270,12 @@ def test_cli_verify_aiger_file(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--designs", "csa:8"], 6), (["top"], 6),
-    (["verify", "csa:8", "--trace", "out.json"], 6),
     (["verify", "csa:8", "--devices", "2"], 7),
+    (["explain", "csa:8", "--devices", "2"], 7),
 ])
 def test_cli_unported_commands_exit_nonzero(argv, item, capsys):
+    """Only the sharded route (``--devices`` above 1) is left unported;
+    ``serve``, ``top`` and ``--trace`` run (``tests/test_torch_service.py``)."""
     assert TC.main(argv, device="cpu") != 0
     assert f"ROADMAP Queue 1, item {item}" in capsys.readouterr().err
 
