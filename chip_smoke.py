@@ -180,8 +180,25 @@ Phases (any failure raises and the script exits non-zero):
               tickets per second, each ticket's flight stages,
               ``stats()["service"]``, the launches by kernel and the card's
               idle share over the mix (profiler).
+12. sharded   the sharded route (mode "sharded", ``repro_torch.mesh``) on the
+              one card, over phase 8 (a)'s csa-<PART_A_BITS> cut: (a)
+              ``Session(mesh_devices=SHARD_LANES)`` routes it "sharded" with
+              the reference's reason and its ``verify`` raises
+              ``MeshConfigError`` (one device visible), while None streams;
+              (b) ``MeshRunner(devices=[cuda:0] * SHARD_LANES)`` (a stream, a
+              params copy and a worker thread a lane) at capacity
+              SHARD_CAPACITY on ``groot``, ``groot_fused``, ``groot_mxu`` and
+              ``ref``, beside one lane: predictions bit-equal to phase 9 (a)'s
+              streamed ones, the lanes' kernels launched, waves and lane
+              batches as ``build_mesh_plan`` says, one lane's compile count,
+              the peak within SHARD_LANES times one lane's (plus 1%), no
+              bytes left once the runner is closed, and the card's busy time
+              by stream (profiler, printed); (c) on ``groot``: a transient
+              fault on one lane's launch retried alone, and a fatal one at
+              the third lane launch, resumed under one lane from the journal
+              (only the uncommitted partitions run, bit-equal, journal gone).
 
-Every driven path of phases 4-11 runs with each kernel's launch count set to
+Every driven path of phases 4-12 runs with each kernel's launch count set to
 0 just before it and read just after; a kernel's ``launches`` in the summary
 is the sum over those paths, and every kernel must have been launched.  The
 line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -193,6 +210,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -292,6 +310,11 @@ SERVICE_STREAM_BITS = 512
 SERVICE_MAX_BUCKET_NODES = 2**20
 SERVICE_MIX_BITS = (64, 128, 256)
 SERVICE_TIMEOUT_S = 600
+# the sharded phase: phase 8 (a)'s csa-<PART_A_BITS> cut over SHARD_LANES lanes
+# on the one card; capacity 1 packs each partition alone, so each of its two
+# buckets holds two batches and every wave runs both lanes
+SHARD_LANES = 2
+SHARD_CAPACITY = 1
 
 
 def log(msg: str) -> None:
@@ -1116,15 +1139,16 @@ def partitioned_phase(args, dev, drive, launches: dict, kernels: dict, model,
 
 
 def streamed_phase(args, dev, drive, launches: dict, kernels: dict, params_path,
-                   parts: dict) -> tuple[dict, dict]:
+                   parts: dict) -> tuple[dict, dict, dict]:
     """Phase 9: the streamed route (``streaming=True``, the default) on phase
     8's partitionings, (a) csa-<PART_A_BITS> k=PART_K on every kernel backend and
     ``ref``, (b) PART_BATCH x csa-<bits> in PART_BATCH_K stripes on ``groot``
     and ``ref``, then (c) the budget route at csa-<BUDGET_BITS> and (d) the
     packed launches' logits against the loop's at csa-<ONEHOT_BITS>.  ``parts``
     holds phase 8's prepared designs, loop predictions, wall times and
-    statuses.  Returns the report and, for phase 10, (c)'s prepared cut, its
-    budget and its ``groot`` predictions."""
+    statuses.  Returns the report; for phase 10, (c)'s prepared cut, its
+    budget and its ``groot`` predictions; and for phase 12, (a)'s
+    predictions by backend."""
     import torch
 
     from repro_torch.api import Session, route_prepared
@@ -1138,6 +1162,7 @@ def streamed_phase(args, dev, drive, launches: dict, kernels: dict, params_path,
     from repro_torch.service.scheduler import BucketRunner
 
     rep: dict = {}
+    streamed_a: dict = {}       # (a)'s predictions by backend, for phase 12
     expect = {"groot": ("ld_grouped", "hd_grouped"), "groot_fused": ("fused_ld_grouped",),
               "groot_mxu": ("ld_grouped_mxu",), "ref": ()}
 
@@ -1236,6 +1261,8 @@ def streamed_phase(args, dev, drive, launches: dict, kernels: dict, params_path,
             fail(f"{path}: the ref backend launched kernels: {used}")
         if check_verdict and r.status != parts[tag]["status"]:
             fail(f"{path}: verdict {r.status} != phase 8's {parts[tag]['status']}")
+        if tag == "a":
+            streamed_a[backend] = r.predictions
         return out
 
     # -- (a) csa-<PART_A_BITS>, k=PART_K multilevel, every backend -------------
@@ -1394,7 +1421,7 @@ def streamed_phase(args, dev, drive, launches: dict, kernels: dict, params_path,
     rep["d"] = dict(bits=ONEHOT_BITS, max_logit_gap_vs_loop=gaps)
     log(f"streamed (d) csa-{ONEHOT_BITS} k={PART_K}: largest |packed logit - loop logit| on "
         f"core rows {json.dumps(gaps)} (limit {LOGIT_TOL:g} x max(1, |logit|))")
-    return rep, dict(prep=prep, budget=budget, groot=r.predictions)
+    return rep, dict(prep=prep, budget=budget, groot=r.predictions), streamed_a
 
 def cli_phase(args, dev, drive, launches: dict, full_prep, full_groot, budget_cut) -> dict:
     """Phase 10: the command-line verify path.  (a) ``Session.train`` on the
@@ -1903,6 +1930,264 @@ def service_phase(args, dev, drive, launches: dict) -> dict:
         del s2, svc2
     rep["phase_s"] = time.perf_counter() - t_phase
     log(f"service phase: {rep['phase_s']:.1f} s")
+    return rep
+
+
+def stream_profile(what: str, fn):
+    """Run ``fn`` once under torch.profiler; the card's busy time by CUDA
+    stream (kernels and copies: the union of their intervals), the union
+    over all streams, the time two or more streams were busy at once, and
+    the idle share of the wall time.  Printed, not gated."""
+    import torch
+
+    def union(spans):
+        total, end = 0.0, None
+        for a, b in sorted(spans):
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        return total
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_stream: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0:
+            by_stream.setdefault(getattr(e, "device_resource_id", None), []).append(
+                (e.time_range.start / 1e3, e.time_range.end / 1e3))
+    busy = {str(k): union(v) for k, v in by_stream.items()}
+    every = union([sp for v in by_stream.values() for sp in v])
+    rep = dict(wall_ms=wall_ms, busy_ms_by_stream=busy, busy_ms=every,
+               idle_share_by_stream={k: 1 - v / wall_ms for k, v in busy.items()},
+               overlap_ms=sum(busy.values()) - every if busy else None,
+               idle_share=1 - every / wall_ms if busy else None)
+    if not busy:
+        log(f"profile {what}: no device events (streams' busy time and overlap not measured)")
+    else:
+        log(f"profile {what}: card busy {every:.2f} ms of {wall_ms:.2f} ms wall (idle share "
+            f"{rep['idle_share']:.3f}, profiler on); by stream: busy ms "
+            f"{json.dumps({k: round(v, 2) for k, v in busy.items()})}, idle share "
+            f"{json.dumps({k: round(v, 3) for k, v in rep['idle_share_by_stream'].items()})}; "
+            f"two or more streams busy at once {rep['overlap_ms']:.2f} ms")
+    return out, rep
+
+
+def sharded_phase(args, dev, drive, launches: dict, params_path, prep, streamed: dict) -> dict:
+    """Phase 12: the sharded route on the one card.  (a) ``Session`` with
+    ``mesh_devices=SHARD_LANES`` routes phase 8 (a)'s prepared csa-<PART_A_BITS>
+    cut (``prep``) to mode "sharded" with the reference's reason, and its
+    ``verify`` refuses (one device visible); with None it streams.  (b)
+    ``MeshRunner(devices=[cuda:0] * SHARD_LANES)`` on every kernel backend and
+    ``ref``, beside one lane: predictions bit-equal to phase 9 (a)'s streamed
+    ones (``streamed``, by backend), the lanes' kernels launched, waves and
+    lane batches as the mesh plan says, the compile count of one lane, the
+    peak within twice one lane's (its largest launch alone) plus 1%, no
+    bytes left once the runner is closed; the card's busy time by stream
+    (profiler) printed.  (c) faults on ``groot``: a transient on one lane's
+    launch retried alone; a fatal fault at the third lane launch under two
+    lanes, then a resume under one lane that runs only the uncommitted
+    partitions, bit-equal, its journal gone."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch import faults
+    from repro_torch.api import Session, route_prepared
+    from repro_torch.checkpoint import PartitionJournal
+    from repro_torch.core import gnn
+    from repro_torch.exec.plan import plan_from_subgraphs
+    from repro_torch.launch.mesh import MeshConfigError, visible_devices
+    from repro_torch.mesh import MeshRunner, ShardedStreamingExecutor, build_mesh_plan
+
+    rep: dict = {}
+    t_phase = time.perf_counter()
+    visible = len(visible_devices(dev))
+
+    # -- (a) routing on one card ----------------------------------------------
+    sess = Session(params=params_path, backend="groot", num_partitions=PART_K,
+                   mesh_devices=SHARD_LANES, device=dev.type)
+    decision = route_prepared(prep, sess.config, dev)
+    streamed_decision = route_prepared(prep, dataclasses.replace(sess.config, mesh_devices=None),
+                                       dev)
+    plan = plan_from_subgraphs(list(prep.subgraphs), prep.num_nodes)
+    cap = sess.config.stream_capacity
+    mplan = build_mesh_plan(plan, SHARD_LANES, cap)
+    peak = plan.peak_batch_memory_bytes(prep.cfg.gnn, cap)
+    want_reason = (f"k={prep.num_partitions} partitions requested, streamed as "
+                   f"{plan.num_buckets}-bucket packed launches; sharded across {SHARD_LANES} "
+                   f"devices x k={prep.num_partitions} x {plan.num_buckets} bucket(s), modeled "
+                   f"per-device peak {peak / 1e6:.1f} MB, launch speedup "
+                   f"{mplan.modeled_speedup:.2f}x")
+    refusal = None
+    try:
+        sess.verify(prepared=prep, verify=False)
+    except MeshConfigError as e:
+        refusal = str(e)
+    rep["a"] = dict(mode=decision.mode, mesh_devices=decision.mesh_devices,
+                    reason=decision.reason, refusal=refusal,
+                    mode_without_mesh_devices=streamed_decision.mode, visible=visible)
+    log(f"sharded (a) csa-{PART_A_BITS} k={prep.num_partitions} mesh_devices={SHARD_LANES}: "
+        f"mode {decision.mode} mesh_devices {decision.mesh_devices}; reason {decision.reason!r}; "
+        f"verify: {refusal!r}; mesh_devices None: mode {streamed_decision.mode}")
+    if (decision.mode, decision.mesh_devices) != ("sharded", SHARD_LANES):
+        fail(f"sharded (a): routed to {decision.mode} over {decision.mesh_devices} devices")
+    if decision.reason != want_reason:
+        fail(f"sharded (a): reason {decision.reason!r}, expected {want_reason!r}")
+    want_refusal = (f"mesh_devices={SHARD_LANES} out of range: {visible} device(s) visible"
+                    if visible < SHARD_LANES else None)
+    if refusal != want_refusal:
+        fail(f"sharded (a): verify gave {refusal!r}, expected {want_refusal!r}")
+    if streamed_decision.mode != ("streamed" if visible == 1 else "sharded"):
+        fail(f"sharded (a): mesh_devices None routes {streamed_decision.mode}")
+    del sess
+
+    # -- (b) two lanes on the card against one ----------------------------------
+    model = gnn.params_from_numpy(gnn.load_params(params_path), device=dev)
+    lane_dev = visible_devices(dev)[0]        # cuda:0
+    expect = {"groot": ("ld_grouped", "hd_grouped"), "groot_fused": ("fused_ld_grouped",),
+              "groot_mxu": ("ld_grouped_mxu",), "ref": ()}
+    rep["b"] = {}
+    preds_b = {}
+
+    def run(tag, backend, lanes, profile=False, journal=None, **kw):
+        """One sharded run through a fresh runner: its predictions, its
+        executor's stats, its peak above the bytes allocated once the runner
+        (its params copies) exists, and the bytes left once it is closed."""
+        runner = MeshRunner(model, backend, devices=[lane_dev] * lanes)
+        try:
+            ex = ShardedStreamingExecutor(runner=runner, capacity=SHARD_CAPACITY, prefetch=1,
+                                          **kw)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            pred, wall = drive(tag, lambda: ex.run_plan(plan, prep.feats, gnn_cfg=prep.cfg.gnn,
+                                                        journal=journal))
+            peak_b = torch.cuda.max_memory_allocated() - base
+            after_run = torch.cuda.memory_allocated() - base
+            stats = dataclasses.replace(ex.stats)
+            prof = None
+            if profile:
+                _, prof = stream_profile(f"{tag} (a second run)",
+                                         lambda: ex.run_plan(plan, prep.feats))
+        finally:
+            runner.close()   # the lane threads, held structures, cuBLAS workspaces
+        del runner
+        gc.collect()
+        left = torch.cuda.memory_allocated() - base
+        return pred, stats, dict(wall_s=wall, peak_bytes=peak_b,
+                                 left_after_run_bytes=after_run, left_bytes=left, profile=prof)
+
+    mp2 = build_mesh_plan(plan, SHARD_LANES, SHARD_CAPACITY)
+    for backend in ("groot", "groot_fused", "groot_mxu", "ref"):
+        one_path = f"sharded (b) {backend} lanes=1"
+        two_path = f"sharded (b) {backend} lanes={SHARD_LANES}"
+        p1, st1, m1 = run(one_path, backend, 1)
+        p2, st2, m2 = run(two_path, backend, SHARD_LANES, profile=backend == "groot")
+        # one lane again: the first run also paid first sights (host plans)
+        _, _, m1b = run(f"{one_path} again", backend, 1)
+        preds_b[backend] = p2
+        used = {k: v for k, v in launches[two_path].items() if v}
+        mism = int((p2 != streamed[backend]).sum())
+        mism_one = int((p2 != p1).sum())
+        rep["b"][backend] = dict(
+            lanes_1=dict(m1, waves=st1.waves, compiles=st1.compiles, pack_s=st1.pack_s,
+                         device_s=st1.device_s, wall_again_s=m1b["wall_s"]),
+            lanes_2=dict(m2, waves=st2.waves, lane_batches=mp2.lane_batches,
+                         lane_launches=st2.lane_launches, idle_lane_slots=st2.idle_lane_slots,
+                         compiles=st2.compiles, pack_s=st2.pack_s, device_s=st2.device_s,
+                         max_queue_depth=st2.max_queue_depth),
+            launches=used, pred_mismatch_vs_streamed=mism, pred_mismatch_vs_one_lane=mism_one)
+        log(f"sharded (b) {backend}: {SHARD_LANES} lanes on {lane_dev}, capacity "
+            f"{SHARD_CAPACITY}: {st2.waves} waves, lane batches {mp2.lane_batches} (one lane: "
+            f"{st1.waves} waves), compiles {st2.compiles} (one lane {st1.compiles}); wall "
+            f"{m2['wall_s']:.3f} s (one lane {m1['wall_s']:.3f} s before, "
+            f"{m1b['wall_s']:.3f} s after), pack {st2.pack_s:.3f} s "
+            f"device {st2.device_s:.3f} s; {mism} of {len(p2)} predictions differ from phase "
+            f"9 (a)'s streamed ones, {mism_one} from one lane's; peak {m2['peak_bytes']} B "
+            f"(one lane {m1['peak_bytes']} B, ratio "
+            f"{m2['peak_bytes'] / max(1, m1['peak_bytes']):.3f}); left after the run "
+            f"{m2['left_after_run_bytes']} B, once closed {m2['left_bytes']} B; launches "
+            f"{json.dumps(used)}")
+        if mism or mism_one:
+            fail(f"{two_path}: {mism} predictions differ from phase 9 (a)'s, {mism_one} from "
+                 f"one lane's")
+        for kn in expect[backend]:
+            if not used.get(kn):
+                fail(f"{two_path}: {kn} never launched on the lanes")
+        if backend == "ref" and used:
+            fail(f"{two_path}: the ref backend launched kernels: {used}")
+        if (st2.waves, st2.lane_launches) != (len(mp2.waves), mp2.total_batches) \
+                or min(mp2.lane_batches) == 0:
+            fail(f"{two_path}: {st2.waves} waves, {st2.lane_launches} lane launches; the plan "
+                 f"says {len(mp2.waves)} and {mp2.total_batches} over lanes {mp2.lane_batches}")
+        if st2.compiles != st1.compiles:
+            fail(f"{two_path}: {st2.compiles} compiles, one lane {st1.compiles}")
+        if m2["peak_bytes"] > 1.01 * SHARD_LANES * m1["peak_bytes"]:
+            fail(f"{two_path}: peak {m2['peak_bytes']} B over {SHARD_LANES} x one lane's "
+                 f"{m1['peak_bytes']} B by more than 1%")
+        if m1["left_bytes"] > 0 or m2["left_bytes"] > 0:
+            fail(f"{two_path}: {m1['left_bytes']} / {m2['left_bytes']} B left once closed")
+        del p1
+        torch.cuda.empty_cache()
+
+    # -- (c) faults on groot ------------------------------------------------------
+    total = mp2.total_batches
+    with faults.injected("mesh.launch:nth=2,kind=transient,max_fires=1"):
+        p, st, m = run("sharded (c) groot transient", "groot", SHARD_LANES,
+                       launch_retries=2, retry_backoff_s=0.01)
+    mism = int((p != preds_b["groot"]).sum())
+    rep["c"] = dict(transient=dict(lane_retries=st.lane_retries, lane_launches=st.lane_launches,
+                                   batches=total, pred_mismatch=mism, **m))
+    log(f"sharded (c) transient at the second lane launch: lane_retries {st.lane_retries}, "
+        f"lane launches {st.lane_launches} of {total} batches, {mism} predictions differ")
+    if st.lane_retries != 1 or st.lane_launches != total or mism:
+        fail(f"sharded (c) transient: lane_retries {st.lane_retries}, lane launches "
+             f"{st.lane_launches} (batches {total}), {mism} predictions differ")
+    jroot = ROOT / "chiprun_out" / "mesh_journal"
+    shutil.rmtree(jroot, ignore_errors=True)
+    killed = None
+    with faults.injected("mesh.launch:nth=3,kind=fatal"):
+        try:
+            run("sharded (c) groot killed", "groot", SHARD_LANES, launch_retries=0,
+                journal=PartitionJournal(jroot, "csa"))
+        except faults.FatalFault as e:
+            killed = str(e)
+    committed = PartitionJournal(jroot, "csa").open(plan)
+    journal = PartitionJournal(jroot, "csa")
+    runner = MeshRunner(model, "groot", devices=[lane_dev])
+    ex = ShardedStreamingExecutor(runner=runner, capacity=SHARD_CAPACITY, prefetch=1)
+    p, wall = drive("sharded (c) groot resumed", lambda: ex.run_plan(plan, prep.feats,
+                                                                     journal=journal))
+    runner.close()
+    st = ex.stats
+    mism = int((p != preds_b["groot"]).sum())
+    gone = not (jroot / "csa").exists()
+    rep["c"]["resume"] = dict(killed=killed, committed=len(committed),
+                              resumed=st.resumed_partitions, ran=st.partitions,
+                              parts=plan.num_parts, wall_s=wall, pred_mismatch=mism,
+                              journal_gone=gone)
+    log(f"sharded (c) fatal at the third lane launch under {SHARD_LANES} lanes ({killed!r}): "
+        f"{len(committed)} of {plan.num_parts} partitions committed; resumed under one lane: "
+        f"{st.resumed_partitions} restored, {st.partitions} ran, {wall:.3f} s; {mism} "
+        f"predictions differ; journal gone {gone}")
+    if killed is None or not committed or st.resumed_partitions != len(committed) \
+            or st.partitions != plan.num_parts - len(committed) or mism or not gone:
+        fail(f"sharded (c) resume: {rep['c']['resume']}")
+    shutil.rmtree(jroot, ignore_errors=True)
+    del runner, ex, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"sharded phase: {rep['phase_s']:.1f} s")
     return rep
 
 
@@ -2638,8 +2923,9 @@ def main() -> int:
         results["groot"].predictions)
 
     # -- 9. streamed: phase 8's partitionings as packed launches, the budget route
-    report["streamed"], budget_cut = streamed_phase(args, dev, drive, launches, kernels,
-                                                    params_path, parts)
+    report["streamed"], budget_cut, streamed_a = streamed_phase(
+        args, dev, drive, launches, kernels, params_path, parts)
+    prep_a = parts["a"]["prep"]     # phase 12 shards it
     del parts
 
     # -- 10. the command-line path: train on the card, journal, AIGER, the CLI ---
@@ -2648,6 +2934,11 @@ def main() -> int:
 
     # -- 11. the batched service: concurrent tickets, coalescing, faults -------
     report["service"] = service_phase(args, dev, drive, launches)
+
+    # -- 12. sharded: phase 8 (a)'s cut over two lanes on the card -------------------
+    report["sharded"] = sharded_phase(args, dev, drive, launches, params_path, prep_a,
+                                      streamed_a)
+    del prep_a, streamed_a
 
     total = {kn: sum(counts[kn] for counts in launches.values()) for kn in kernels}
     report["launches"] = launches

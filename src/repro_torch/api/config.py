@@ -46,8 +46,8 @@ class SessionConfig:
     #: pack and launch in turn on the caller's thread)
     stream_prefetch: int = 1
     #: devices the streamed route shards over: None = every visible device
-    #: of the session's device type, 1 = one device; more than one asks for
-    #: the sharded route, which raises (ROADMAP Queue 1, item 7)
+    #: of the session's device type, 1 = one device; more than one takes
+    #: the sharded route (mode "sharded", ``repro_torch.mesh``)
     mesh_devices: Optional[int] = None
     # -- batched service (repro_torch.service; the submit()/poll() path) ----
     #: same-bucket items packed per device call

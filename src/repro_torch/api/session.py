@@ -12,9 +12,9 @@ AIGER bytes, or an AIGER file path.  A structural-hash result LRU
 without touching the device; with ``checkpoint_dir`` set, a streamed run
 journals each partition so a killed run resumes where it stopped.
 
-Three of the reference's four modes are ported, on each of its five
-backends (``ref``, ``onehot``, ``groot``, ``groot_mxu``, ``groot_fused``;
-``onehot`` materialises an (E, N) one-hot, so it suits small designs only):
+The reference's four modes, on each of its five backends (``ref``,
+``onehot``, ``groot``, ``groot_mxu``, ``groot_fused``; ``onehot``
+materialises an (E, N) one-hot, so it suits small designs only):
 
   mode "full"         unpartitioned: no partition count, no budget, or a
                       budget the whole design fits
@@ -26,9 +26,11 @@ backends (``ref``, ``onehot``, ``groot``, ``groot_mxu``, ``groot_fused``;
                       ``repro_torch.exec`` executor runs the subgraphs as
                       bucketed packed launches, a host thread packing the
                       next batch while the device runs the current one
-
-The reference's mode "sharded" (the streamed route over more than one
-device) raises ``NotImplementedError`` (ROADMAP Queue 1, item 7).
+  mode "sharded"      the streamed route over more than one device
+                      (``repro_torch.mesh``): ``mesh_devices`` above 1, or
+                      None with more than one visible device of the
+                      session's type; each lane a device, its own params
+                      copy, stream and prefetch thread
 
 ``submit``/``poll``/``result`` run designs through the batched service
 engine (:class:`repro_torch.service.server.VerificationService`, started
@@ -74,6 +76,7 @@ class RoutingDecision:
     """Why a design runs the way it runs (``session.explain()``)."""
 
     mode: str                         # "full" | "partitioned" | "streamed"
+                                      # | "sharded"
     backend: str
     stream_dtype: Optional[str]       # effective staged-stream dtype (None=f32)
     k: int                            # partition count (1 for full)
@@ -83,11 +86,15 @@ class RoutingDecision:
     modeled_peak_bytes: int           # what is resident: the full bytes, the
                                       # largest subgraph's, or the packed-
                                       # launch peak (capacity slots of the
-                                      # biggest bucket)
+                                      # biggest bucket), per device in
+                                      # mode "sharded"
     memory_budget_bytes: Optional[int]
     num_nodes: int
     num_edges: int
     reason: str
+    #: mesh lanes the streamed route launches over (1 = the single-device
+    #: executor; >1 = mode "sharded" through repro_torch.mesh)
+    mesh_devices: int = 1
 
 
 @dataclasses.dataclass
@@ -150,7 +157,6 @@ def _route_with_plan(prep: P.PreparedDesign, cfg: SessionConfig, device=None):
         ), None
     from repro_torch.exec.plan import plan_from_subgraphs
 
-    P.check_unsharded(cfg.mesh_devices, device)
     plan = plan_from_subgraphs(
         list(prep.subgraphs), prep.num_nodes, num_edges=prep.num_edges,
         regrow=pcfg.regrow, partitioner=pcfg.partitioner, seed=pcfg.seed,
@@ -164,11 +170,30 @@ def _route_with_plan(prep: P.PreparedDesign, cfg: SessionConfig, device=None):
         )
     else:
         reason = f"k={k} partitions requested, streamed as {plan.num_buckets}-bucket packed launches"
+    peak = plan.peak_batch_memory_bytes(pcfg.gnn, cfg.stream_capacity)
+    buckets = tuple((b.n_pad, b.e_pad) for b in plan.buckets)
+    devices = P.resolve_mesh_devices(cfg.mesh_devices, device)
+    if devices > 1:
+        # the packed batches are independent until the core scatter (GROOT
+        # Alg. 1), so the stream shards across the lanes; each lane launches
+        # the same canonical bucket shapes, so the per-device peak equals the
+        # single-device packed peak
+        from repro_torch.mesh import build_mesh_plan
+
+        mplan = build_mesh_plan(plan, devices, cfg.stream_capacity)
+        reason += (
+            f"; sharded across {devices} devices x k={k} x "
+            f"{plan.num_buckets} bucket(s), modeled per-device peak "
+            f"{peak / 1e6:.1f} MB, launch speedup "
+            f"{mplan.modeled_speedup:.2f}x"
+        )
+        return RoutingDecision(
+            mode="sharded", k=k, num_buckets=plan.num_buckets, buckets=buckets,
+            modeled_peak_bytes=peak, mesh_devices=devices, reason=reason, **common,
+        ), plan
     return RoutingDecision(
-        mode="streamed", k=k, num_buckets=plan.num_buckets,
-        buckets=tuple((b.n_pad, b.e_pad) for b in plan.buckets),
-        modeled_peak_bytes=plan.peak_batch_memory_bytes(pcfg.gnn, cfg.stream_capacity),
-        reason=reason, **common,
+        mode="streamed", k=k, num_buckets=plan.num_buckets, buckets=buckets,
+        modeled_peak_bytes=peak, reason=reason, **common,
     ), plan
 
 
@@ -190,8 +215,8 @@ class _SessionObs:
 
 
 class Session:
-    """One front door over the full-graph, partitioned, streamed and
-    batched-service routes."""
+    """One front door over the full-graph, partitioned, streamed, sharded
+    and batched-service routes."""
 
     def __init__(self, params=None, config: Optional[SessionConfig] = None,
                  _obs: Optional[_SessionObs] = None, **overrides):
@@ -324,6 +349,18 @@ class Session:
             device=self.device,
         )
 
+    def _mesh_executor(self, num_devices: int):
+        from repro_torch.mesh import shared_mesh_executor
+
+        return shared_mesh_executor(
+            self.params, self.config.backend or "ref", num_devices=num_devices,
+            capacity=self.config.stream_capacity, prefetch=self.config.stream_prefetch,
+            stream_dtype=P.effective_stream_dtype(self.config),
+            min_nodes=self.config.min_nodes, min_edges=self.config.min_edges,
+            launch_retries=self.config.launch_retries,
+            retry_backoff_s=self.config.retry_backoff_s, device=self.device,
+        )
+
     def verify(self, design=None, *, dataset: Optional[str] = None,
                bits: Optional[int] = None, seed: Optional[int] = None,
                verify: bool = True, signed: Optional[bool] = None,
@@ -344,8 +381,9 @@ class Session:
         (``checkpoint_dir``, ``resume``) apply to it, and such a run bypasses
         the result LRU.  In mode "partitioned", ``on_partition(i, sg)`` is
         called after each subgraph's forward
-        (``gnn.predict_partitioned_loop``); in mode "streamed" the result's
-        ``exec_stats`` carry the executor's probes for this call."""
+        (``gnn.predict_partitioned_loop``); in modes "streamed" and
+        "sharded" the result's ``exec_stats`` carry the executor's probes for
+        this call."""
         t_start = time.perf_counter()
         met = self.obs.metrics
         met.counter("session.verifies").inc()
@@ -410,8 +448,10 @@ class Session:
                             device=self.device, on_partition=on_partition,
                         )
                     else:
+                        executor = (self._mesh_executor(decision.mesh_devices)
+                                    if decision.mode == "sharded" else self._stream_executor())
                         pred, exec_stats = P.infer_streaming(
-                            self.params, prep, executor=self._stream_executor(), plan=plan,
+                            self.params, prep, executor=executor, plan=plan,
                             device=self.device,
                         )
                 pc_after = PLAN_CACHE.snapshot()
@@ -472,17 +512,20 @@ class Session:
 
     def _fold_exec_stats(self, exec_stats: dict) -> None:
         """Model-vs-actual memory as high-water gauges (a peak must never
-        accumulate); the run's other executor stats into the session
-        registry (ints -> ``exec.*`` counters, timings -> histograms) and
-        the raw totals ``report()`` exposes."""
+        accumulate), and the mesh width (``devices``) as a level; the run's
+        other executor stats into the session registry (ints -> ``exec.*``
+        counters, timings -> histograms) and the raw totals ``report()``
+        exposes."""
         met = self.obs.metrics
-        for g in ("modeled_peak_bytes", "actual_peak_bytes"):
+        for g in ("modeled_peak_bytes", "actual_peak_bytes", "devices"):
             if exec_stats.get(g):
                 met.gauge(f"exec.{g}").set(exec_stats[g])
         fold_into(met, "exec", {k: v for k, v in exec_stats.items()
-                                if not k.endswith("peak_bytes")})
+                                if not k.endswith("peak_bytes") and k != "devices"})
         for k, v in exec_stats.items():
-            if isinstance(v, (int, float)) and not isinstance(v, bool):
+            if k == "devices":
+                self.obs.exec_totals[k] = v
+            elif isinstance(v, (int, float)) and not isinstance(v, bool):
                 if k.endswith("peak_bytes") or k == "model_drift":
                     # peaks/ratios keep their high-water mark
                     self.obs.exec_totals[k] = max(self.obs.exec_totals.get(k, 0), v)
@@ -496,7 +539,7 @@ class Session:
         shared ring).  A sync call has no device queue, so its timeline is
         submit -> prepared -> inferred -> done."""
         marks.append(("done", time.perf_counter()))
-        streamed = decision is not None and decision.mode == "streamed"
+        streamed = decision is not None and decision.mode in ("streamed", "sharded")
         self.obs.flights.record(record_from_marks(
             -next(self.obs.flight_ids), name, status, marks,
             cached=cached,

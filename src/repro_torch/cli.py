@@ -18,8 +18,9 @@ trained model — routing is host-side only.  A streamed ``verify`` with
 after a kill and only the unfinished partitions run.
 
 Everything runs on ``cuda`` unless the caller of :func:`main` passes
-``device="cpu"``.  ``--devices`` above 1 (the reference's sharded route,
-ROADMAP Queue 1, item 7) is not ported: it exits non-zero and says so.
+``device="cpu"``.  ``--devices N`` shards a streamed route over N devices
+(mode "sharded"); more than are visible fails with the sharded executor's
+``MeshConfigError``, as the reference's does.
 """
 from __future__ import annotations
 
@@ -29,12 +30,6 @@ import sys
 from typing import Optional
 
 PROG = "repro-torch"
-
-
-def _not_ported(what: str, item: int) -> int:
-    print(f"{PROG}: {what} is not ported yet (ROADMAP Queue 1, item {item})",
-          file=sys.stderr)
-    return 2
 
 
 def _session_args(ap: argparse.ArgumentParser) -> None:
@@ -54,8 +49,9 @@ def _session_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--stream-dtype", default=None,
                     help='staged edge-stream dtype (e.g. "bfloat16")')
     ap.add_argument("--devices", type=int, default=None,
-                    help="devices the streamed route shards over; more than "
-                         "one is not ported (ROADMAP Queue 1, item 7)")
+                    help="shard the streamed route across N devices "
+                         "(repro_torch.mesh); default: every visible device "
+                         "when more than one exists")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="journal streamed partition results under this "
                          "directory so a killed run can resume")
@@ -114,10 +110,10 @@ def _resolve(spec: str):
 
 
 def _print_decision(label: str, d) -> None:
-    # the reference appends " devices=N" in mode "sharded", which the port
-    # does not route to
+    devices = f" devices={d.mesh_devices}" if d.mesh_devices > 1 else ""
     print(f"{label}: mode={d.mode} backend={d.backend} k={d.k} "
-          f"buckets={d.num_buckets}{list(d.buckets) if d.buckets else ''}")
+          f"buckets={d.num_buckets}{list(d.buckets) if d.buckets else ''}"
+          f"{devices}")
     print(f"    nodes={d.num_nodes} edges={d.num_edges} "
           f"modeled full={d.modeled_full_bytes/1e6:.1f} MB "
           f"peak={d.modeled_peak_bytes/1e6:.1f} MB "
@@ -264,8 +260,6 @@ def main(argv: Optional[list] = None, device=None) -> int:
     args = ap.parse_args(argv)
     if args.cmd == "top":
         return args.fn(args)
-    if args.devices is not None and args.devices > 1:
-        return _not_ported(f"--devices {args.devices} (the sharded route)", 7)
     return args.fn(args, device)
 
 

@@ -93,8 +93,8 @@ class PipelineConfig:
     # ``gnn.stream_dtype``
     stream_dtype: Optional[str] = None
     # devices the streamed route shards over: None = every visible device of
-    # the run's device type; more than one asks for the sharded route, which
-    # is not ported (ROADMAP Queue 1, item 7)
+    # the run's device type; more than one takes the sharded route
+    # (``repro_torch.mesh``)
     mesh_devices: Optional[int] = None
     # crash-safe resume for streamed runs: when ``checkpoint_dir`` is set
     # (and the design has a structural hash), every launched partition's
@@ -317,29 +317,16 @@ def infer(params: gnn.GrootGNN, prep: PreparedDesign, *, backend: Optional[str] 
 
 
 def resolve_mesh_devices(mesh_devices: Optional[int], device=None) -> int:
-    """The devices a streamed route would shard over: ``mesh_devices``, or
-    with None every visible device of ``device``'s type (one for the CPU)."""
+    """The mesh lanes a streamed route will launch over: ``mesh_devices``,
+    or with None every visible device of ``device``'s type
+    (:func:`repro_torch.launch.mesh.visible_devices`; one for the CPU).  An
+    explicit count is checked against the visible devices by
+    :class:`~repro_torch.mesh.MeshRunner` when the route runs."""
     if mesh_devices is not None:
         return max(1, int(mesh_devices))
-    from repro_torch import resolve_device
+    from repro_torch.launch import mesh as M
 
-    if resolve_device(device).type == "cuda":
-        import torch
-
-        return torch.cuda.device_count()
-    return 1
-
-
-def check_unsharded(mesh_devices: Optional[int], device=None) -> None:
-    """Raise where the streamed route would shard over more than one device
-    (:func:`resolve_mesh_devices`): the reference's mode "sharded" is not
-    ported, and streaming on one device instead would ignore the ask."""
-    devices = resolve_mesh_devices(mesh_devices, device)
-    if devices > 1:
-        raise NotImplementedError(
-            f"the sharded route is not ported yet: ROADMAP Queue 1, item 7 ({devices} "
-            f"devices asked for; pass mesh_devices=1 to stream on one device)"
-        )
+    return len(M.visible_devices(device))
 
 
 def _journal_for(prep: PreparedDesign):
@@ -378,8 +365,9 @@ def infer_streaming(
     probes (compiles, launches, bytes_h2d, pack/device/wall seconds) plus
     ``peak_packed_memory_bytes`` — the modeled device bytes of the largest
     packed launch — and ``chosen_k``.  Without an ``executor`` the shared
-    one for (params, backend, knobs) on ``device`` runs it; more than one
-    device of that type asks for the sharded route, which raises.
+    one for (params, backend, knobs) on ``device`` runs it, or, where
+    :func:`resolve_mesh_devices` gives more than one, the shared sharded
+    executor over that many devices of ``device``'s type.
 
     ``journal``: an explicit :class:`~repro_torch.checkpoint.PartitionJournal`;
     when None one is derived from ``cfg.checkpoint_dir`` (keyed by the
@@ -392,11 +380,22 @@ def infer_streaming(
     backend = backend or prep.cfg.backend
     cfg = prep.cfg
     if executor is None:
-        check_unsharded(cfg.mesh_devices, device)
-        executor = shared_executor(
-            params, backend, capacity=cfg.stream_capacity, prefetch=cfg.stream_prefetch,
-            stream_dtype=effective_stream_dtype(cfg), device=device,
-        )
+        devices = resolve_mesh_devices(cfg.mesh_devices, device)
+        if devices > 1:
+            # the packed batches are independent until the core scatter: the
+            # same launches, spread over the lanes, give the same verdict
+            from repro_torch.mesh import shared_mesh_executor
+
+            executor = shared_mesh_executor(
+                params, backend, num_devices=devices, capacity=cfg.stream_capacity,
+                prefetch=cfg.stream_prefetch, stream_dtype=effective_stream_dtype(cfg),
+                device=device,
+            )
+        else:
+            executor = shared_executor(
+                params, backend, capacity=cfg.stream_capacity, prefetch=cfg.stream_prefetch,
+                stream_dtype=effective_stream_dtype(cfg), device=device,
+            )
     if plan is None:
         plan = plan_from_subgraphs(
             list(prep.subgraphs), prep.num_nodes, num_edges=prep.num_edges,

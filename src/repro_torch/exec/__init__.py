@@ -10,6 +10,9 @@ partition batches.
                │   thread)
                └─▶ StreamingExecutor (one padded forward per launch; core
                    predictions scattered back to global rows)
+
+The layer the sharded route builds on: ``repro_torch.mesh`` runs the same
+packed launches wave by wave over several devices' lanes.
 """
 from repro_torch.exec.plan import (  # noqa: F401
     PartitionPlan,

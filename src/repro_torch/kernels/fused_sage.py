@@ -141,8 +141,11 @@ def fused_ld_matmul(x_p: torch.Tensor, cols: torch.Tensor, w_mat: torch.Tensor, 
     if not on_cuda("fused_ld_matmul", x_p):
         out.copy_(fused_ld_plain(x_p, cols, w_mat, deg, w))
         return out
-    fused_ld_matmul.launches += _staged_fused("fused_ld_matmul", x_p, cols, w, w_mat[None], deg,
-                                              out, K7_PLAIN if w is None else K7_WEIGHTED)
+    launched = _staged_fused("fused_ld_matmul", x_p, cols, w, w_mat[None], deg,
+                             out, K7_PLAIN if w is None else K7_WEIGHTED)
+    # added after the call returns, so launches other threads (mesh lanes)
+    # count meanwhile are not lost
+    fused_ld_matmul.launches += launched
     return out
 
 
@@ -190,8 +193,11 @@ def fused_ld_matmul_grouped(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Ten
     if not on_cuda("fused_ld_matmul_grouped", x_p):
         out.copy_(fused_ld_grouped_plain(x_p, cols, wg, w_stack, deg))
         return out
-    fused_ld_matmul_grouped.launches += _staged_fused(
+    launched = _staged_fused(
         "fused_ld_matmul_grouped", x_p, cols, wg, w_stack, deg, out, K3)
+    # added after the call returns, so launches other threads (mesh lanes)
+    # count meanwhile are not lost
+    fused_ld_matmul_grouped.launches += launched
     return out
 
 

@@ -149,8 +149,8 @@ class SpmmPlan:
     # never both — so one gather (no adds) assembles the (N, F) output.
     asm_index: Optional[np.ndarray] = None   # (N,) int32
     asm_rows: int = 0
-    # device copies of the index arrays, one DevicePlan per device (filled
-    # by :meth:`on`; not part of the plan's value)
+    # device copies of the index arrays, one DevicePlan per device and CUDA
+    # stream (filled by :meth:`on`; not part of the plan's value)
     _device: dict = dataclasses.field(
         default_factory=dict, compare=False, repr=False
     )
@@ -163,22 +163,42 @@ class SpmmPlan:
         )
 
     def on(self, device) -> "DevicePlan":
-        """The plan's index arrays on ``device``, copied there once."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            # "cuda" and the tensors' "cuda:<n>" must share one copy
-            device = torch.device("cuda", torch.cuda.current_device())
-        key = str(device)
+        """The plan's index arrays on ``device``, copied there once for each
+        CUDA stream that asks (the calling thread's current stream): a
+        block the caching allocator frees is reused in its allocating
+        stream's order only, so copies made on one stream must not be read
+        on another, whose kernels could still be reading them when the
+        block is handed out again."""
+        key = _copy_key(device)
         dp = self._device.get(key)
         if dp is None:
-            dp = DevicePlan.build(self, device)
+            dp = DevicePlan.build(self, torch.device(key[0]))
             self._device[key] = dp
         return dp
 
-    def release(self) -> None:
-        """Drop every device copy :meth:`on` made (a caller still holding a
-        ``DevicePlan`` keeps its tensors); the next :meth:`on` copies again."""
-        self._device.clear()
+    def release(self, device=None) -> None:
+        """Drop the device copies :meth:`on` made on ``device`` (on every
+        stream), or on every device when None; a caller still holding a
+        ``DevicePlan`` keeps its tensors, and the next :meth:`on` copies
+        again."""
+        if device is None:
+            self._device.clear()
+            return
+        name = _copy_key(device)[0]
+        for key in [k for k in self._device if k[0] == name]:
+            self._device.pop(key, None)
+
+
+def _copy_key(device) -> tuple:
+    """(device name, current stream handle or None) of a device copy; a bare
+    ``"cuda"`` is the current device, so it shares the copies of the
+    tensors' ``"cuda:<n>"``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return str(device), None
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device), torch.cuda.current_stream(device).cuda_stream
 
 
 def build_plan(
@@ -600,8 +620,11 @@ def ld_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor, de
         out.copy_(ld_grouped_plain(x_p, cols, wg, deg))
         return out
     if g == 1:  # K5's VPU body with K1's rounding (widen, then fmaf)
-        ld_grouped_apply.launches += _staged_ld("ld_grouped_apply", x_p, cols, wg, deg, out[0],
-                                                mxu=False, round_product=False)
+        launched = _staged_ld("ld_grouped_apply", x_p, cols, wg, deg, out[0],
+                              mxu=False, round_product=False)
+        # added after the call returns, so launches other threads (mesh lanes)
+        # count meanwhile are not lost
+        ld_grouped_apply.launches += launched
         return out
     rc = build.library("groot_spmm").groot_ld_grouped(
         x_p.data_ptr(), cols.data_ptr(), wg.data_ptr(), out.data_ptr(),
@@ -754,8 +777,11 @@ def hd_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
     if not on_cuda("hd_grouped_apply", x_p):
         out.copy_(hd_grouped_plain(x_p, cols, wg, chunk_meta, n_hd, e_t))
         return out
-    hd_grouped_apply.launches += _staged_hd("hd_grouped_apply", x_p, cols, wg, row_chunks,
-                                            chunk_meta.shape[0], e_t, out, round_product=False)
+    launched = _staged_hd("hd_grouped_apply", x_p, cols, wg, row_chunks,
+                          chunk_meta.shape[0], e_t, out, round_product=False)
+    # added after the call returns, so launches other threads (mesh lanes)
+    # count meanwhile are not lost
+    hd_grouped_apply.launches += launched
     return out
 
 
@@ -887,8 +913,11 @@ def hd_apply(x_p: torch.Tensor, cols: torch.Tensor, chunk_meta: torch.Tensor,
     if not on_cuda("hd_apply", x_p):
         out.copy_(hd_plain(x_p, cols, chunk_meta, e_t, w))
         return out
-    hd_apply.launches += _staged_hd("hd_apply", x_p, cols, w, row_chunks, chunk_meta.shape[0],
-                                    e_t, out, round_product=True)
+    launched = _staged_hd("hd_apply", x_p, cols, w, row_chunks, chunk_meta.shape[0],
+                          e_t, out, round_product=True)
+    # added after the call returns, so launches other threads (mesh lanes)
+    # count meanwhile are not lost
+    hd_apply.launches += launched
     return out
 
 

@@ -370,11 +370,12 @@ def make_agg_pair(edge_src, edge_dst, num_nodes: int, backend: str = "ref", *,
     )
 
 
-def release_device(pair: AggPair) -> None:
-    """Drop the device copies of a pair's plans (``SpmmPlan.release``)."""
+def release_device(pair: AggPair, device=None) -> None:
+    """Drop the device copies of a pair's plans on ``device``, or on every
+    device when None (``SpmmPlan.release``)."""
     for plan in (pair.in_plan, pair.out_plan):
         if plan is not None:
-            plan.release()
+            plan.release(device)
 
 
 def groot_spmm(x: torch.Tensor, edge_src, edge_dst, num_nodes: int,

@@ -133,7 +133,9 @@ class BucketRunner:
 
     def _drop(self) -> None:
         if self._held is not None:
-            ops.release_device(self._held[3])
+            # this runner's device only: another runner (a mesh lane on
+            # another card) may hold the same structure's plans there
+            ops.release_device(self._held[3], self.device)
             self._held = None
 
     def _edges(self, batch: dict) -> tuple:

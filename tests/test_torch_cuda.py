@@ -830,3 +830,45 @@ def test_service_on_the_card_matches_sync_verify(cuda, backend):
         assert r.status == want.status
         mism = int((preds[t] != want.predictions).sum())
         assert mism <= 1e-5 * want.num_nodes, (b, mism)
+
+
+@pytest.mark.parametrize("backend", ["groot", "groot_fused"])
+def test_two_lanes_on_one_card_equal_one_lane(cuda, backend):
+    """The sharded route with two lanes on ``cuda:0`` (two streams, two
+    params copies, two worker threads) against one lane: csa-32 cut 8 ways
+    at capacity 1, so each wave runs both lanes; the same predictions, the
+    same compile count, the grouped kernels launched, and after ``close()``
+    no lane thread and no byte left."""
+    import gc
+    import threading
+
+    from repro_torch.exec.plan import plan_from_subgraphs
+    from repro_torch.mesh import MeshRunner, ShardedStreamingExecutor, build_mesh_plan
+
+    prep = Session(device="cpu", num_partitions=8).prepare(dataset="csa", bits=32)
+    plan = plan_from_subgraphs(prep.subgraphs, prep.num_nodes)
+    model = gnn.params_from_numpy(gnn.load_params(NPZ), device=cuda)
+    kernel = {"groot": gs.ld_grouped_apply, "groot_fused": fs.fused_ld_matmul_grouped}[backend]
+    dev0 = torch.device("cuda", 0)
+    runs = {}
+    for lanes in (1, 2):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        runner = MeshRunner(model, backend, devices=[dev0] * lanes)
+        ex = ShardedStreamingExecutor(runner=runner, capacity=1, prefetch=1)
+        launched = kernel.launches
+        pred = ex.run_plan(plan, prep.feats)
+        runs[lanes] = (pred, ex.stats.compiles, kernel.launches - launched)
+        mp = build_mesh_plan(plan, lanes, 1)
+        assert (ex.stats.waves, ex.stats.lane_launches) == (len(mp.waves), mp.total_batches)
+        runner.close()
+        del runner, ex
+        gc.collect()
+        torch.cuda.synchronize()
+        assert not [t for t in threading.enumerate()
+                    if t.is_alive() and t.name.startswith("mesh-")]
+        assert torch.cuda.memory_allocated() <= before
+    assert max(build_mesh_plan(plan, 2, 1).lane_batches) < plan.num_parts
+    np.testing.assert_array_equal(runs[2][0], runs[1][0])
+    assert runs[2][1] == runs[1][1] > 0
+    assert runs[2][2] == runs[1][2] > 0

@@ -269,15 +269,32 @@ def test_cli_verify_aiger_file(tmp_path, capsys):
     assert "  routing: mode=full backend=ref k=1 buckets=0" in lines
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["verify", "csa:8", "--devices", "2"], 7),
-    (["explain", "csa:8", "--devices", "2"], 7),
+@pytest.mark.parametrize("argv", [
+    ["verify", "csa:8", "--partitions", "4", "--devices", "2", "--epochs", "2"],
+    ["explain", "csa:8", "--partitions", "4", "--devices", "2"],
 ])
-def test_cli_unported_commands_exit_nonzero(argv, item, capsys):
-    """Only the sharded route (``--devices`` above 1) is left unported;
-    ``serve``, ``top`` and ``--trace`` run (``tests/test_torch_service.py``)."""
-    assert TC.main(argv, device="cpu") != 0
-    assert f"ROADMAP Queue 1, item {item}" in capsys.readouterr().err
+def test_cli_unported_commands_exit_nonzero(argv, capsys):
+    """``--devices 2`` with the one CPU device, as the reference's CLI on the
+    same host: ``explain`` prints its lines (mode "sharded", `` devices=2``),
+    and ``verify`` of a partitioned design fails with its
+    ``MeshConfigError`` and text (a process exits 1, the text on stderr)."""
+    from repro.launch.mesh import MeshConfigError as RefMeshConfigError
+    from repro_torch.launch.mesh import MeshConfigError
+
+    if argv[0] == "explain":
+        assert RC.main(argv) == 0
+        want = capsys.readouterr().out
+        assert TC.main(argv, device="cpu") == 0
+        got = capsys.readouterr().out
+        assert got == want
+        assert "mode=sharded" in got and " devices=2" in got
+        return
+    with pytest.raises(RefMeshConfigError) as want:
+        RC.main(argv)
+    with pytest.raises(MeshConfigError) as got:
+        TC.main(argv, device="cpu")
+    assert str(got.value) == str(want.value) == (
+        "mesh_devices=2 out of range: 1 device(s) visible")
 
 
 def test_cli_rejects_bad_specs_before_training(tmp_path):

@@ -254,11 +254,15 @@ def test_prepared_design_runs_under_other_backends():
 
 def test_verify_prepared_under_streaming_raises():
     """A partitioned ``prepared`` design under a session left at
-    ``streaming=True`` takes the streamed route (the loop's predictions),
-    which raises only where it would shard over more than one device."""
+    ``streaming=True`` takes the streamed route (the loop's predictions);
+    asked to shard over more devices than are visible, it raises the
+    sharded executor's ``MeshConfigError``."""
+    from repro_torch.launch.mesh import MeshConfigError
+
     prep = Session(NPZ, device="cpu", streaming=False, num_partitions=4).prepare(
         dataset="csa", bits=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(MeshConfigError,
+                       match=r"^mesh_devices=2 out of range: 1 device\(s\) visible$"):
         Session(NPZ, device="cpu", mesh_devices=2).verify(prepared=prep)
     streamed = Session(NPZ, device="cpu").verify(prepared=prep, return_predictions=True)
     looped = Session(NPZ, device="cpu", streaming=False).verify(prepared=prep,

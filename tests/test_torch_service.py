@@ -623,6 +623,9 @@ def test_cold_compiles_and_pack_log_equal_reference(rand_params, reference):
             t1 = svc.submit(dataset="csa", bits=6, seed=1, verify=False, priority=5)
             wait_for(lambda: svc._device_q.qsize() >= 1, timeout=60.0)
             t2 = svc.submit(dataset="csa", bits=4, seed=2, verify=False, priority=0)
+            # t2 queued before t3 is submitted: two prepare workers would
+            # otherwise race them, and equal priorities pack in arrival order
+            wait_for(lambda: svc._device_q.qsize() >= 2, timeout=60.0)
             t3 = svc.submit(dataset="csa", bits=4, seed=3, verify=False, priority=0)
             wait_for(lambda: svc._device_q.qsize() >= 3, timeout=60.0)
         finally:

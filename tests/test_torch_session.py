@@ -62,11 +62,27 @@ def test_explain_is_full_and_matches_reference():
 
 
 @pytest.mark.parametrize("overrides", [{"num_partitions": 4}, {"memory_budget_bytes": 200_000}])
-def test_unported_routes_raise(overrides):
-    """The streamed route over more than one device (the reference's mode
-    "sharded") is the one route not ported; on one device it streams."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Session(NPZ, device="cpu", mesh_devices=2, **overrides).verify(dataset="csa", bits=6)
+def test_unported_routes_raise(ref_params, overrides):
+    """The streamed route over more than one device (mode "sharded") with
+    the one CPU device visible: the routing decision equals the reference's
+    field for field, and ``verify`` refuses with the reference's
+    ``MeshConfigError`` text; on one device it streams."""
+    from repro.launch.mesh import MeshConfigError as RefMeshConfigError
+    from repro_torch.launch.mesh import MeshConfigError
+
+    want = RefSession(ref_params, mesh_devices=2, **overrides).explain(dataset="csa", bits=6)
+    sess = Session(NPZ, device="cpu", mesh_devices=2, **overrides)
+    got = sess.explain(dataset="csa", bits=6)
+    assert got.mode == "sharded" and got.mesh_devices == 2
+    for f in ("mode", "k", "num_buckets", "buckets", "modeled_peak_bytes",
+              "memory_budget_bytes", "mesh_devices", "reason"):
+        assert getattr(got, f) == getattr(want, f), f
+    with pytest.raises(RefMeshConfigError) as ref_err:
+        RefSession(ref_params, mesh_devices=2, **overrides).verify(dataset="csa", bits=6)
+    with pytest.raises(MeshConfigError) as err:
+        sess.verify(dataset="csa", bits=6)
+    assert str(err.value) == str(ref_err.value) == (
+        "mesh_devices=2 out of range: 1 device(s) visible")
     r = Session(NPZ, device="cpu", **overrides).verify(dataset="csa", bits=6)
     assert r.routing.mode == "streamed" and r.exec_stats["launches"] > 0
 

@@ -1,6 +1,6 @@
 """The port's streamed route against the reference's, part 3: the routing
 decisions and verdicts of ``Session`` in mode "streamed", the budget route,
-the sharded route's refusal, and the fault harness (plans, capacity halving,
+the sharded route's refusal on one device, and the fault harness (plans, capacity halving,
 the prefetch watchdog).  Inputs and fixtures: ``torch_stream_common.py``.
 """
 from __future__ import annotations
@@ -84,15 +84,31 @@ def test_budget_route_verifies_through_the_stream(ref_params):
     assert_same(r.predictions, want)
 
 
-def test_sharded_route_raises():
-    with pytest.raises(NotImplementedError, match="sharded route"):
+def test_sharded_route_raises(ref_params):
+    """With the one CPU device, asking for more routes the streamed run to
+    mode "sharded", which refuses with the reference's ``MeshConfigError``
+    (the same class of error, the same text), from ``Session.verify`` and
+    from ``infer_streaming``; None resolves to the one device."""
+    from repro.launch.mesh import MeshConfigError as RefMeshConfigError
+    from repro_torch.launch.mesh import MeshConfigError
+
+    with pytest.raises(RefMeshConfigError) as want:
+        RefSession(ref_params, num_partitions=4, mesh_devices=2).verify(dataset="csa", bits=8)
+    with pytest.raises(MeshConfigError) as got:
         Session(NPZ, device="cpu", num_partitions=4, mesh_devices=2).verify(dataset="csa",
                                                                           bits=8)
+    assert str(got.value) == str(want.value) == (
+        "mesh_devices=2 out of range: 1 device(s) visible")
     prep = Session(device="cpu", num_partitions=4).prepare(dataset="csa", bits=8)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+    rprep = RPL.prepare(RPL.PipelineConfig(dataset="csa", bits=8, num_partitions=4,
+                                           mesh_devices=4))
+    with pytest.raises(RefMeshConfigError) as want:
+        RPL.infer_streaming(ref_params, rprep)
+    with pytest.raises(MeshConfigError) as got:
         P.infer_streaming(TG.params_from_numpy(TG.load_params(NPZ)),
                           dataclasses.replace(prep, cfg=dataclasses.replace(
                               prep.cfg, mesh_devices=4)), device="cpu")
+    assert str(got.value) == str(want.value)
     assert P.resolve_mesh_devices(None, "cpu") == 1
 
 

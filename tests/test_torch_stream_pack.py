@@ -214,9 +214,10 @@ def test_groot_runner_holds_one_structure(model):
         copies["plans"] += 1
         return build(cls, *a, **kw)
 
-    def counting_release(pair):
+    def counting_release(pair, device=None):
+        assert device == torch.device("cpu")       # the runner's own device only
         copies["released"] += 1
-        return release(pair)
+        return release(pair, device)
 
     mp = pytest.MonkeyPatch()
     mp.setattr(gs.DevicePlan, "build", classmethod(counting_build))
