@@ -70,7 +70,12 @@ Phases (any failure raises and the script exits non-zero):
               at (a) qwen3-8b prefill (B=4, 32 query heads over 8 KV heads,
               S=T=4096, hd=128, causal), (b) a gemma2-9b local layer (hd=256,
               S=T=8192, window 4096, softcap 50), (c) bidirectional hd=64
-              S=T=4096, (d) ragged causal S=T=4000; kernel, plain and (a, c)
+              S=T=4096, (d) ragged causal S=T=4000, and the family phase's
+              shapes: (e) llama-3.2-vision's cross-attention (B=2, 32 over 8
+              heads, S=4096 queries over T=1,601 keys, hd 128, bidirectional,
+              ragged T), (f) whisper-base's (16 padded heads over 8, T=1,500,
+              hd 64), (g) a recurrentgemma-9b local layer (16 heads over 1,
+              S=T=4096, hd 256, window 2048); kernel, plain and (a, c, e, f)
               ``scaled_dot_product_attention`` times by CUDA events, and K8
               alone beside SDPA at prefill_32k's length (B=1, S=T=32768,
               bf16).  Then the main path: ``BatchServer(qwen3-8b, batch=4,
@@ -198,7 +203,31 @@ Phases (any failure raises and the script exits non-zero):
               the third lane launch, resumed under one lane from the journal
               (only the uncommitted partitions run, bit-equal, journal gone).
 
-Every driven path of phases 4-12 runs with each kernel's launch count set to
+13. families  the zoo's other model families served at full width: qwen3-moe-
+              235b-a22b (MoE, 128 experts top-8; 4 of its 94 layers),
+              rwkv6-3b (RWKV6), recurrentgemma-9b (RG-LRU + local attention),
+              whisper-base (encoder-decoder, 1,500 stub frames) and
+              llama-3.2-vision-11b (cross-attention to 1,601 stub patches),
+              each FAMILY_BATCH x FAMILY_PROMPT prompt tokens and FAMILY_NEW
+              new ones: the text archs through ``BatchServer``, the encoder
+              archs through ``make_prefill_step(..., enc_input)`` and
+              ``make_serve_step``.  Weights f32 on the card from the per-depth
+              ``param_tree`` (every zeros/ones leaf given seeded noise),
+              the f32 model's prefill on the plain schedule as the yardstick,
+              then bf16.  K8 launches once a self-attention layer and once a
+              cross-attention layer a prefill, all on the wgmma body, and the
+              block schedule (attention at other positions) not at all; the
+              last-position logits within twice the plain schedule's own
+              distance from the f32 model's (phase 7's rule); rwkv6's f32
+              chunked prefill within 1e-4 of its FORCE_SCAN prefill at
+              FAMILY_CHECK_TOKENS, its bf16 logits finite; rwkv6's and
+              recurrentgemma's f32 decode after a prefill within rtol/atol
+              5e-3 of the full forward's last row.  Prints each arch's prefill
+              ms, decode ms a token, peak bytes, parameters, and for the MoE
+              the share of (layer, token) top-k sets that differ between the
+              K8 and plain-schedule prefills.
+
+Every driven path of phases 4-13 runs with each kernel's launch count set to
 0 just before it and read just after; a kernel's ``launches`` in the summary
 is the sum over those paths, and every kernel must have been launched.  The
 line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -271,14 +300,19 @@ F32_MMAS = 3
 # f32 output (acc / l) once; p or the output truncated moves far more.
 FLASH_TOL = {"f32": 5e-5, "bf16": 2**-7}
 FLASH_OFF_SHARE = 2**-4
-# K8 parity shapes: (label, batch, query heads, KV heads, S = T, hd, causal,
+# K8 parity shapes: (label, batch, query heads, KV heads, S, T, hd, causal,
 # window, softcap)
 FLASH_SHAPES = (
-    ("a qwen3-8b prefill", 4, 32, 8, 4096, 128, True, 0, 0.0),
-    ("b gemma2-9b local", 1, 16, 8, 8192, 256, True, 4096, 50.0),
-    ("c bidirectional", 1, 32, 32, 4096, 64, False, 0, 0.0),
-    ("d ragged causal", 1, 32, 8, 4000, 128, True, 0, 0.0),
+    ("a qwen3-8b prefill", 4, 32, 8, 4096, 4096, 128, True, 0, 0.0),
+    ("b gemma2-9b local", 1, 16, 8, 8192, 8192, 256, True, 4096, 50.0),
+    ("c bidirectional", 1, 32, 32, 4096, 4096, 64, False, 0, 0.0),
+    ("d ragged causal", 1, 32, 8, 4000, 4000, 128, True, 0, 0.0),
+    ("e vision cross", 2, 32, 8, 4096, 1601, 128, False, 0, 0.0),
+    ("f whisper cross", 2, 16, 8, 4096, 1500, 64, False, 0, 0.0),
+    ("g rgemma local", 2, 16, 1, 4096, 4096, 256, True, 2048, 0.0),
 )
+# shapes one SDPA call computes (no window, no softcap)
+FLASH_SDPA = "acef"
 # the serve phase: qwen3-8b, 8 requests of 4,096 prompt tokens, 32 new each
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 4096, 32
 # the partitioned phase: (a) csa-<bits> cut PART_K ways (multilevel); (b) the
@@ -315,6 +349,19 @@ SERVICE_TIMEOUT_S = 600
 # buckets holds two batches and every wave runs both lanes
 SHARD_LANES = 2
 SHARD_CAPACITY = 1
+# the families phase: (arch, layers kept, 0 for all) at full width, each
+# serving FAMILY_BATCH prompts of FAMILY_PROMPT tokens, FAMILY_NEW new tokens;
+# qwen3-moe's 94 layers are 4.97 GB each in bf16 (twice that in the f32
+# yardstick), so 4 are kept; llama4-maverick's MoE layer alone is 32 GB in
+# bf16, with no room for its f32 yardstick, so it stays on the CPU tests.
+# The recurrent archs' f32 checks run at FAMILY_CHECK_TOKENS.
+FAMILIES = (("qwen3-moe-235b-a22b", 4), ("rwkv6-3b", 0), ("recurrentgemma-9b", 0),
+            ("whisper-base", 0), ("llama-3.2-vision-11b", 0))
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 2, 4096, 8
+FAMILY_CHECK_TOKENS = 512
+# seeded noise on every zeros/ones leaf: at init the RG-LRU conv and RWKV's
+# mu, u and w0 are zeros, which makes those layers' parts invisible
+FAMILY_NOISE = 0.1
 
 
 def log(msg: str) -> None:
@@ -411,6 +458,28 @@ def bf16_truncated(x32):
     import torch
 
     return (x32.view(torch.int32) & -65536).view(torch.float32).to(torch.bfloat16)
+
+
+def timed_step(fn, name: str, at: int, times: dict, first: dict, vocab: int):
+    """``fn`` timed by the host clock between synchronises: each call's
+    seconds go to ``times[name]``, its first output ``out[at]`` (as f32) to
+    ``first[name]``, and whether every step timed with ``first`` gave finite
+    logits ``out[at]`` over the ``vocab`` real ids to ``first["finite"]``
+    (the serve step sets the padded vocabulary's ids to -inf)."""
+    import torch
+
+    def run(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        ok = torch.isfinite(out[at][..., :vocab]).all()
+        first["finite"] = ok & first["finite"] if "finite" in first else ok
+        if name not in first:
+            first[name] = out[at].float().clone()
+        return out
+    return run
 
 
 @contextlib.contextmanager
@@ -629,16 +698,16 @@ def flash_phase(args, dev, k8: dict) -> dict:
     build_report = k8_build_report()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows = []
-    for label, b, h, kvh, s, hd, causal, window, cap in FLASH_SHAPES:
+    for label, b, h, kvh, s, t, hd, causal, window, cap in FLASH_SHAPES:
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q = torch.randn((b * h, s, hd), generator=gen, device=dev).to(dtype)
-            k = torch.randn((b * kvh, s, hd), generator=gen, device=dev).to(dtype)
-            v = torch.randn((b * kvh, s, hd), generator=gen, device=dev).to(dtype)
+            k = torch.randn((b * kvh, t, hd), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b * kvh, t, hd), generator=gen, device=dev).to(dtype)
             kw = dict(causal=causal, window=window, softcap=cap)
             body, tile = fa.BODIES[(dtype, hd)], fa.key_tile(dtype, hd)
 
             def run():
-                return fa.flash_attention(q, k, v, kv_block=s, **kw)
+                return fa.flash_attention(q, k, v, kv_block=t, **kw)
 
             def plain():
                 return fa.flash_plain(q, k, v, kv_tile=tile, **kw)
@@ -652,7 +721,8 @@ def flash_phase(args, dev, k8: dict) -> dict:
             torch.cuda.synchronize()
             par = flash_parity(got, want, tag)
             ok = bool(torch.isfinite(got).all()) and par["ok"]
-            what = f"{label} BH={b * h}/{b * kvh} S=T={s} hd={hd} {tag} {body}/{tile}"
+            st = f"S=T={s}" if s == t else f"S={s} T={t}"
+            what = f"{label} BH={b * h}/{b * kvh} {st} hd={hd} {tag} {body}/{tile}"
             reading = f"tol {par['limit']:.3e}"
             if tag == "bf16":  # the check must see a planted rounding fault
                 planted = flash_parity(bf16_truncated(want32), want, tag)
@@ -660,7 +730,7 @@ def flash_phase(args, dev, k8: dict) -> dict:
                 ok = ok and not planted["ok"]
                 reading += (f", off {par['off_share']:.3e} (limit {FLASH_OFF_SHARE:.3e}); "
                             f"plain truncated: off {planted['off_share']:.3e}")
-            log(f"parity flash_attention {what:50s} max_abs_err {par['max_abs_err']:.3e} "
+            log(f"parity flash_attention {what:56s} max_abs_err {par['max_abs_err']:.3e} "
                 f"{reading} {'ok' if ok else 'MISS'}")
             k8["max_abs_err"] = max(k8["max_abs_err"], par["max_abs_err"])
             if not ok:
@@ -669,15 +739,15 @@ def flash_phase(args, dev, k8: dict) -> dict:
             ms = cuda_ms(run, args.reps)
             plain_ms = cuda_ms(plain, 2)
             lib_ms = None
-            if label[0] in "ac":  # no window, no softcap: one SDPA call computes it
+            if label[0] in FLASH_SDPA:  # no window, no softcap: one SDPA call computes it
                 g = h // kvh
                 qs = q.view(b, h, s, hd)
-                ks = k.view(b, kvh, s, hd).repeat_interleave(g, 1)
-                vs = v.view(b, kvh, s, hd).repeat_interleave(g, 1)
+                ks = k.view(b, kvh, t, hd).repeat_interleave(g, 1)
+                vs = v.view(b, kvh, t, hd).repeat_interleave(g, 1)
                 lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=causal), args.reps)
                 del qs, ks, vs
-            flops = 4.0 * b * h * hd * attended_pairs(s, s, causal, window)
+            flops = 4.0 * b * h * hd * attended_pairs(s, t, causal, window)
             bytes_ = 2 * (q.numel() + k.numel()) * q.element_size()  # q, o; k, v
             t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
             t_ops = flops / (PEAK_BF16_FLOPS if tag == "bf16" else PEAK_TF32_FLOPS / F32_MMAS) * 1e3
@@ -686,7 +756,7 @@ def flash_phase(args, dev, k8: dict) -> dict:
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        bytes=bytes_, flops=flops, tflops=flops / ms / 1e9)
             rows.append(row)
-            log(f"time   flash_attention {what:50s} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            log(f"time   flash_attention {what:56s} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
                 f"sdpa {'-' if lib_ms is None else f'{lib_ms:.4f} ms'} bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tflops']:.1f} TFLOP/s")
             if label[0] == "a" and tag == "bf16":  # the main path's shape and dtype
@@ -716,7 +786,7 @@ def flash_phase(args, dev, k8: dict) -> dict:
     long = dict(what=f"prefill_32k BH={b * h}/{b * kvh} S=T={s} hd={hd} bf16", ms=ms,
                 library_ms=lib_ms, bound_ms=flops / PEAK_BF16_FLOPS * 1e3, bound_by="operations",
                 tflops=flops / ms / 1e9)
-    log(f"time   flash_attention {long['what']:50s} kernel {ms:.3f} ms sdpa {lib_ms:.3f} ms "
+    log(f"time   flash_attention {long['what']:56s} kernel {ms:.3f} ms sdpa {lib_ms:.3f} ms "
         f"bound {long['bound_ms']:.3f} ms (operations), {long['tflops']:.1f} TFLOP/s")
     del q, k, v, ks, vs
     torch.cuda.empty_cache()
@@ -764,25 +834,9 @@ def serve_phase(args, dev, drive, launches: dict, bodies: dict) -> dict:
 
     server = BatchServer(cfg, params, batch=SERVE_BATCH, max_seq=max_seq)
     times: dict = {"prefill": [], "decode": []}
-    finite = torch.ones((), dtype=torch.bool, device=dev)
     first: dict = {}
-
-    def timed(name, fn, at):
-        def run(*a):
-            nonlocal finite
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a)
-            torch.cuda.synchronize()
-            times[name].append(time.perf_counter() - t0)
-            finite = finite & torch.isfinite(out[at]).all()
-            if name not in first:
-                first[name] = out[at].float().clone()
-            return out
-        return run
-
-    server.prefill = timed("prefill", server.prefill, 0)
-    server.decode = timed("decode", server.decode, 1)
+    server.prefill = timed_step(server.prefill, "prefill", 0, times, first, cfg.vocab_size)
+    server.decode = timed_step(server.decode, "decode", 1, times, first, cfg.vocab_size)
 
     def serve_all():
         queue = [Request(rid=i, prompt=p, max_new=SERVE_NEW, t_submit=time.perf_counter())
@@ -823,7 +877,7 @@ def serve_phase(args, dev, drive, launches: dict, bodies: dict) -> dict:
              f"on the wgmma body")
     if out.shape != (SERVE_REQUESTS, SERVE_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
         fail(f"serve: tokens of shape {out.shape} in [{out.min()}, {out.max()}]")
-    if not bool(finite):
+    if not bool(first["finite"]):
         fail("serve: non-finite logits")
 
     # the first batch again on the model's plain schedule (no K8 launch)
@@ -858,6 +912,243 @@ def serve_phase(args, dev, drive, launches: dict, bodies: dict) -> dict:
         f"qwen3-8b decode step B={SERVE_BATCH}", lambda: server.decode(params, cache, tok))
     del server, params, cache
     torch.cuda.empty_cache()
+    return rep
+
+
+def family_params(cfg, seed: int, dev):
+    """f32 per-depth params of ``cfg`` drawn on the card, fan-in scaled as
+    phase 7's, every zeros/ones leaf given seeded N(0, FAMILY_NOISE^2) noise."""
+    import torch
+
+    from repro_torch.zoo.configs.base import materialize, param_tree, tree_map
+
+    spec = param_tree(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tree = materialize(spec, gen)
+
+    def bump(sp, a):
+        if sp.init != "normal":
+            a.add_(torch.randn(a.shape, generator=gen, device=dev), alpha=FAMILY_NOISE)
+        return a
+
+    return tree_map(bump, spec, tree)
+
+
+def family_phase(arch: str, n_layers: int, args, dev, drive, launches: dict,
+                 bodies: dict) -> dict:
+    """One family arch served at full width (``n_layers`` of its layers, 0 for
+    all): the f32 yardstick and the recurrent archs' f32 checks, then the
+    bf16 model served (the text archs through ``BatchServer``, the encoder
+    archs through the prefill and serve steps with their stub input), the
+    launches checked, and the K8 prefill's logits held to the plain
+    schedule's and the f32 model's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.zoo.configs import get_config
+    from repro_torch.zoo.models import attention as A
+    from repro_torch.zoo.models import moe, rwkv6
+    from repro_torch.zoo.models import transformer as T
+    from repro_torch.zoo.serving.decode import make_prefill_step, make_serve_step
+
+    cfg = get_config(arch)
+    depth = cfg.num_layers
+    if n_layers:
+        cfg = dataclasses.replace(cfg, num_layers=n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    kinds = cfg.layer_kinds()
+    n_enc = cfg.encoder_seq or cfg.cross_seq
+    b, max_seq = FAMILY_BATCH, FAMILY_PROMPT + FAMILY_NEW + 1
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, FAMILY_PROMPT).astype(np.int32) for _ in range(b)]
+    toks = torch.as_tensor(np.stack(prompts), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    enc32 = torch.randn((b, n_enc, cfg.d_model), generator=gen, device=dev) if n_enc else None
+    enc = None if enc32 is None else enc32.to(torch.bfloat16)
+    rep: dict = dict(arch=arch, layers=cfg.num_layers, published_layers=depth,
+                     d_model=cfg.d_model, batch=b, prompt_tokens=FAMILY_PROMPT,
+                     new_tokens=FAMILY_NEW, encoder_tokens=n_enc)
+    rel = lambda a, c: ((a.float() - c.float()).norm() / c.float().norm()).item()  # noqa: E731
+
+    # MoE routes of each prefill, per layer: (T, k) top-k indices
+    routes: list = []
+    route = moe.route
+
+    def recording_route(x2d, router_w, c):
+        out = route(x2d, router_w, c)
+        if x2d.shape[0] == b * FAMILY_PROMPT:
+            routes.append(out[0].sort(-1).values)
+        return out
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tree = family_params(cfg, args.seed, dev)
+    p32 = T.params_from_numpy(tree, cfg32, dev)  # the tree's own tensors
+    with plain_schedule(f"{arch}: the f32 yardstick prefill"):
+        logits32, _ = make_prefill_step(cfg32, max_seq)(p32, toks, enc32)
+    n_check = FAMILY_CHECK_TOKENS
+    if "rwkv" in kinds:
+        # the chunked prefill against the token-by-token scan, f32
+        chunked, _ = make_prefill_step(cfg32, n_check + 1)(p32, toks[:, :n_check])
+        rwkv6.FORCE_SCAN = True
+        try:
+            scan, _ = make_prefill_step(cfg32, n_check + 1)(p32, toks[:, :n_check])
+        finally:
+            rwkv6.FORCE_SCAN = False
+        err = (chunked - scan).abs().max().item()
+        lim = 1e-4 * max(1.0, scan.abs().max().item())
+        rep["chunked_vs_scan"] = dict(tokens=n_check, max_abs_err=err, limit=lim)
+        log(f"families {arch}: f32 chunked prefill vs FORCE_SCAN at {n_check} tokens: "
+            f"max_abs_err {err:.3e} (limit {lim:.3e}) {'ok' if err <= lim else 'MISS'}")
+        if not err <= lim:
+            fail(f"{arch}: chunked prefill {err:.3e} from the scan's, over {lim:.3e}")
+        del chunked, scan
+    if "rwkv" in kinds or "rglru" in kinds:
+        # decode after a prefill against the full forward's last row, f32
+        t_chk = toks[:, :n_check]
+        full, _ = T.model_forward(p32, cfg32, t_chk, last_only=True)
+        cache = T.init_cache_tree(cfg32, b, n_check + 4, dtype=torch.float32, device=dev)
+        _, cache = T.model_forward(p32, cfg32, t_chk[:, :-1], cache=cache, last_only=True)
+        dec, _ = T.model_forward(p32, cfg32, t_chk[:, -1:], cache=cache, decode=True)
+        err = (dec[:, -1] - full[:, -1]).abs()
+        over = (err - 5e-3 * full[:, -1].abs()).max().item()
+        rep["decode_vs_full"] = dict(tokens=n_check, max_abs_err=err.max().item(),
+                                     max_over_rtol=over)
+        log(f"families {arch}: f32 decode of token {n_check} after a prefill vs the full "
+            f"forward: max_abs_err {err.max().item():.3e}, max(err - 5e-3 |full|) {over:.3e} "
+            f"(limit 5e-3) {'ok' if over <= 5e-3 else 'MISS'}")
+        if not over <= 5e-3:
+            fail(f"{arch}: f32 decode differs from the full forward by {over:.3e} over rtol")
+        del full, cache, dec
+    params = T.params_from_numpy(tree, cfg, dev)
+    del tree, p32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rep["setup_s"] = setup_s = time.perf_counter() - t0
+    rep["parameters"] = n_params = sum(p.numel() for p in params.parameters())
+
+    times: dict = {"prefill": [], "decode": []}
+    first: dict = {}
+    cross = {"k8": 0}
+    cross_attention = T.cross_attention
+
+    def counted_cross(*a, **k):
+        before = fa.flash_attention.launches
+        out = cross_attention(*a, **k)
+        cross["k8"] += fa.flash_attention.launches - before
+        return out
+
+    prefill = timed_step(make_prefill_step(cfg, max_seq), "prefill", 0, times, first,
+                         cfg.vocab_size)
+    decode = timed_step(make_serve_step(cfg), "decode", 1, times, first, cfg.vocab_size)
+    if n_enc:  # the server passes no encoder input (ROADMAP Queue 3 item 10)
+        def serve():
+            last, cache = prefill(params, toks, enc)
+            tok = last.argmax(-1)[:, None].to(torch.int32)
+            outs = [tok]
+            for _ in range(FAMILY_NEW - 1):
+                tok, _, cache = decode(params, cache, tok)
+                outs.append(tok)
+            return torch.cat(outs, dim=1).cpu().numpy()
+    else:
+        server = BatchServer(cfg, params, batch=b, max_seq=max_seq, device=dev)
+        server.prefill, server.decode = prefill, decode
+
+        def serve():
+            done = server.serve_batch([Request(rid=i, prompt=p, max_new=FAMILY_NEW)
+                                       for i, p in enumerate(prompts)])
+            return np.stack([r.out for r in done])
+
+    path = f"families {arch}"
+    blocks = A._sdpa_blocks.calls
+    torch.cuda.reset_peak_memory_stats()
+    moe.route, T.cross_attention = recording_route, counted_cross
+    try:
+        out, wall = drive(path, serve)
+    finally:
+        moe.route, T.cross_attention = route, cross_attention
+    rep["peak_bytes"] = peak = torch.cuda.max_memory_allocated()
+    rep["block_schedule_calls"] = n_blocks = A._sdpa_blocks.calls - blocks
+    k8_routes, routes[:] = list(routes), []
+    used = {k: v for k, v in launches[path].items() if v}
+    body = bodies[path]
+    n_attn = sum(k in ("global", "local", "cross+global") for k in kinds)
+    n_cross = kinds.count("cross+global") if FAMILY_PROMPT * n_enc > A.FLASH_THRESHOLD else 0
+    n_k8 = (n_attn if FAMILY_PROMPT**2 > A.FLASH_THRESHOLD else 0) + n_cross
+    rep.update(wall_s=wall, prefill_ms=times["prefill"][0] * 1e3,
+               decode_ms_per_token=statistics.median(times["decode"]) * 1e3,
+               launches=used, k8_body_launches=body, k8_cross_launches=cross["k8"])
+    log(f"families {arch}: {cfg.num_layers} of {depth} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters (bf16); B={b} S={FAMILY_PROMPT}"
+        f"{f' encoder input {n_enc}' if n_enc else ''}: prefill {rep['prefill_ms']:.1f} ms, "
+        f"decode {rep['decode_ms_per_token']:.2f} ms/token, peak {peak / 1e9:.2f} GB, wall "
+        f"{wall:.2f} s (set-up {setup_s:.1f} s); launches {json.dumps(used)} (cross-attention "
+        f"{cross['k8']}), by body {json.dumps(body)}, block-schedule calls {n_blocks}")
+    if (used != ({"flash_attention": n_k8} if n_k8 else {}) or cross["k8"] != n_cross
+            or body != {"wgmma": n_k8, "mma_sync": 0} or n_blocks):
+        fail(f"{path}: launches {used}, cross {cross['k8']}, bodies {body}, block schedule "
+             f"{n_blocks}; expected {n_k8} K8 launches ({n_cross} cross-attention), all on the "
+             f"wgmma body, and no block-schedule call")
+    if out.shape != (b, FAMILY_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        fail(f"{path}: tokens of shape {out.shape} in [{out.min()}, {out.max()}]")
+    k8_logits, f32 = first["prefill"], logits32.float()
+    if not bool(first["finite"]):
+        fail(f"{path}: non-finite logits")
+    rep["rel_bf16_vs_f32"] = d_k8_f32 = rel(k8_logits, f32)
+    if n_k8:
+        # the same prefill on the model's plain schedule (no K8 launch)
+        with plain_schedule(f"{arch}: the plain-schedule prefill"):
+            moe.route = recording_route
+            try:
+                plain, _ = make_prefill_step(cfg, max_seq)(params, toks, enc)
+            finally:
+                moe.route = route
+        d_k8, d_bf16 = rel(k8_logits, plain), rel(plain, f32)
+        ok = d_k8 <= 2 * d_bf16 and bool(torch.isfinite(plain).all())
+        rep.update(rel_k8_vs_plain=d_k8, rel_plain_vs_f32=d_bf16)
+        log(f"families {arch}: last-position logits, relative L2: K8 vs plain schedule "
+            f"{d_k8:.4e} (limit 2 x plain vs f32 = {2 * d_bf16:.4e}), K8 vs f32 {d_k8_f32:.4e} "
+            f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            fail(f"{path}: K8 prefill logits {d_k8:.4e} from the plain schedule's, over "
+                 f"{2 * d_bf16:.4e}")
+        del plain
+    else:
+        log(f"families {arch}: no attention layer, no K8; bf16 prefill logits finite, "
+            f"relative L2 from the f32 model's {d_k8_f32:.4e}")
+    if k8_routes:
+        plain_routes = routes
+        diff = [(x != y).any(-1) for x, y in zip(k8_routes, plain_routes)]
+        rep["moe_topk_swapped_share"] = share = torch.cat(diff).float().mean().item()
+        rep["moe_topk_swapped_share_by_layer"] = [d.float().mean().item() for d in diff]
+        log(f"families {arch}: (layer, token) top-{cfg.top_k} expert sets that differ between "
+            f"the K8 and plain-schedule prefills: {share:.4f} "
+            f"(by layer {', '.join(f'{d.float().mean().item():.4f}' for d in diff)})")
+    del params, prefill, decode, first, logits32, k8_logits, f32
+    routes.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def families_phase(args, dev, drive, launches: dict, bodies: dict) -> dict:
+    """Phase 13: every arch of FAMILIES served at full width, one at a time."""
+    import torch
+
+    t0 = time.perf_counter()
+    rep = {}
+    for arch, n_layers in FAMILIES:
+        rep[arch] = family_phase(arch, n_layers, args, dev, drive, launches, bodies)
+    rep["wall_s"] = time.perf_counter() - t0
+    rep["bytes_left"] = torch.cuda.memory_allocated()
+    rep["nvidia_smi"] = smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"families: {len(FAMILIES)} archs in {rep['wall_s']:.1f} s on {smi}")
     return rep
 
 
@@ -2939,6 +3230,10 @@ def main() -> int:
     report["sharded"] = sharded_phase(args, dev, drive, launches, params_path, prep_a,
                                       streamed_a)
     del prep_a, streamed_a
+
+    # -- 13. families: MoE, RWKV6, RG-LRU, encoder-decoder, cross-attention ------
+    torch.cuda.empty_cache()
+    report["families"] = families_phase(args, dev, drive, launches, bodies)
 
     total = {kn: sum(counts[kn] for counts in launches.values()) for kn in kernels}
     report["launches"] = launches

@@ -11,7 +11,13 @@ A deliberately small server core, as the reference's:
 
 It runs on ``cuda`` unless given ``device="cpu"``.  The flags are the
 reference's, ``--smoke`` included: a ``store_true`` flag with
-``default=True``, so the CLI always serves the smoke-size config.
+``default=True``, so the CLI always serves the smoke-size config.  It
+serves every registered arch; for the cross-attention archs
+(``whisper-base``, ``llama-3.2-vision-11b``) it copies the reference's
+failure: the server passes no encoder input, so their prefill raises a
+``ValueError`` (ROADMAP Queue 3 item 10).  Those archs serve through
+``make_prefill_step(cfg, max_seq)(params, tokens, enc_input)`` and
+``make_serve_step``, or ``greedy_generate(..., enc_input=...)``.
 """
 from __future__ import annotations
 

@@ -1,12 +1,34 @@
 """Architecture registry (port of ``repro/zoo/configs/__init__.py``): the
-dense attention architectures whose layer kinds the port runs.  The MoE,
-RWKV6, RG-LRU, whisper, vision and ``groot-gnn`` entries join with their
-layers."""
-from repro_torch.zoo.configs import deepseek_67b, gemma2_9b, qwen2_7b, qwen3_8b
+reference's ten LM architectures.  ``groot-gnn`` (the dry run's GNN entry)
+joins with the dry-run slice, so ``ARCHS`` equals ``LM_ARCHS`` here."""
+from repro_torch.zoo.configs import (
+    deepseek_67b,
+    gemma2_9b,
+    llama32_vision_11b,
+    llama4_maverick,
+    qwen2_7b,
+    qwen3_8b,
+    qwen3_moe_235b,
+    recurrentgemma_9b,
+    rwkv6_3b,
+    whisper_base,
+)
 
-_MODULES = (qwen3_8b, qwen2_7b, gemma2_9b, deepseek_67b)
+_MODULES = (
+    qwen3_8b,
+    qwen2_7b,
+    gemma2_9b,
+    deepseek_67b,
+    llama4_maverick,
+    qwen3_moe_235b,
+    rwkv6_3b,
+    whisper_base,
+    llama32_vision_11b,
+    recurrentgemma_9b,
+)
 
 ARCHS = {m.ARCH_ID: m for m in _MODULES}
+LM_ARCHS = dict(ARCHS)
 
 
 def get_config(arch: str, smoke: bool = False):

@@ -2,12 +2,12 @@
 ``repro/zoo/configs/base.py``).
 
 One :class:`ModelConfig` dataclass, field for field the reference's, drives
-the architectures; parameters are described once as a tree of
-:class:`ParamSpec` (shape + logical axes + init).  The port walks its own
+every LM architecture of the zoo; parameters are described once as a tree
+of :class:`ParamSpec` (shape + logical axes + init).  The port walks its own
 spec trees (nested dicts and lists with ``ParamSpec`` leaves) and
-materialises them from an explicit :class:`torch.Generator`.  Spec builders
-exist for the layer kinds the port runs (``global``, ``local``, dense FFN);
-the others raise until their layers are ported.
+materialises them from an explicit :class:`torch.Generator`.  The
+reference's ``abstract`` and ``logical_axes`` (the dry run's) are not
+ported.
 """
 from __future__ import annotations
 
@@ -113,10 +113,21 @@ class ModelConfig:
             p = int(np.lcm(p, self.moe_interleave))
         return p
 
-
     def param_count(self) -> int:
         """Total parameters (host-side arithmetic; no arrays)."""
         return sum(math.prod(leaf.shape) for leaf in leaves(param_tree(self)))
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of num_experts)."""
+        if not self.moe:
+            return self.param_count()
+        total = 0
+        for leaf in leaves(param_tree(self)):
+            n = math.prod(leaf.shape)
+            if "experts" in leaf.axes:
+                n = n * self.top_k // max(self.num_experts, 1)
+            total += n
+        return total
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +147,7 @@ def _p(shape, axes, init="normal", scale=0.0):
     return ParamSpec(tuple(int(s) for s in shape), tuple(axes), init, scale)
 
 
-def _attention_specs(cfg: ModelConfig) -> dict:
+def _attention_specs(cfg: ModelConfig, cross: bool = False) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim_
     s: dict[str, Any] = {
         "wq": _p((d, h, hd), ("d_model", "heads", None)),
@@ -144,7 +155,7 @@ def _attention_specs(cfg: ModelConfig) -> dict:
         "wv": _p((d, kv, hd), ("d_model", "kv_heads", None)),
         "wo": _p((h, hd, d), ("heads", None, "d_model")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         s["bq"] = _p((h, hd), ("heads", None), init="zeros")
         s["bk"] = _p((kv, hd), ("kv_heads", None), init="zeros")
         s["bv"] = _p((kv, hd), ("kv_heads", None), init="zeros")
@@ -165,24 +176,90 @@ def _mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     return s
 
 
+def _moe_specs(cfg: ModelConfig) -> dict:
+    d, f, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
+    s = {
+        "router": _p((d, e), ("d_model", None)),
+        "w_in": _p((e, d, f), ("experts", "d_model", None)),
+        "w_out": _p((e, f, d), ("experts", None, "d_model")),
+    }
+    if cfg.act == "swiglu":
+        s["w_gate"] = _p((e, d, f), ("experts", "d_model", None))
+    return s
+
+
+def _rwkv_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    nh = cfg.mixer_heads_
+    hs = d // nh
+    lora = max(32, d // 16)
+    return {
+        # token-shift mix coefficients (static per-channel; x_t vs x_{t-1})
+        "mu": {k: _p((d,), ("d_model",), init="zeros") for k in "rkvwg"},
+        "wr": _p((d, d), ("d_model", "heads_flat")),
+        "wk": _p((d, d), ("d_model", "heads_flat")),
+        "wv": _p((d, d), ("d_model", "heads_flat")),
+        "wg": _p((d, d), ("d_model", "heads_flat")),
+        "wo": _p((d, d), ("heads_flat", "d_model")),
+        # data-dependent decay LoRA: w = exp(-exp(w0 + tanh(x A) B))
+        "w0": _p((d,), ("d_model",), init="zeros"),
+        "wa": _p((d, lora), ("d_model", None)),
+        "wb": _p((lora, d), (None, "d_model")),
+        # per-head bonus u
+        "u": _p((nh, hs), (None, None), init="zeros"),
+        "ln_x": _p((d,), ("d_model",), init="ones"),  # group-norm gain
+    }
+
+
+def _rglru_specs(cfg: ModelConfig) -> dict:
+    d, dr = cfg.d_model, cfg.d_rnn_
+    return {
+        "w_x": _p((d, dr), ("d_model", "d_ff")),     # input branch
+        "w_gate_branch": _p((d, dr), ("d_model", "d_ff")),
+        "conv_w": _p((cfg.conv_width, dr), (None, "d_ff"), init="zeros"),
+        "conv_b": _p((dr,), ("d_ff",), init="zeros"),
+        "w_input_gate": _p((dr, dr), ("d_ff", None)),
+        "w_rec_gate": _p((dr, dr), ("d_ff", None)),
+        "lambda_p": _p((dr,), ("d_ff",), init="ones"),  # recurrence decay param
+        "w_out": _p((dr, d), ("d_ff", "d_model")),
+    }
+
+
 def _layer_specs(cfg: ModelConfig, layer_idx: int) -> dict:
     kind = cfg.layer_kinds()[layer_idx]
-    if kind not in ("global", "local") or cfg.is_moe_layer(layer_idx):
-        raise NotImplementedError(
-            f"{cfg.name}: layer {layer_idx} ({kind}{', MoE' if cfg.is_moe_layer(layer_idx) else ''}) "
-            "is not ported yet (ROADMAP Queue 1, item 8)")
-    return {
-        "ln1": _p((cfg.d_model,), ("d_model",), init="ones"),
-        "attn": _attention_specs(cfg),
-        "ln2": _p((cfg.d_model,), ("d_model",), init="ones"),
-        "ffn": _mlp_specs(cfg),
-    }
+    s: dict[str, Any] = {"ln1": _p((cfg.d_model,), ("d_model",), init="ones")}
+    if kind in ("global", "local"):
+        s["attn"] = _attention_specs(cfg)
+    elif kind == "cross+global":
+        s["attn"] = _attention_specs(cfg)
+        s["cross"] = _attention_specs(cfg, cross=True)
+        s["ln_cross"] = _p((cfg.d_model,), ("d_model",), init="ones")
+    elif kind == "rwkv":
+        s["rwkv"] = _rwkv_specs(cfg)
+    elif kind == "rglru":
+        s["rglru"] = _rglru_specs(cfg)
+    else:
+        raise ValueError(kind)
+    s["ln2"] = _p((cfg.d_model,), ("d_model",), init="ones")
+    if cfg.is_moe_layer(layer_idx):
+        s["moe"] = _moe_specs(cfg)
+    elif kind == "rwkv":
+        # rwkv channel-mix (its own FFN form): relu(x Wk)^2 Wv with r-gate
+        d, f = cfg.d_model, cfg.d_ff
+        s["ffn"] = {
+            "mu_k": _p((d,), ("d_model",), init="zeros"),
+            "mu_r": _p((d,), ("d_model",), init="zeros"),
+            "w_k": _p((d, f), ("d_model", "d_ff")),
+            "w_v": _p((f, d), ("d_ff", "d_model")),
+            "w_r": _p((d, d), ("d_model", None)),
+        }
+    else:
+        s["ffn"] = _mlp_specs(cfg)
+    return s
 
 
 def param_tree(cfg: ModelConfig) -> dict:
     """Full parameter spec tree (pre-stacking; layers listed per depth)."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: encoder stacks are not ported yet")
     d = cfg.d_model
     tree: dict[str, Any] = {
         "embed": _p((cfg.padded_vocab, d), ("vocab", "d_model"), scale=1.0),
@@ -191,6 +268,23 @@ def param_tree(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = _p((d, cfg.padded_vocab), ("d_model", "vocab"))
+    if cfg.encoder_layers:  # whisper: encoder stack + frontend stub proj
+        enc_cfg = dataclasses.replace(
+            cfg, qk_norm=False, qkv_bias=False, moe=False, layer_pattern=("global",)
+        )
+        tree["encoder"] = {
+            "layers": [
+                {
+                    "ln1": _p((d,), ("d_model",), init="ones"),
+                    "attn": _attention_specs(enc_cfg),
+                    "ln2": _p((d,), ("d_model",), init="ones"),
+                    "ffn": _mlp_specs(enc_cfg),
+                }
+                for _ in range(cfg.encoder_layers)
+            ],
+            "final_norm": _p((d,), ("d_model",), init="ones"),
+            "pos_embed": _p((cfg.encoder_seq, d), (None, "d_model"), scale=0.02),
+        }
     return tree
 
 

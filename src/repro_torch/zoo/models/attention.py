@@ -1,21 +1,32 @@
 """Attention (port of ``repro/zoo/models/attention.py``): GQA + RoPE +
-qk-norm + QKV-bias + sliding window + softcap, with a KV cache for decode.
+qk-norm + QKV-bias + sliding window + softcap + cross-attention, with a KV
+cache for decode.
 
 One function serves prefill (causal + cache write-out), decode (single
-query against the cache) and full-sequence calls.  Masks are position-based,
-so ring-buffer caches fall out of the same code path.
+query against the cache), full-sequence calls and the encoder
+(bidirectional); :func:`cross_attention` serves decoder queries over
+encoder keys.  Masks are position-based, so ring-buffer caches fall out of
+the same code path.
 
 Whenever S*T score elements exceed ``FLASH_THRESHOLD`` the reference
-switches to its flash schedule in ``lax``; the port runs the K8 flash kernel
-(``repro_torch.kernels.flash_attention``) there instead, which the
-reference's docstring names as that schedule's deployment form.  K8 takes
-positions from tile indices and its masks depend only on the difference of
-a query's and a key's position, so it serves every call whose queries and
-keys share their positions: prefill (at any cache offset) and full-sequence
-calls.  The other flash case, one decode token against more than
-``FLASH_THRESHOLD`` cache slots, raises ``NotImplementedError``.  In bf16 the two differ by design: the reference's
-schedule rounds its scores to bf16 (its einsum runs in the stream dtype),
-K8 keeps them in f32, as the reference's Pallas kernel does.
+switches to its flash schedule in ``lax``; the port takes one of two routes
+there, chosen by the masks alone:
+  * **K8** (``repro_torch.kernels.flash_attention``), which the reference's
+    docstring names as that schedule's deployment form.  K8 takes positions
+    from tile indices, so it serves every call whose queries and keys share
+    their positions (prefill at any cache offset, full-sequence calls) and
+    every bidirectional call without a window, whose mask positions do not
+    enter (cross-attention; the encoder).  It masks key positions past T.
+  * **The block schedule** (:func:`_sdpa_blocks`), the reference's ``lax``
+    schedule on tensors, for causal or windowed queries against keys at
+    other positions: a decode token against more than ``FLASH_THRESHOLD``
+    cache slots.
+``flash_attention.launches`` counts the first route's launches,
+``_sdpa_blocks.calls`` the second's calls.  No route stands in for the
+other when it fails.  In bf16 K8 and the reference differ by design: the
+reference's schedule rounds its scores to bf16 (its einsum runs in the
+stream dtype), K8 keeps them in f32, as the reference's Pallas kernel does;
+the block schedule rounds as the reference's.
 
 Departures from the reference, none of which changes a value:
   * ``KVCache.pos`` is a Python int (the port runs eagerly, so branching on
@@ -23,8 +34,7 @@ Departures from the reference, none of which changes a value:
     returned ``KVCache`` holds the same tensors as the one passed in;
   * the plain schedule scales and masks its f32 scores in place;
   * the reference's ``shard()`` calls are no-ops without a sharding context
-    and are dropped.  ``cross_attention``/``encode_cross_kv`` wait for the
-    whisper and vision architectures.
+    and are dropped.
 """
 from __future__ import annotations
 
@@ -32,14 +42,15 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.zoo.configs.base import ModelConfig
 from repro_torch.zoo.models.layers import rms_norm, rope, softcap
 
-FLASH_THRESHOLD = 4 * 1024 * 1024  # S*T elements above which K8 runs
+FLASH_THRESHOLD = 4 * 1024 * 1024  # S*T elements above which the flash path runs
 Q_CHUNK = 1024
-KV_CHUNK = 1024  # the reference's lax tile; K8 masks a ragged T itself
+KV_CHUNK = 1024  # the block schedule's tiles (the reference's lax schedule's)
 PAD_POS = 1 << 30  # key-position sentinel: fails every mask test
 NEG_INF = -1e30
 
@@ -113,14 +124,11 @@ def _sdpa_plain(q, k, v, q_pos, k_pos, cfg, scale, *, causal, window):
 
 
 def _sdpa_flash(q, k, v, q_pos, k_pos, cfg, scale, *, causal, window):
-    """The flash path: K8 over (B*H, S, hd) queries and (B*KV, T, hd) keys,
-    query head h reading KV head h // G.  K8 runs where queries and keys
-    share their positions (``q_pos is k_pos``)."""
-    if q_pos is not k_pos:
-        raise NotImplementedError(
-            "flash attention of queries against keys at other positions (decode against "
-            f"more than FLASH_THRESHOLD={FLASH_THRESHOLD} cache slots) is not ported: "
-            "ROADMAP Queue 1, item 8")
+    """The flash path: K8 where its tile-index positions give the mask (the
+    queries' and keys' positions are the same tensor, or the call is
+    bidirectional without a window), else the block schedule."""
+    if q_pos is not k_pos and (causal or window):
+        return _sdpa_blocks(q, k, v, q_pos, k_pos, cfg, scale, causal=causal, window=window)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     qf = q.transpose(1, 2).contiguous().view(b * h, s, hd)
@@ -131,6 +139,51 @@ def _sdpa_flash(q, k, v, q_pos, k_pos, cfg, scale, *, causal, window):
     out = flash_attention(qf, kf, vf, causal=causal, window=window, scale=scale,
                           softcap=cfg.attn_softcap or 0.0, q_block=Q_CHUNK, kv_block=t)
     return out.reshape(b, h, s, hd).transpose(1, 2).to(v.dtype)
+
+
+def _sdpa_blocks(q, k, v, q_pos, k_pos, cfg, scale, *, causal, window):
+    """The reference's ``lax`` flash schedule on tensors: query blocks of
+    ``Q_CHUNK``, key blocks of ``KV_CHUNK`` with an online softmax (running
+    max and denominator), padded keys at ``PAD_POS``; scores and the PV
+    product in the stream dtype, as the reference's einsums."""
+    _sdpa_blocks.calls += 1
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qc, kc = min(Q_CHUNK, s), min(KV_CHUNK, t)
+    s_pad, t_pad = -s % qc, -t % kc
+    if s_pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, s_pad))
+        q_pos = F.pad(q_pos, (0, s_pad))
+    if t_pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, t_pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, t_pad))
+        k_pos = F.pad(k_pos, (0, t_pad), value=PAD_POS)
+    q = q.reshape(b, s + s_pad, kvh, g, hd)
+    outs = []
+    for q0 in range(0, s + s_pad, qc):
+        qb, qpos = q[:, q0:q0 + qc], q_pos[q0:q0 + qc]
+        acc = torch.zeros((b, kvh, g, qc, hd), dtype=torch.float32, device=q.device)
+        m = torch.full((b, kvh, g, qc), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, kvh, g, qc), dtype=torch.float32, device=q.device)
+        for k0 in range(0, t + t_pad, kc):
+            kb, vb, kpos = k[:, k0:k0 + kc], v[:, k0:k0 + kc], k_pos[k0:k0 + kc]
+            sc = _scores(qb, kb, cfg, scale)  # (B,KV,G,qc,kc) f32
+            sc.masked_fill_(~_mask(qpos, kpos, causal=causal, window=window), NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            pv = torch.einsum("bkgsc,bckd->bkgsd", p.to(vb.dtype), vb)
+            acc = acc * alpha[..., None] + pv.float()
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (B,qc,KV,G,hd)
+    out = torch.cat(outs, dim=1).reshape(b, s + s_pad, h, hd)
+    return out[:, :s].to(v.dtype)
+
+
+_sdpa_blocks.calls = 0
 
 
 def _sdpa(q, k, v, q_pos, k_pos, cfg, scale, *, causal=True, window=0):
@@ -206,3 +259,31 @@ def attention(
         out = _sdpa(q, k, v, positions, positions, cfg, scale, causal=not bidirectional,
                     window=window)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache
+
+
+def cross_attention(x: torch.Tensor, enc_kv: tuple, p, cfg: ModelConfig) -> torch.Tensor:
+    """Decoder query over precomputed encoder K/V (B, S_enc, KV, hd):
+    bidirectional, no window, no rotary embedding."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    k, v = enc_kv
+    q_pos = torch.zeros((q.shape[1],), dtype=torch.int32, device=x.device)
+    k_pos = torch.zeros((k.shape[1],), dtype=torch.int32, device=x.device)
+    out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), q_pos, k_pos, cfg, cfg.head_dim_**-0.5,
+                causal=False, window=0)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def encode_cross_kv(enc_out: torch.Tensor, p, cfg: ModelConfig):
+    """Project encoder output once into cross-attention K/V.  An encoder
+    output in bf16 beside f32 weights is cast up, as ``jnp`` promotes it."""
+    if enc_out is None:
+        raise ValueError(f"{cfg.name}: a cross-attention layer needs the encoder input "
+                         "(enc_input=...), and none was given")
+    enc_out = enc_out.to(torch.promote_types(enc_out.dtype, p["wk"].dtype))
+    k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"])
+    if "k_norm" in p:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return k, v

@@ -1,11 +1,14 @@
-"""The LM stack (port of ``repro/zoo/models/transformer.py``) for the dense
-attention architectures: ``global`` and ``local`` layers with a dense FFN.
+"""The LM stack (port of ``repro/zoo/models/transformer.py``): attention
+(``global``, ``local``, ``cross+global``), RWKV6 (``rwkv``) and RG-LRU
+(``rglru``) layers with a dense or MoE FFN, per the config's layer pattern,
+and the whisper encoder.
 
 Entry points
 ------------
 ``model_forward(params, cfg, tokens, ...)``
     (B, S) tokens -> (B, S, V) logits; optionally threads a per-layer cache
-    list (prefill/decode: decode is S == 1 against the cache).
+    list (prefill/decode: ``decode=True`` is S == 1 against the cache) and
+    takes the encoder input of the cross-attention archs (``enc_input``).
 
 ``init_cache_tree(cfg, batch, max_seq)``
     the per-layer cache list.
@@ -21,10 +24,11 @@ Departures from the reference, none of which changes a value:
   * f32 weights are cast to ``cfg.dtype`` once, when loaded, where the
     reference casts them per block at every call: the cast values are the
     same;
+  * where the reference's ``jnp`` ops promote a bf16 activation against f32
+    weights (an encoder input in bf16 beside an f32 model), the port casts
+    the activation up first, which is what the promotion computes;
   * the reference's ``shard()`` calls are no-ops without a sharding context
-    and are dropped;
-  * MoE, RWKV6, RG-LRU and cross-attention layers raise
-    ``NotImplementedError`` until their architectures are ported.
+    and are dropped.
 """
 from __future__ import annotations
 
@@ -35,8 +39,16 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.zoo.configs.base import ModelConfig, leaves, tree_map
-from repro_torch.zoo.models.attention import attention, init_cache
+from repro_torch.zoo.models import rglru as rglru_mod
+from repro_torch.zoo.models import rwkv6
+from repro_torch.zoo.models.attention import (
+    attention,
+    cross_attention,
+    encode_cross_kv,
+    init_cache,
+)
 from repro_torch.zoo.models.layers import mlp, rms_norm, softcap
+from repro_torch.zoo.models.moe import moe_apply
 
 
 class ParamDict(nn.Module):
@@ -69,8 +81,11 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> ParamDict:
     Takes the stacked layout (``blocks``: per position of the layer pattern,
     leaves with a leading super-block axis, plus ``tail``) or a per-depth
     ``layers`` list.  Returns a :class:`ParamDict` with ``embed``,
-    ``final_norm``, ``lm_head`` (untied models) and ``layers``, one
-    :class:`ParamDict` per depth; f32 leaves are cast to ``cfg.dtype`` once.
+    ``final_norm``, ``lm_head`` (untied models), ``encoder`` (whisper: its
+    per-depth ``layers``, ``final_norm``, ``pos_embed``) and ``layers``, one
+    :class:`ParamDict` per depth (nested dicts such as RWKV's ``mu`` and the
+    ``(E, d, f)`` expert leaves kept as they are); f32 leaves are cast to
+    ``cfg.dtype`` once.
     """
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
@@ -95,6 +110,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> ParamDict:
         raise ValueError(f"{cfg.name}: {len(layers)} layers in the tree, config has "
                          f"{cfg.num_layers}")
     top = {k: load(tree[k]) for k in ("embed", "final_norm", "lm_head") if tree.get(k) is not None}
+    if cfg.encoder_layers:
+        top["encoder"] = tree_map(load, tree["encoder"])
     return ParamDict({**top, "layers": layers})
 
 
@@ -103,22 +120,59 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> ParamDict:
 # ---------------------------------------------------------------------------
 
 def apply_layer(x: torch.Tensor, lp, cfg: ModelConfig, kind: str, is_moe: bool,
-                cache: Optional[dict]):
+                cache: Optional[dict], enc_out: Optional[torch.Tensor] = None,
+                decode: bool = False):
     """One residual layer.  Returns (x, new_cache_entry)."""
-    if kind not in ("global", "local") or is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: {kind}{' MoE' if is_moe else ''} layers are not ported yet "
-            "(ROADMAP Queue 1, item 8)")
     new_cache: dict = {}
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    window = cfg.sliding_window if kind == "local" else 0
-    kv_cache = cache.get("kv") if cache else None
-    out, nc = attention(h, lp["attn"], cfg, window=window, cache=kv_cache)
-    if nc is not None:
-        new_cache["kv"] = nc
+    if kind in ("global", "local"):
+        window = cfg.sliding_window if kind == "local" else 0
+        kv_cache = cache.get("kv") if cache else None
+        out, nc = attention(h, lp["attn"], cfg, window=window, cache=kv_cache)
+        if nc is not None:
+            new_cache["kv"] = nc
+    elif kind == "cross+global":
+        kv_cache = cache.get("kv") if cache else None
+        out, nc = attention(h, lp["attn"], cfg, cache=kv_cache)
+        if nc is not None:
+            new_cache["kv"] = nc
+        x = x + out.to(x.dtype)
+        h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+        if cache is not None and decode:
+            ckv = (cache["ck"], cache["cv"])
+        else:
+            ckv = encode_cross_kv(enc_out, lp["cross"], cfg)
+        if cache is not None:
+            new_cache["ck"], new_cache["cv"] = ckv
+        out = cross_attention(h, ckv, lp["cross"], cfg)
+    elif kind == "rwkv":
+        st = cache.get("mix") if cache else None
+        if decode or rwkv6.FORCE_SCAN or (st is not None and x.shape[1] <= 4):
+            out, ns = rwkv6.time_mix_scan(h, lp["rwkv"], cfg, st)
+        else:
+            out, ns = rwkv6.time_mix_chunked(h, lp["rwkv"], cfg, st)
+        if cache is not None:
+            new_cache["mix"] = ns
+    elif kind == "rglru":
+        st = cache.get("rec") if cache else None
+        out, ns = rglru_mod.rglru_block(h, lp["rglru"], cfg, st, decode=decode)
+        if cache is not None:
+            new_cache["rec"] = ns
+    else:
+        raise ValueError(kind)
     x = x + out.to(x.dtype)
+
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    x = x + mlp(h, lp["ffn"], cfg.act).to(x.dtype)
+    if is_moe:
+        out = moe_apply(h, lp["moe"], cfg)
+    elif kind == "rwkv":
+        prev = cache.get("ffn_prev") if cache else None
+        out, carry = rwkv6.channel_mix(h, lp["ffn"], prev)
+        if cache is not None:
+            new_cache["ffn_prev"] = carry
+    else:
+        out = mlp(h, lp["ffn"], cfg.act)
+    x = x + out.to(x.dtype)
     return x, new_cache
 
 
@@ -128,18 +182,48 @@ def apply_layer(x: torch.Tensor, lp, cfg: ModelConfig, kind: str, is_moe: bool,
 
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype, device):
     c: dict[str, Any] = {}
-    if kind in ("global", "local"):
+    if kind in ("global", "local", "cross+global"):
         window = cfg.sliding_window if kind == "local" else 0
         window = min(window, max_seq) if window else 0
         c["kv"] = init_cache(cfg, batch, max_seq, window=window, dtype=dtype, device=device)
+    if kind == "cross+global":
+        kv, hd = cfg.num_kv_heads, cfg.head_dim_
+        enc_s = cfg.encoder_seq or cfg.cross_seq
+        c["ck"] = torch.zeros((batch, enc_s, kv, hd), dtype=dtype, device=device)
+        c["cv"] = torch.zeros((batch, enc_s, kv, hd), dtype=dtype, device=device)
+    if kind == "rwkv":
+        st = rwkv6.init_state(cfg, batch, device)
+        c["mix"] = {"s": st["s"], "x_prev": st["x_prev"]}
+        c["ffn_prev"] = st["ffn_prev"]
+    if kind == "rglru":
+        c["rec"] = rglru_mod.init_state(cfg, batch, device)
     return c
 
 
 def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                     device=None) -> list:
     """One cache dict per layer (the reference stacks them per super-block
-    for its scan)."""
+    for its scan).  The recurrent states keep the reference's dtypes (f32
+    state, bf16 carries) whatever ``dtype`` is."""
     return [_layer_cache(cfg, kind, batch, max_seq, dtype, device) for kind in cfg.layer_kinds()]
+
+
+# ---------------------------------------------------------------------------
+# Encoder (whisper)
+# ---------------------------------------------------------------------------
+
+def run_encoder(enc_params, enc_input: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Bidirectional encoder over stub frontend embeddings (B, S_enc, D).
+    The residual stream keeps ``enc_input``'s dtype, as the reference's."""
+    ct = torch.promote_types(enc_input.dtype, enc_params["final_norm"].dtype)
+    x = enc_input + enc_params["pos_embed"][None, : enc_input.shape[1]].to(enc_input.dtype)
+    for lp in enc_params["layers"]:
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        out, _ = attention(h.to(ct), lp["attn"], cfg, bidirectional=True)
+        x = x + out.to(x.dtype)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + mlp(h.to(ct), lp["ffn"], cfg.act).to(x.dtype)
+    return rms_norm(x, enc_params["final_norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -147,16 +231,22 @@ def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bflo
 # ---------------------------------------------------------------------------
 
 def model_forward(params: ParamDict, cfg: ModelConfig, tokens: torch.Tensor, *,
-                  cache: Optional[list] = None, last_only: bool = False):
+                  enc_input: Optional[torch.Tensor] = None, cache: Optional[list] = None,
+                  decode: bool = False, last_only: bool = False):
     """tokens (B, S) -> logits (B, S, V).  Returns (logits, new_cache)."""
     kinds = cfg.layer_kinds()
     x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    enc_out = None
+    if cfg.encoder_layers and enc_input is not None:
+        enc_out = run_encoder(params["encoder"], enc_input, cfg)
+    elif cfg.cross_seq and enc_input is not None:
+        enc_out = enc_input  # vlm: stub patch embeddings are the "encoder"
     new_cache = None if cache is None else []
     for i, lp in enumerate(params["layers"]):
         x, nc = apply_layer(x, lp, cfg, kinds[i], cfg.is_moe_layer(i),
-                            None if cache is None else cache[i])
+                            None if cache is None else cache[i], enc_out, decode)
         if cache is not None:
             new_cache.append(nc)
     if last_only:

@@ -872,3 +872,113 @@ def test_two_lanes_on_one_card_equal_one_lane(cuda, backend):
     np.testing.assert_array_equal(runs[2][0], runs[1][0])
     assert runs[2][1] == runs[1][1] > 0
     assert runs[2][2] == runs[1][2] > 0
+
+
+def _zoo_layer(arch, key, layer=0, seed=0, **kw):
+    """One layer's ``key`` params of the arch's smoke config (``kw`` widens
+    it), drawn on the CPU, every ``zeros``/``ones`` leaf given N(0, 0.01)
+    noise (so token shift, the bonus term and the conv are not zero)."""
+    import dataclasses
+
+    from repro_torch.zoo.configs import base, get_config
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32", **kw)
+    spec = base.param_tree(cfg)["layers"][layer][key]
+    gen = torch.Generator().manual_seed(seed)
+    p = base.materialize(spec, gen)
+    return cfg, base.tree_map(
+        lambda s, a: a if s.init == "normal" else a + 0.1 * torch.randn(
+            a.shape, generator=gen), spec, p)
+
+
+@pytest.mark.parametrize("cf", [4.0, 0.5])
+def test_moe_ffn_on_card_matches_cpu(cuda, cf):
+    """The MoE dispatch (count-sort, slab scatter with overflow, batched
+    expert matmuls, gather) on the card against the same call on the CPU,
+    f32: routes equal, outputs within 1e-5 of max(1, max|cpu|)."""
+    from repro_torch.zoo.configs import base
+    from repro_torch.zoo.models import moe
+
+    cfg, p = _zoo_layer("qwen3-moe-235b-a22b", "moe", capacity_factor=cf, d_model=256,
+                        num_experts=16, top_k=4, moe_d_ff=128)
+    x = torch.randn((2, 200, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    pc = base.tree_map(lambda a: a.to(cuda), p)
+    want_i, _ = moe.route(x.reshape(-1, cfg.d_model), p["router"], cfg)
+    got_i, _ = moe.route(x.reshape(-1, cfg.d_model).to(cuda), pc["router"], cfg)
+    assert torch.equal(got_i.cpu(), want_i)
+    want = moe.moe_ffn(x, p, cfg)
+    got = moe.moe_ffn(x.to(cuda), pc, cfg)
+    _close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("length", [37, 300])
+def test_time_mix_chunked_matches_scan_on_card(cuda, length):
+    """RWKV6's chunked form against the token-by-token scan on the card,
+    with a carried state, f32: within 1e-4 of max(1, max|scan|)."""
+    from repro_torch.zoo.configs import base
+    from repro_torch.zoo.models import rwkv6
+
+    cfg, p = _zoo_layer("rwkv6-3b", "rwkv", d_model=256, mixer_heads=4)
+    p = base.tree_map(lambda a: a.to(cuda), p)
+    gen = torch.Generator(cuda).manual_seed(2)
+    x = torch.randn((2, length, cfg.d_model), generator=gen, device=cuda)
+    state = rwkv6.init_state(cfg, 2, cuda)
+    state["s"] = 0.5 * torch.randn(state["s"].shape, generator=gen, device=cuda)
+    state["x_prev"] = torch.randn((2, cfg.d_model), generator=gen, device=cuda).bfloat16()
+    want, wst = rwkv6.time_mix_scan(x, p, cfg, state)
+    got, gst = rwkv6.time_mix_chunked(x, p, cfg, state)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for g, w in ((got, want), (gst["s"], wst["s"])):
+        assert (g - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.parametrize("length", [1, 100, 4096])
+def test_rg_lru_matches_sequential_loop_on_card(cuda, length):
+    """The RG-LRU's doubling scan against the recurrence one token at a
+    time on the card, with a carried state, f32: within 1e-5 of
+    max(1, max|loop|)."""
+    from repro_torch.zoo.configs import base
+    from repro_torch.zoo.models import rglru
+
+    cfg, p = _zoo_layer("recurrentgemma-9b", "rglru", d_rnn=128, d_model=128)
+    p = base.tree_map(lambda a: a.to(cuda), p)
+    gen = torch.Generator(cuda).manual_seed(3)
+    xr = torch.randn((2, length, cfg.d_rnn_), generator=gen, device=cuda)
+    h0 = torch.randn((2, cfg.d_rnn_), generator=gen, device=cuda)
+    got, fin = rglru.rg_lru(xr, p, h0)
+    a, gx = rglru._gates(xr, p)
+    h, rows = h0, []
+    for t in range(length):
+        h = a[:, t] * h + gx[:, t]
+        rows.append(h)
+    want = torch.stack(rows, 1)
+    _close(got, want)
+    _close(fin, want[:, -1])
+
+
+def test_block_schedule_matches_plain_on_card(cuda):
+    """The flash path at other positions (causal decode queries against more
+    keys than one block, ragged, unwritten slots at PAD_POS, GQA; and a
+    window) on the card: the block schedule against the plain schedule,
+    f32, within 1e-5 of max(1, max|plain|); K8 does not launch."""
+    import dataclasses
+
+    from repro_torch.zoo.configs import get_config
+    from repro_torch.zoo.models import attention as A
+
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-11b"), dtype="float32")
+    gen = torch.Generator(cuda).manual_seed(4)
+    b, s, h, kvh, hd, t = 2, 3, 32, 8, 128, 2500
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda)
+    k = torch.randn((b, t, kvh, hd), generator=gen, device=cuda)
+    v = torch.randn((b, t, kvh, hd), generator=gen, device=cuda)
+    q_pos = torch.arange(2200, 2200 + s, dtype=torch.int32, device=cuda)
+    k_pos = torch.arange(t, dtype=torch.int32, device=cuda)
+    k_pos[2300:] = A.PAD_POS
+    launches, calls = fa.flash_attention.launches, A._sdpa_blocks.calls
+    for window in (0, 700):
+        got = A._sdpa_flash(q, k, v, q_pos, k_pos, cfg, hd**-0.5, causal=True, window=window)
+        want = A._sdpa_plain(q, k, v, q_pos, k_pos, cfg, hd**-0.5, causal=True, window=window)
+        _close(got, want)
+    assert fa.flash_attention.launches == launches and A._sdpa_blocks.calls == calls + 2

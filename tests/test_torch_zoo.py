@@ -116,12 +116,14 @@ def test_spec_trees_equal(arch):
     assert [dataclasses.astuple(s) for s in got] == [dataclasses.astuple(s) for s in want]
 
 
-def test_unported_layer_kinds_raise():
-    cfg = dataclasses.replace(TC.get_config("qwen3-8b", smoke=True), layer_pattern=("rwkv",))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TB.param_tree(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TT.apply_layer(torch.zeros(1, 2, 64), None, cfg, "rglru", False, None)
+def test_registry_holds_every_lm_arch():
+    """The port's registry holds the reference's ten LM architectures, and
+    each builds its full-size and smoke param trees."""
+    assert set(TC.ARCHS) == set(RC.LM_ARCHS) == set(TC.LM_ARCHS)
+    for arch in TC.ARCHS:
+        for smoke in (False, True):
+            tree = TB.param_tree(TC.get_config(arch, smoke))
+            assert len(tree["layers"]) == TC.get_config(arch, smoke).num_layers
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -203,9 +205,14 @@ def test_attention_matches_reference(arch, kind, flash, monkeypatch):
     _close(got, want, 1e-5)
     assert tcache.pos == int(rcache.pos) == 28
     assert len(calls) == (3 if flash else 0)  # the flash path went through K8's wrapper
-    if flash:  # one decode token against the cache: not K8's case
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TA.attention(torch.from_numpy(x[:, :1]), tattn, tc, window=window, cache=tcache)
+    # one decode token against the cache: keys at other positions, so the
+    # flash path takes the block schedule, not K8
+    blocks = TA._sdpa_blocks.calls
+    want, _ = RA.attention(jnp.asarray(x[:, :1]), rattn, rc, window=window, cache=rcache)
+    got, _ = TA.attention(torch.from_numpy(x[:, :1]), tattn, tc, window=window, cache=tcache)
+    _close(got, want, 1e-5)
+    assert len(calls) == (3 if flash else 0)
+    assert TA._sdpa_blocks.calls == blocks + int(flash)
 
 
 # ---------------------------------------------------------------------------
