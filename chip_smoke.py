@@ -226,8 +226,38 @@ Phases (any failure raises and the script exits non-zero):
               ms, decode ms a token, peak bytes, parameters, and for the MoE
               the share of (layer, token) top-k sets that differ between the
               K8 and plain-schedule prefills.
+14. train     the zoo's training path (``repro_torch.training``): qwen3-8b at
+              full width cut to TRAIN_LM_LAYERS of its 36 layers (2.016 B
+              parameters as f32 masters drawn from the per-depth
+              ``param_tree``, as phase 13's), bf16 stream.  (a) one 1 x
+              TRAIN_LM_SEQ microbatch's loss and gradients in bf16 through
+              the block schedule (attention under grad never reaches K8),
+              in bf16 through the plain schedule and in f32 through the
+              plain schedule (the yardstick): the block schedule's relative
+              L2 from f32, over all leaves and each group (embed,
+              attention, mlp, norms, head), within twice the plain
+              schedule's, the loss within twice its distance or one bf16
+              ulp; (b) TRAIN_LM_STEPS ``make_train_step`` steps (AdamW,
+              TRAIN_LM_BATCH x TRAIN_LM_SEQ tokens of
+              ``TokenStream(structure=8)``, TRAIN_LM_MICRO microbatches,
+              remat) through ``ResilientLoop``: every loss and grad norm
+              finite, the block schedule called 2 x layers x microbatches a
+              step, no kernel launched; ms a step, tokens/s, MFU and the
+              peak beside the 16 B/param model, the last step profiled;
+              (c) one ``AdamW8bit`` update from (b)'s state, its moments
+              encoded to int8, against AdamW's on the same gradients, held
+              to the limit Q8_ROW_BOUND implies (``q8_update_bound``), and
+              a full ``AdamW8bit`` step's peak; (d) the trained masters
+              served: one bf16 prefill through K8 (a launch a layer, wgmma)
+              against the plain schedule and the f32 model (phase 7's
+              rule); (e) ``python -m repro_torch.launch.train --arch
+              qwen3-8b --smoke`` in fresh processes under
+              ``chiprun_out/train_launcher``: 6 steps, resumed to 12
+              ("resumed from step 6", steps 6-11 only), and 12 uninterrupted:
+              the two final checkpoints bit-equal (or within 1e-4 relative,
+              said which), a heartbeat written, exit 0 each.
 
-Every driven path of phases 4-13 runs with each kernel's launch count set to
+Every driven path of phases 4-14 runs with each kernel's launch count set to
 0 just before it and read just after; a kernel's ``launches`` in the summary
 is the sum over those paths, and every kernel must have been launched.  The
 line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -337,10 +367,12 @@ TRAIN_EPOCHS, TRAIN_CHECK_STEPS, TRAIN_LOSS_RTOL = 300, 20, 1e-4
 CLI_TIMEOUT_S = 300
 # the service phase: csa-<b> for b in SERVICE_BITS submitted concurrently to a
 # groot Session's batched engine, whose bucket ceiling streams
-# csa-<SERVICE_STREAM_BITS>; then SERVICE_MIX_BITS on groot_fused and groot_mxu
+# csa-<SERVICE_STREAM_BITS>; then SERVICE_MIX_BITS on groot_fused and groot_mxu.
+# csa-384 (1,188,974 nodes) is over the 2^20-node ceiling as csa-512 (2,111,243)
+# was, whose cut held the device worker 32 s on the H100: phase 14 took the time
 SERVICE_BITS = (64, 128, 256)
 SERVICE_RETRY_BITS = 96
-SERVICE_STREAM_BITS = 512
+SERVICE_STREAM_BITS = 384
 SERVICE_MAX_BUCKET_NODES = 2**20
 SERVICE_MIX_BITS = (64, 128, 256)
 SERVICE_TIMEOUT_S = 600
@@ -362,6 +394,20 @@ FAMILY_CHECK_TOKENS = 512
 # seeded noise on every zeros/ones leaf: at init the RG-LRU conv and RWKV's
 # mu, u and w0 are zeros, which makes those layers' parts invisible
 FAMILY_NOISE = 0.1
+# the training phase: qwen3-8b at full width cut to TRAIN_LM_LAYERS of its 36
+# layers (f32 masters, grads and AdamW moments are 16 B a parameter: the 36
+# layers' 131 GB exceed the card, 4 layers are 2.016 B parameters, 32.3 GB),
+# bf16 stream, TRAIN_LM_BATCH x TRAIN_LM_SEQ tokens (+1 for the labels) in
+# TRAIN_LM_MICRO microbatches, remat on, AdamW(TRAIN_LM_LR, weight decay
+# 0.1) as the launcher makes it, on TokenStream(structure=8) batches,
+# TRAIN_LM_STEPS steps through ResilientLoop; then the launcher's own
+# processes at its smoke config, each given TRAIN_LAUNCH_TIMEOUT_S
+TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_MICRO = 4, 4, 4096, 2
+TRAIN_LM_STEPS, TRAIN_LM_LR = 8, 3e-4
+TRAIN_LAUNCH_TIMEOUT_S = 300
+# the int8 moments' row bound (tests/test_infra.py: |decode(encode(x)) - x| <
+# 1.5/127 of the row's largest |x|), from which (c) derives its limit
+Q8_ROW_BOUND = 1.5 / 127
 
 
 def log(msg: str) -> None:
@@ -416,14 +462,17 @@ def bound(bytes_: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_profile(what: str, fn):
+def device_profile(what: str, fn, cpu: bool = True):
     """Run ``fn`` once under torch.profiler with synchronize around it;
     log and return its device time by kernel (self time, device-side events
     only: the aten ops that launched them carry the same time again) beside
-    the wall time."""
+    the wall time.  ``cpu=False`` records the device's activity alone, for
+    a call of tens of thousands of host ops, whose host events take the
+    profiler seconds to collect."""
     import torch
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA] + (
+        [torch.profiler.ProfilerActivity.CPU] if cpu else [])
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1149,6 +1198,387 @@ def families_phase(args, dev, drive, launches: dict, bodies: dict) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"families: {len(FAMILIES)} archs in {rep['wall_s']:.1f} s on {smi}")
+    return rep
+
+
+def rel_l2_by_group(got: list, want: list, names: list) -> dict:
+    """Relative L2 of ``got`` from ``want`` (lists of leaves) over all leaves
+    and over each leaf group (embed, attention, mlp, norms, head)."""
+    def group(name):
+        for key, g in (("['embed']", "embed"), ("['attn']", "attention"), ("['ffn']", "mlp"),
+                       ("['ln", "norms"), ("['lm_head']", "head"), ("['final_norm']", "head")):
+            if key in name:
+                return g
+        return "other"
+
+    num: dict = {}
+    den: dict = {}
+    for g, w, n in zip(got, want, names):
+        k = group(n)
+        num[k] = num.get(k, 0.0) + (g.float() - w.float()).square().sum().item()
+        den[k] = den.get(k, 0.0) + w.float().square().sum().item()
+    out = {k: (num[k] / den[k]) ** 0.5 for k in num}
+    out["all"] = (sum(num.values()) / sum(den.values())) ** 0.5
+    return out
+
+
+def q8_update_bound(opt, grads, state) -> float:
+    """The L2 distance that ``AdamW8bit``'s update may sit from ``AdamW``'s
+    on the same gradients and f32 moments ``state``, when every moment
+    element is off by at most Q8_ROW_BOUND of its row's largest |x| before
+    the step: each element's worst case over the corners of its (m, v) box
+    after the step (v kept at least its fresh (1 - b2) g^2 term, which the
+    step adds in f32; the update is monotone in m and in v, so a corner
+    holds the worst), times lr, in L2 over all leaves.  Weight decay and
+    clipping are the same on both sides and cancel."""
+    import torch
+
+    from repro_torch.training.optimizer import global_norm
+
+    b1, b2, eps = opt.b1, opt.b2, opt.eps
+    t = float(state.step) + 1
+    ms, vs = 1.0 / (1 - b1**t), 1.0 / (1 - b2**t)
+    scale = min(1.0, opt.grad_clip_norm / (global_norm(grads).item() + 1e-12))
+    num = 0.0
+    for g, m0, v0 in zip(grads, state.m, state.v):
+        # dim 0 slices keep the rows (the last dim) whole
+        step = max(1, (1 << 26) // max(1, g[0].numel() if g.dim() > 1 else g.numel()))
+        for i in range(0, g.shape[0] if g.dim() > 1 else 1, step):
+            sl = slice(i, i + step) if g.dim() > 1 else slice(None)
+            gg, mm0, vv0 = g[sl].float() * scale, m0[sl], v0[sl]
+            m = b1 * mm0 + (1 - b1) * gg
+            v = b2 * vv0 + (1 - b2) * gg.square()
+            dm = b1 * Q8_ROW_BOUND * mm0.abs().amax(-1, keepdim=True) + 1e-12
+            dv = b2 * Q8_ROW_BOUND * vv0.abs().amax(-1, keepdim=True) + 1e-12
+            f = lambda mx, vx: ms * mx / (torch.sqrt(vs * vx) + eps)  # noqa: E731
+            u = f(m, v)
+            v_lo = torch.maximum(v - dv, (1 - b2) * gg.square())
+            worst = torch.zeros_like(u)
+            for mc in (m - dm, m + dm):
+                for vc in (v_lo, v + dv):
+                    worst = torch.maximum(worst, (f(mc, vc) - u).abs())
+            num += worst.square().sum().item()
+    return opt.lr * num**0.5
+
+
+def train_phase(args, dev, drive, launches: dict, bodies: dict) -> dict:
+    """Phase 14: the zoo's training path at full width: qwen3-8b cut to
+    TRAIN_LM_LAYERS layers, f32 masters on the card.  (a) loss and gradients
+    of one 1 x TRAIN_LM_SEQ microbatch in bf16 through the block schedule,
+    in bf16 through the plain schedule and in f32 through the plain schedule
+    (the yardstick): phase 7's rule; (b) TRAIN_LM_STEPS AdamW steps through
+    ``ResilientLoop`` (the block schedule under grad, K8 never); (c) one
+    ``AdamW8bit`` update from (b)'s state with its moments encoded, held to
+    the Q8 row bound's limit, and one full ``AdamW8bit`` step's peak; (d) the
+    trained masters served: one bf16 prefill through K8 against the plain
+    schedule and the f32 model; (e) ``python -m repro_torch.launch.train``
+    in fresh processes: a run killed at 6 steps resumed to 12 against an
+    uninterrupted 12.  The final save of (b)'s 24 GB state is skipped (the
+    loop's generator is closed after the last step); (e) covers the
+    checkpoints."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.manager import _flatten_with_names, latest_step
+    from repro_torch.distributed.fault_tolerance import ResilientLoop
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.data import TokenStream, TokenStreamConfig
+    from repro_torch.training.train_step import loss_and_grads, make_train_step
+    from repro_torch.zoo.configs import get_config
+    from repro_torch.zoo.configs.base import leaves
+    from repro_torch.zoo.models import attention as A
+    from repro_torch.zoo.models import transformer as T
+    from repro_torch.zoo.serving.decode import make_prefill_step
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    full = get_config("qwen3-8b")
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LM_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rep: dict = dict(arch=cfg.name, layers=cfg.num_layers, published_layers=full.num_layers,
+                     d_model=cfg.d_model, batch=TRAIN_LM_BATCH, seq=TRAIN_LM_SEQ,
+                     microbatches=TRAIN_LM_MICRO, steps=TRAIN_LM_STEPS, lr=TRAIN_LM_LR,
+                     nvidia_smi=smi)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep["bytes_before"] = before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tree = family_params(cfg, args.seed, dev)
+    params = T.params_from_numpy(tree, cfg, dev, trainable=True)
+    del tree
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    plist = leaves(params)
+    names = [n for n, _ in _flatten_with_names(params)]
+    n_params = sum(p.numel() for p in plist)
+    n_embed = params["embed"].numel()
+    rep.update(parameters=n_params, draw_s=time.perf_counter() - t0,
+               state_model_bytes=16 * n_params)
+    log(f"train {cfg.name}: {cfg.num_layers} of {full.num_layers} layers at full width, "
+        f"{n_params} parameters as f32 masters ({4 * n_params / 1e9:.2f} GB; the 16 B/param "
+        f"model: {16 * n_params / 1e9:.2f} GB), drawn in {rep['draw_s']:.1f} s on {smi}; "
+        f"{before / 1e9:.3f} GB allocated before the phase")
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LM_SEQ,
+                                           global_batch=TRAIN_LM_BATCH, seed=args.seed,
+                                           structure=8))
+
+    # -- (a) one microbatch three ways: bf16 blocks, bf16 plain, f32 plain -----
+    tok1 = torch.as_tensor(stream.batch_at(0)[:1], device=dev)
+
+    def grads_of(c):
+        loss, grads = loss_and_grads(params, c, tok1, remat=True)
+        for p in plist:
+            p.grad = None
+        return loss.item(), grads
+
+    calls0 = A._sdpa_blocks.grad_calls
+    with plain_schedule("train (a): the f32 yardstick"):
+        loss32, g32 = grads_of(cfg32)
+    with plain_schedule("train (a): the bf16 plain schedule"):
+        loss_plain, g_plain = grads_of(cfg)
+    if A._sdpa_blocks.grad_calls != calls0:
+        fail("train (a): the plain schedule ran the block schedule")
+    d_plain = rel_l2_by_group(g_plain, g32, names)
+    del g_plain
+    loss_blk, g_blk = grads_of(cfg)
+    d_blk = rel_l2_by_group(g_blk, g32, names)
+    del g_blk, g32
+    torch.cuda.empty_cache()
+    blk_calls = A._sdpa_blocks.grad_calls - calls0
+    dl_blk, dl_plain = abs(loss_blk - loss32), abs(loss_plain - loss32)
+    # the loss is one number: a bf16 run's loss within one bf16 ulp (2^-8) of
+    # the f32 loss passes whatever the plain schedule's own distance
+    loss_ok = dl_blk <= max(2 * dl_plain, 2**-8 * abs(loss32))
+    grads_ok = all(d_blk[k] <= 2 * d_plain[k] for k in d_blk)
+    rep["parity"] = dict(loss_f32=loss32, loss_bf16_plain=loss_plain, loss_bf16_blocks=loss_blk,
+                         rel_l2_plain_vs_f32=d_plain, rel_l2_blocks_vs_f32=d_blk,
+                         block_schedule_grad_calls=blk_calls)
+    log(f"train (a) 1 x {TRAIN_LM_SEQ}: loss f32 {loss32:.6f}, bf16 plain {loss_plain:.6f}, "
+        f"bf16 blocks {loss_blk:.6f} (|blocks - f32| {dl_blk:.3e}, limit "
+        f"{max(2 * dl_plain, 2**-8 * abs(loss32)):.3e}); gradients' relative L2 from f32, "
+        f"blocks / plain: " + ", ".join(f"{k} {d_blk[k]:.4e} / {d_plain[k]:.4e}" for k in d_blk)
+        + f"; block-schedule calls {blk_calls} {'ok' if loss_ok and grads_ok else 'MISS'}")
+    if blk_calls != 2 * cfg.num_layers:
+        fail(f"train (a): {blk_calls} block-schedule calls under grad, expected "
+             f"{2 * cfg.num_layers} (a forward and a recompute a layer)")
+    if not (loss_ok and grads_ok):
+        fail("train (a): the block schedule's bf16 loss or gradients sit over twice the plain "
+             "schedule's distance from the f32 yardstick")
+
+    # -- (b) TRAIN_LM_STEPS AdamW steps through ResilientLoop -----------------
+    adamw = opt_mod.AdamW(lr=TRAIN_LM_LR, weight_decay=0.1)
+    step_fn = make_train_step(cfg, adamw, microbatches=TRAIN_LM_MICRO, remat=True)
+
+    def loop_step(state, batch):
+        p, o = state
+        p, o, met = step_fn(p, o, {"tokens": torch.as_tensor(batch, device=dev)})
+        return (p, o), met
+
+    ckpt_dir = tempfile.mkdtemp(prefix="train_phase_")
+    loop = ResilientLoop(loop_step, (params, adamw.init(plist)), ckpt_dir=ckpt_dir,
+                         ckpt_every=10 * TRAIN_LM_STEPS)
+    times, metrics = [], []
+
+    def train():
+        run = loop.run((stream.batch_at(s) for s in range(TRAIN_LM_STEPS)),
+                       steps=TRAIN_LM_STEPS)
+        for i in range(TRAIN_LM_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if i == TRAIN_LM_STEPS - 1:
+                (_, met), rep["profile_step"] = device_profile(
+                    f"train step {i} (profiler on, device activity only)", lambda: next(run),
+                    cpu=False)
+            else:
+                _, met = next(run)
+            metrics.append((met["loss"].item(), met["grad_norm"].item()))
+            times.append(time.perf_counter() - t1)
+        run.close()  # no final save of the 24 GB state
+
+    calls0 = A._sdpa_blocks.grad_calls
+    torch.cuda.reset_peak_memory_stats()
+    _, wall = drive("train qwen3-8b", train)
+    peak_b = torch.cuda.max_memory_allocated()
+    grad_calls = A._sdpa_blocks.grad_calls - calls0
+    used = {k: v for k, v in launches["train qwen3-8b"].items() if v}
+    params, state_b = loop.state
+    tokens = TRAIN_LM_BATCH * TRAIN_LM_SEQ
+    step_s = statistics.median(times[1:-1])
+    h, hd = cfg.padded_heads, cfg.head_dim_
+    # model FLOPs: 6 N T over the parameters that multiply (all but the
+    # embedding table, a gather), and causal attention's QK^T and PV (half
+    # the S^2 products) three times (forward, two backward products)
+    attn = 3 * 2 * TRAIN_LM_BATCH * TRAIN_LM_SEQ**2 * h * hd * cfg.num_layers
+    flops = 6 * (n_params - n_embed) * tokens + attn
+    mfu = flops / step_s / PEAK_BF16_FLOPS
+    finite = all(np.isfinite(x) for m in metrics for x in m)
+    want_calls = cfg.num_layers * TRAIN_LM_MICRO * 2 * TRAIN_LM_STEPS
+    rep["train"] = dict(losses=[m[0] for m in metrics], grad_norms=[m[1] for m in metrics],
+                        step_ms=[t * 1e3 for t in times], median_step_ms=step_s * 1e3,
+                        tokens_per_s=tokens / step_s, model_flops_per_step=flops, mfu=mfu,
+                        peak_bytes=peak_b, wall_s=wall, launches=used,
+                        block_schedule_grad_calls=grad_calls, resumed=loop.resumed)
+    log(f"train (b): {TRAIN_LM_STEPS} steps of {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ} tokens "
+        f"({TRAIN_LM_MICRO} microbatches, remat) in {wall:.2f} s: losses "
+        f"{', '.join(f'{m[0]:.4f}' for m in metrics)}; grad norms "
+        f"{', '.join(f'{m[1]:.3f}' for m in metrics)}; step ms "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} (median of steps 1-{TRAIN_LM_STEPS - 2} "
+        f"{step_s * 1e3:.1f} ms: {tokens / step_s:.0f} tokens/s, MFU {mfu:.4f} of "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s dense bf16 at {flops / 1e12:.1f} TFLOP a step); "
+        f"peak {peak_b / 1e9:.2f} GB (16 B/param model {16 * n_params / 1e9:.2f} GB); "
+        f"block-schedule calls {grad_calls} (expected {want_calls}); launches {json.dumps(used)} "
+        f"on {smi}")
+    if used or grad_calls != want_calls:
+        fail(f"train (b): launches {used}, block-schedule calls {grad_calls}; expected no "
+             f"kernel launch and {want_calls} calls")
+    if not finite or len(metrics) != TRAIN_LM_STEPS or loop.resumed:
+        fail(f"train (b): metrics {metrics}, resumed {loop.resumed}")
+    if latest_step(ckpt_dir) is not None:
+        fail("train (b): a checkpoint was written")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # -- (c) AdamW8bit from (b)'s state on the next batch ----------------------
+    adamw8 = opt_mod.AdamW8bit(lr=TRAIN_LM_LR, weight_decay=0.1)
+    tok = torch.as_tensor(stream.batch_at(TRAIN_LM_STEPS), device=dev)
+    _, grads = loss_and_grads(params, cfg, tok, microbatches=TRAIN_LM_MICRO, remat=True)
+    u_ref, st = adamw.update(grads, state_b, plist)
+    del st
+    den = sum(b.float().square().sum().item() for b in u_ref) ** 0.5
+    limit = q8_update_bound(adamw, grads, state_b) / den
+    state_q8 = opt_mod.AdamWState(state_b.step, [opt_mod._q8_encode(m) for m in state_b.m],
+                                  [opt_mod._q8_encode(v) for v in state_b.v])
+    del state_b, loop
+    torch.cuda.empty_cache()
+    u_q8, _ = adamw8.update(grads, state_q8, plist)
+    d_q8 = sum((a - b).float().square().sum().item() for a, b in zip(u_q8, u_ref)) ** 0.5 / den
+    del u_q8, u_ref, grads
+    for p in plist:
+        p.grad = None
+    torch.cuda.empty_cache()
+    step8 = make_train_step(cfg, adamw8, microbatches=TRAIN_LM_MICRO, remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params, state_q8, met = step8(params, state_q8, {"tokens": tok})
+    loss8, gn8 = met["loss"].item(), met["grad_norm"].item()
+    torch.cuda.synchronize()
+    step8_s = time.perf_counter() - t1
+    peak_c = torch.cuda.max_memory_allocated()
+    ok = d_q8 <= limit and np.isfinite(loss8) and np.isfinite(gn8)
+    rep["adamw8bit"] = dict(rel_l2_update_vs_adamw=d_q8, limit=limit, step_ms=step8_s * 1e3,
+                            loss=loss8, grad_norm=gn8, peak_bytes=peak_c,
+                            adamw_peak_bytes=peak_b)
+    log(f"train (c): AdamW8bit update from (b)'s state, moments encoded to int8: relative L2 "
+        f"from the AdamW update {d_q8:.4e} (limit from the Q8 row bound {limit:.4e}) "
+        f"{'ok' if ok else 'MISS'}; a full AdamW8bit step {step8_s * 1e3:.1f} ms, loss "
+        f"{loss8:.4f}, grad norm {gn8:.3f}, peak {peak_c / 1e9:.2f} GB (AdamW steps "
+        f"{peak_b / 1e9:.2f} GB) on {smi}")
+    if not ok:
+        fail(f"train (c): AdamW8bit's update {d_q8:.4e} from AdamW's, over {limit:.4e}")
+    del state_q8
+    torch.cuda.empty_cache()
+
+    # -- (d) the trained masters served through K8 -----------------------------
+    with torch.no_grad():
+        serve_p = T.params_from_numpy(params, cfg, dev)
+        serve32 = T.params_from_numpy(params, cfg32, dev)  # the masters themselves
+    toks = torch.as_tensor(stream.batch_at(TRAIN_LM_STEPS + 1)[:, :TRAIN_LM_SEQ], device=dev)
+    max_seq = TRAIN_LM_SEQ + 1
+    with plain_schedule("train (d): the f32 yardstick prefill"):
+        logits32, _ = make_prefill_step(cfg32, max_seq)(serve32, toks)
+    with plain_schedule("train (d): the bf16 plain-schedule prefill"):
+        plain, _ = make_prefill_step(cfg, max_seq)(serve_p, toks)
+    k8, wall_d = drive("train: trained qwen3-8b prefill",
+                       lambda: make_prefill_step(cfg, max_seq)(serve_p, toks)[0])
+    used = {k: v for k, v in launches["train: trained qwen3-8b prefill"].items() if v}
+    body = bodies["train: trained qwen3-8b prefill"]
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()  # noqa: E731
+    d_k8, d_bf16 = rel(k8, plain), rel(plain, logits32)
+    ok = (d_k8 <= 2 * d_bf16 and bool(torch.isfinite(k8).all())
+          and used == {"flash_attention": cfg.num_layers}
+          and body == {"wgmma": cfg.num_layers, "mma_sync": 0})
+    rep["serve_trained"] = dict(rel_k8_vs_plain=d_k8, rel_plain_vs_f32=d_bf16,
+                                rel_k8_vs_f32=rel(k8, logits32), prefill_ms=wall_d * 1e3,
+                                launches=used, k8_body_launches=body)
+    log(f"train (d): the trained masters served, B={TRAIN_LM_BATCH} S={TRAIN_LM_SEQ} bf16 "
+        f"prefill {wall_d * 1e3:.1f} ms; last-position logits, relative L2: K8 vs plain "
+        f"{d_k8:.4e} (limit 2 x plain vs f32 = {2 * d_bf16:.4e}); launches {json.dumps(used)}, "
+        f"by body {json.dumps(body)} {'ok' if ok else 'MISS'}")
+    if not ok:
+        fail(f"train (d): K8 vs plain {d_k8:.4e} (limit {2 * d_bf16:.4e}), launches {used}, "
+             f"bodies {body}")
+    del serve_p, serve32, params, plist, logits32, plain, k8
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- (e) the launcher in fresh processes: killed at 6, resumed to 12 -------
+    out_dir = ROOT / "chiprun_out" / "train_launcher"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def start(steps, name):
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen3-8b",
+                "--smoke", "--steps", str(steps), "--ckpt-every", "3", "--log-every", "1",
+                "--ckpt-dir", str(out_dir / name)]
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        return argv, proc, time.perf_counter()
+
+    def finish(argv, proc, t1):
+        try:
+            out, err = proc.communicate(timeout=TRAIN_LAUNCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"train (e): {' '.join(argv[2:])} ran past {TRAIN_LAUNCH_TIMEOUT_S} s")
+        lines = out.splitlines()
+        steps_run = [int(ln.split()[1]) for ln in lines if ln.startswith("step ")]
+        log(f"train (e): {' '.join(argv[2:])}: exit {proc.returncode} in "
+            f"{time.perf_counter() - t1:.1f} s; {lines[0] if lines else ''} ... "
+            f"{lines[-2] if len(lines) > 1 else ''}")
+        if proc.returncode:
+            fail(f"train (e): the launcher exited {proc.returncode}: {err[-2000:]}")
+        return lines, steps_run
+
+    # the killed run's first 6 steps and the uninterrupted run side by side,
+    # then the resumed run; every process is stopped whatever fails
+    runs = [start(6, "a"), start(12, "b")]
+    try:
+        first, s_first = finish(*runs[0])
+        whole, s_whole = finish(*runs[1])
+        runs.append(start(12, "a"))
+        resumed, s_resumed = finish(*runs[2])
+    finally:
+        for _, proc, _ in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    if s_first != list(range(6)) or resumed[0] != "resumed from step 6" or \
+            s_resumed != list(range(6, 12)) or s_whole != list(range(12)):
+        fail(f"train (e): steps {s_first}, {resumed[:1]} {s_resumed}, {s_whole}")
+    a = np.load(out_dir / "a" / "step_000000011" / "shard_0.npz")
+    b = np.load(out_dir / "b" / "step_000000011" / "shard_0.npz")
+    bit_equal = sorted(a.files) == sorted(b.files) and all(
+        np.array_equal(a[k], b[k]) for k in a.files)
+    worst = max(float(np.abs(a[k].astype(np.float64) - b[k]).max()
+                      / max(1.0, float(np.abs(b[k]).max()))) for k in b.files)
+    heartbeat = (out_dir / "a" / "heartbeat_0.json").exists()
+    rep["launcher"] = dict(bit_equal=bit_equal, max_rel_err=worst, heartbeat=heartbeat,
+                           losses_resumed=resumed[1:-1], losses_whole=whole[6:-1])
+    log(f"train (e): the resumed run's final checkpoint against the uninterrupted run's: "
+        f"{'bit-equal' if bit_equal else f'not bit-equal, max rel err {worst:.3e} (limit 1e-4)'}"
+        f"; heartbeat {'written' if heartbeat else 'MISSING'}")
+    if not (bit_equal or worst <= 1e-4) or not heartbeat:
+        fail("train (e): the resumed checkpoint differs from the uninterrupted run's")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    rep["bytes_left"] = torch.cuda.memory_allocated()
+    log(f"train phase: {rep['phase_s']:.1f} s")
     return rep
 
 
@@ -2182,13 +2612,13 @@ def service_phase(args, dev, drive, launches: dict) -> dict:
         fail(f"service: {left} bytes left on the card after close")
 
     # each successful ticket against a sync verify of its design and config
-    g512 = designs[SERVICE_STREAM_BITS].to_edge_graph()
-    k = choose_k_for_caps(g512.num_nodes, g512.num_edges, SERVICE_MAX_BUCKET_NODES,
+    g_stream = designs[SERVICE_STREAM_BITS].to_edge_graph()
+    k = choose_k_for_caps(g_stream.num_nodes, g_stream.num_edges, SERVICE_MAX_BUCKET_NODES,
                           min_nodes=64, min_edges=128)
     from repro_torch.exec.plan import build_partition_plan
 
-    while k < g512.num_nodes and any(b.n_pad > SERVICE_MAX_BUCKET_NODES for b in
-                                     build_partition_plan(g512, k).buckets):
+    while k < g_stream.num_nodes and any(b.n_pad > SERVICE_MAX_BUCKET_NODES for b in
+                                     build_partition_plan(g_stream, k).buckets):
         k *= 2
     rep["stream_k"] = k
 
@@ -2494,6 +2924,11 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}: "
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
+    # the caching allocator grows segments in place instead of keeping fixed
+    # ones: phase 14 peaks at 64 GB, and after thirteen phases of other shapes
+    # fixed segments left 32 GiB reserved but free in pieces too small for
+    # its 4.6 GiB logit gradients (it ran alone on fresh segments)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3234,6 +3669,10 @@ def main() -> int:
     # -- 13. families: MoE, RWKV6, RG-LRU, encoder-decoder, cross-attention ------
     torch.cuda.empty_cache()
     report["families"] = families_phase(args, dev, drive, launches, bodies)
+
+    # -- 14. train: the zoo's training path, qwen3-8b at full width, 4 layers ---
+    torch.cuda.empty_cache()
+    report["train_lm"] = train_phase(args, dev, drive, launches, bodies)
 
     total = {kn: sum(counts[kn] for counts in launches.values()) for kn in kernels}
     report["launches"] = launches

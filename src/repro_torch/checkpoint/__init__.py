@@ -1,7 +1,12 @@
-"""Crash-safe checkpointing (port of ``repro/checkpoint``): the streamed
-route's per-partition journal.  The reference's step checkpoints (``save``,
-``restore``, ``latest_step``, ``CheckpointManager``) serve the zoo's
-training loop and are not ported (ROADMAP Queue 1, item 8)."""
-from repro_torch.checkpoint.manager import PartitionJournal  # noqa: F401
+"""Crash-safe checkpointing (port of ``repro/checkpoint``): the zoo's step
+checkpoints (``save``, ``restore``, ``latest_step``, ``CheckpointManager``)
+and the streamed route's per-partition journal."""
+from repro_torch.checkpoint.manager import (  # noqa: F401
+    CheckpointManager,
+    PartitionJournal,
+    latest_step,
+    restore,
+    save,
+)
 
-__all__ = ["PartitionJournal"]
+__all__ = ["CheckpointManager", "PartitionJournal", "latest_step", "restore", "save"]

@@ -1,11 +1,31 @@
-"""Crash-safe per-partition prediction journal for streamed runs (port of
-``repro/checkpoint/manager.py:PartitionJournal``, host numpy).
+"""Fault-tolerant checkpointing (port of ``repro/checkpoint/manager.py``):
+the zoo's step checkpoints (``save``, ``latest_step``, ``restore``,
+``CheckpointManager``) and the streamed route's per-partition journal
+(``PartitionJournal``), host numpy.
 
-The file layout, the atomic commit and the plan fingerprint are the
-reference's, so a journal either package wrote restores in the other.  The
-reference module's step checkpoints (``save``, ``restore``,
-``latest_step``, ``CheckpointManager``) serve the zoo's training loop and
-are not ported (ROADMAP Queue 1, item 8).
+Step checkpoints, one directory per step, the reference's format:
+
+    <dir>/step_000000120.tmp/        written first
+        shard_<host>.npz             leaves as ``leaf_%05d`` arrays
+        manifest.json                step, leaf names, shapes and dtypes
+    <dir>/step_000000120/            atomic rename when complete
+
+A tree's leaves are taken in the reference's flatten order (dict keys
+sorted; lists, tuples and ``NamedTuple``s in order; ``None`` empty), so the
+port's training state ``(params, AdamWState(step, m, v))`` (Q8 moments as
+``(q, scale)``) writes the reference's leaves in the reference's order, and
+each package restores the other's checkpoints.  Leaf names follow JAX's
+``keystr`` (``['blocks'][0]['attn']['wq']``, ``.step``); the port's
+optimizer state holds lists where the reference holds trees, so the names of
+its moments read ``[1].m[5]`` where the reference's read
+``[1].m['blocks'][0]['attn']['wq']``: only the keys are read back.  A bf16
+tensor has no numpy dtype (there is no ``ml_dtypes`` on the card's
+machine), so :func:`save` refuses one with a ``ValueError``; the training
+state holds none.  ``restore`` takes a ``device`` where the reference takes
+``shardings``.
+
+The journal's file layout, the atomic commit and the plan fingerprint are
+the reference's, so a journal either package wrote restores in the other.
 """
 from __future__ import annotations
 
@@ -13,12 +33,162 @@ import hashlib
 import json
 import os
 import shutil
+import threading
+import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import faults
+from repro_torch.zoo.configs.base import leaves, tree_map, unflatten
 
+
+# ---------------------------------------------------------------------------
+# Step checkpoints
+# ---------------------------------------------------------------------------
+
+def _flatten_with_names(tree, prefix: str = "") -> list:
+    """(name, leaf) pairs in :func:`leaves` order, named as JAX's keystr."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flatten_with_names(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for f, t in zip(tree._fields, tree)
+                for x in _flatten_with_names(t, f"{prefix}.{f}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree) for x in _flatten_with_names(t, f"{prefix}[{i}]")]
+    return [] if tree is None else [(prefix, tree)]
+
+
+def _host_copy(leaf) -> np.ndarray:
+    """A leaf as a numpy array of its own (tensors copied off the device)."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            raise ValueError("a bfloat16 leaf has no numpy dtype; cast it to float32 before "
+                             "saving (the training state holds f32 masters)")
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf, copy=True)
+
+
+def save(tree, directory: str | os.PathLike, step: int, *, host_id: int = 0) -> Path:
+    """Synchronous atomic save of a tree of tensors or arrays."""
+    d = Path(directory)
+    final = d / f"step_{step:09d}"
+    tmp = d / (final.name + ".tmp")
+    tmp.mkdir(parents=True, exist_ok=True)
+    arrays = {}
+    manifest = {"step": step, "leaves": [], "hosts": 1}
+    for i, (name, leaf) in enumerate(_flatten_with_names(tree)):
+        arr = leaf if isinstance(leaf, np.ndarray) else _host_copy(leaf)
+        key = f"leaf_{i:05d}"
+        arrays[key] = arr
+        manifest["leaves"].append(
+            {"key": key, "name": name, "shape": list(arr.shape), "dtype": str(arr.dtype)})
+    np.savez(tmp / f"shard_{host_id}.npz", **arrays)
+    (tmp / "manifest.json").write_text(json.dumps(manifest))
+    if final.exists():
+        shutil.rmtree(final)
+    tmp.rename(final)  # atomic publish
+    return final
+
+
+def latest_step(directory: str | os.PathLike) -> Optional[int]:
+    d = Path(directory)
+    if not d.exists():
+        return None
+    steps = []
+    for p in d.iterdir():
+        if p.is_dir() and p.name.startswith("step_") and not p.name.endswith(".tmp"):
+            if (p / "manifest.json").exists():
+                steps.append(int(p.name.split("_")[1]))
+    return max(steps) if steps else None
+
+
+def restore(like_tree, directory: str | os.PathLike, *, step: Optional[int] = None,
+            device=None):
+    """Load a checkpoint into the structure of ``like_tree``.  Returns
+    (tree, step).  A tensor leaf comes back as a tensor of the like leaf's
+    dtype on ``device`` (default: the like leaf's), requiring grad where the
+    like leaf does (an ``nn.Parameter`` as an ``nn.Parameter``); an array
+    leaf as an array of its dtype."""
+    d = Path(directory)
+    step = step if step is not None else latest_step(d)
+    if step is None:
+        raise FileNotFoundError(f"no complete checkpoint under {d}")
+    final = d / f"step_{step:09d}"
+    manifest = json.loads((final / "manifest.json").read_text())
+    with np.load(final / "shard_0.npz") as data:
+        arrays = [data[entry["key"]] for entry in manifest["leaves"]]
+    flat_like = leaves(like_tree)
+    if len(flat_like) != len(arrays):
+        raise ValueError(f"checkpoint has {len(arrays)} leaves, target tree {len(flat_like)}")
+    out = []
+    for like, arr in zip(flat_like, arrays):
+        if isinstance(like, torch.Tensor):
+            t = torch.from_numpy(np.array(arr)).to(
+                device=like.device if device is None else device, dtype=like.dtype)
+            if isinstance(like, torch.nn.Parameter):
+                t = torch.nn.Parameter(t, requires_grad=like.requires_grad)
+            elif like.requires_grad:
+                t.requires_grad_(True)
+            out.append(t)
+        else:
+            out.append(arr.astype(like.dtype) if hasattr(like, "dtype") else arr)
+    return unflatten(like_tree, out), step
+
+
+class CheckpointManager:
+    """Async manager: ``save_async`` snapshots to host memory and writes on
+    a background thread; keeps the newest ``keep`` checkpoints.  ``wait()``
+    joins the write in flight and re-raises its error."""
+
+    def __init__(self, directory: str | os.PathLike, *, keep: int = 3):
+        self.directory = Path(directory)
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self.save_count = 0
+        self.last_error: Optional[BaseException] = None
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error is not None:
+            err, self.last_error = self.last_error, None
+            raise err
+
+    def save_async(self, tree, step: int):
+        self.wait()
+        # snapshot to host memory now: the caller updates its tensors in place
+        host_tree = tree_map(lambda x: None if x is None else _host_copy(x), tree)
+
+        def work():
+            try:
+                save(host_tree, self.directory, step)
+                self._gc()
+                self.save_count += 1
+            except Exception as e:  # noqa: BLE001 - re-raised by wait()
+                self.last_error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def _gc(self):
+        steps = sorted(p for p in self.directory.iterdir()
+                       if p.is_dir() and p.name.startswith("step_"))
+        complete = [p for p in steps if not p.name.endswith(".tmp")]
+        for p in complete[: -self.keep]:
+            shutil.rmtree(p, ignore_errors=True)
+        # orphaned tmp dirs from crashes
+        for p in steps:
+            if p.name.endswith(".tmp") and time.time() - p.stat().st_mtime > 300:
+                shutil.rmtree(p, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Partition journal
+# ---------------------------------------------------------------------------
 
 class PartitionJournal:
     """Crash-safe per-partition prediction journal for streamed runs.

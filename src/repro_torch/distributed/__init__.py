@@ -1,2 +1,3 @@
 """Failure handling shared across layers (reference: ``repro/distributed``):
-the retry/backoff policy of ``fault_tolerance``."""
+the retry/backoff policy and the restartable training loop of
+``fault_tolerance``."""

@@ -23,7 +23,10 @@ rows by 64 keys).  On a CPU tensor the wrapper runs :func:`flash_plain`,
 which follows the kernel's rounding points and walks the keys in the tile
 of the body that (dtype, hd) takes; on a CUDA tensor it launches the kernel
 or raises.  ``flash_attention.launches`` counts the launches,
-``flash_attention.body_launches`` the launches of each body.
+``flash_attention.body_launches`` the launches of each body.  K8 has no
+backward, as the Pallas kernel has none: with grad mode on and an input that
+requires grad, the wrapper raises on every device (the model trains through
+the block schedule of ``zoo/models/attention.py`` instead).
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.groot_spmm import on_cuda, stream
+from repro_torch.kernels.groot_spmm import on_cuda, refuse_grad, stream
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -104,6 +107,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     """K8: q (BH, S, hd), k/v (BH or BH / G, T, hd) -> (BH, S, hd) in q's
     dtype.  CPU tensors run :func:`flash_plain`; CUDA tensors launch the
     kernel."""
+    refuse_grad("flash_attention", q, k, v,
+                instead="under grad the model's attention runs the block schedule "
+                "(repro_torch.zoo.models.attention._sdpa_blocks), which autograd differentiates")
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_attention: q (BH, S, hd) and k/v (BH, T, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

@@ -35,6 +35,7 @@ from repro_torch.kernels.groot_spmm import (
     ld_bucket_plain,
     on_cuda,
     ptr,
+    refuse_grad,
     stage_width,
     staged_out,
     staged_slice,
@@ -130,6 +131,7 @@ def fused_ld_matmul(x_p: torch.Tensor, cols: torch.Tensor, w_mat: torch.Tensor, 
     group (power-of-two degrees), once per slice of :func:`stage_width` and
     per block of W's columns that fits a block's shared memory.
     """
+    refuse_grad("fused_ld_matmul", x_p, w_mat, w)
     rows = check_deg("fused_ld_matmul", cols.shape[0], deg)
     check_weight("fused_ld_matmul", x_p, cols, w, cols.shape[0])
     feat = x_p.shape[1]
@@ -182,6 +184,7 @@ def fused_ld_matmul_grouped(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Ten
     takes power-of-two degrees, once per slice of :func:`stage_width` and
     per block of W's columns that fits a block's shared memory.
     """
+    refuse_grad("fused_ld_matmul_grouped", x_p, wg, w_stack)
     rows = check_deg("fused_ld_matmul_grouped", cols.shape[0], deg)
     check_stream("fused_ld_matmul_grouped", x_p, cols, wg, cols.shape[0])
     g, feat = wg.shape[1], x_p.shape[1]

@@ -448,6 +448,18 @@ def check_weight(name: str, x_p: torch.Tensor, cols: torch.Tensor,
     check_stream(name, x_p, cols, None if w is None else w[:, None], slots)
 
 
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor],
+                instead: str = "call it under torch.no_grad()") -> None:
+    """Raise when grad mode is on and an input requires grad.  The kernels
+    write through ``ctypes`` into fresh outputs and have no backward, so such
+    a result would carry no gradient and train nothing, with no error.  The
+    check runs on every device, before :func:`on_cuda`, so the plain version
+    refuses the same calls; ``instead`` says what to do."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward, so its output would carry "
+                           f"no gradient; {instead}")
+
+
 def on_cuda(name: str, t: torch.Tensor) -> bool:
     """True for a CUDA tensor (the wrapper launches its kernel), False for a
     CPU tensor (it runs the plain version); raises for any other device."""
@@ -613,6 +625,7 @@ def ld_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor, de
     ``mxu`` sends buckets of degree > 1 to K4 (:func:`ld_grouped_mxu_apply`),
     as the reference's ``groot_mxu`` backend does.
     """
+    refuse_grad("ld_grouped_apply", x_p, wg)
     if mxu and deg > 1:
         return ld_grouped_mxu_apply(x_p, cols, wg, deg, out)
     g, rows, feat, out = _grouped_ld_io("ld_grouped_apply", x_p, cols, wg, deg, out)
@@ -663,6 +676,7 @@ def ld_grouped_mxu_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor
     CUDA tensors launch the kernel, which takes power-of-two degrees, once
     per slice of :func:`staged_slices` (x zero-padded to its staged width:
     nothing copied at 4, 8, 16, 32 or a multiple of 32 features)."""
+    refuse_grad("ld_grouped_mxu_apply", x_p, wg)
     g, rows, feat, out = _grouped_ld_io("ld_grouped_mxu_apply", x_p, cols, wg, deg, out)
     if not on_cuda("ld_grouped_mxu_apply", x_p):
         out.copy_(ld_grouped_mxu_plain(x_p, cols, wg, deg))
@@ -767,6 +781,7 @@ def hd_grouped_apply(x_p: torch.Tensor, cols: torch.Tensor, wg: torch.Tensor,
     tensors run :func:`hd_grouped_plain`; CUDA tensors launch the kernel
     (e_t a multiple of 8), once per 32-column slice of a wider row.
     """
+    refuse_grad("hd_grouped_apply", x_p, wg)
     check_hd("hd_grouped_apply", x_p, cols, chunk_meta, row_chunks, e_t)
     check_stream("hd_grouped_apply", x_p, cols, wg, cols.shape[0])
     n_hd = row_chunks.shape[0]
@@ -859,6 +874,7 @@ def ld_bucket_apply(x_p: torch.Tensor, cols: torch.Tensor, deg: int,
     :func:`staged_slices`.  ``ld_bucket_apply.body_launches`` counts the
     launches by body.
     """
+    refuse_grad("ld_bucket_apply", x_p, w)
     rows = check_deg("ld_bucket_apply", cols.shape[0], deg)
     check_weight("ld_bucket_apply", x_p, cols, w, cols.shape[0])
     feat = x_p.shape[1]
@@ -904,6 +920,7 @@ def hd_apply(x_p: torch.Tensor, cols: torch.Tensor, chunk_meta: torch.Tensor,
     :func:`hd_plain`; CUDA tensors launch the kernel (e_t a multiple of 8),
     once per 32-column slice of a wider row.
     """
+    refuse_grad("hd_apply", x_p, w)
     check_hd("hd_apply", x_p, cols, chunk_meta, row_chunks, e_t)
     check_weight("hd_apply", x_p, cols, w, cols.shape[0])
     n_hd, feat = row_chunks.shape[0], x_p.shape[1]

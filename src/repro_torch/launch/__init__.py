@@ -1,1 +1,2 @@
-"""Launchers of the port: the batched serving loop."""
+"""Launchers of the port: the batched serving loop (`serve`), the zoo's
+training loop (`train`) and the host mesh (`mesh`)."""

@@ -1,5 +1,4 @@
-"""Training of the GROOT GNN (port of the graph half of ``repro/training``):
-the hand-written AdamW (``optimizer``) and the host graph batch (``data``).
-The reference's int8-moment AdamW, ``make_optimizer``, ``cosine_schedule``
-and ``TokenStream`` serve the zoo's training and are not ported (ROADMAP
-Queue 1, item 8)."""
+"""Training (port of ``repro/training``): the hand-written optimizers
+(``optimizer``: ``AdamW``, ``AdamW8bit``, ``cosine_schedule``), the data
+pipelines (``data``: the zoo's ``TokenStream``, the GROOT graph batch) and
+the zoo's LM train step (``train_step``: ``lm_loss``, ``make_train_step``)."""

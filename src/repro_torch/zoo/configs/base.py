@@ -294,9 +294,11 @@ def param_tree(cfg: ModelConfig) -> dict:
 
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and the matching leaves of
-    ``rest``), keeping the nesting."""
+    ``rest``), keeping the nesting (dicts, lists, tuples, ``NamedTuple``s)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)
@@ -309,6 +311,29 @@ def leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for t in tree for x in leaves(t)]
     return [] if tree is None else [tree]
+
+
+def _unflatten(t, it):
+    if isinstance(t, dict):
+        return {k: _unflatten(t[k], it) for k in sorted(t)}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_unflatten(x, it) for x in t))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_unflatten(x, it) for x in t)
+    return None if t is None else next(it)
+
+
+def unflatten(like, flat):
+    """A tree shaped as ``like`` with ``flat``'s items as its leaves, in
+    :func:`leaves` order (the inverse of ``leaves``; ``None`` stays ``None``,
+    a ``NamedTuple`` keeps its type).  Module-level recursion: a nested
+    recursive closure would hold ``flat`` in a reference cycle, and with it
+    tensors of an autograd graph until the garbage collector runs."""
+    it = iter(flat)
+    out = _unflatten(like, it)
+    if next(it, None) is not None:
+        raise ValueError("unflatten: more leaves than the tree holds")
+    return out
 
 
 def materialize(tree, generator: torch.Generator, dtype=torch.float32, device=None) -> Any:
@@ -332,30 +357,34 @@ def materialize(tree, generator: torch.Generator, dtype=torch.float32, device=No
     return tree_map(lambda s: None if s is None else mk(s), tree)
 
 
+def _stack(*xs):
+    """One stacked leaf of :func:`stack_layers`: a spec with a leading
+    ``layers`` axis, or arrays/tensors stacked along a new axis 0."""
+    if isinstance(xs[0], ParamSpec):
+        return ParamSpec((len(xs),) + xs[0].shape, ("layers",) + xs[0].axes, xs[0].init,
+                         xs[0].scale)
+    return torch.stack(xs) if isinstance(xs[0], torch.Tensor) else np.stack(xs)
+
+
 def stack_layers(cfg: ModelConfig, tree: dict) -> dict:
-    """Group per-depth layer specs into super-blocks of ``pattern_period``
+    """Group per-depth layers into super-blocks of ``pattern_period``
     layers with a leading ``layers`` axis, as the reference lays out its
     params for ``lax.scan``; a remainder of ``num_layers % period`` layers
-    stays unstacked in ``tail``.  The port runs the layers in a Python loop
-    but keeps this layout, so reference params bridge as they are."""
+    stays unstacked in ``tail``.  Leaves are specs, numpy arrays or
+    tensors.  The port runs the layers in a Python loop but keeps this
+    layout, so reference params bridge as they are."""
     period = cfg.pattern_period
     n_super, _ = divmod(cfg.num_layers, period)
     layers = tree["layers"]
     out = {k: v for k, v in tree.items() if k != "layers"}
     if n_super <= 1:
         out["blocks"] = None
-        out["tail"] = layers
+        out["tail"] = list(layers)
         return out
     body = layers[: n_super * period]
-    out["tail"] = layers[n_super * period:]
-
-    def stack_spec(*xs: ParamSpec) -> ParamSpec:
-        return ParamSpec(
-            (len(xs),) + xs[0].shape, ("layers",) + xs[0].axes, xs[0].init, xs[0].scale
-        )
-
+    out["tail"] = list(layers[n_super * period:])
     out["blocks"] = [
-        tree_map(stack_spec, *[body[j * period + t] for j in range(n_super)])
+        tree_map(_stack, *[body[j * period + t] for j in range(n_super)])
         for t in range(period)
     ]
     return out

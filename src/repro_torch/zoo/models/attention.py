@@ -21,8 +21,12 @@ there, chosen by the masks alone:
     schedule on tensors, for causal or windowed queries against keys at
     other positions: a decode token against more than ``FLASH_THRESHOLD``
     cache slots.
-``flash_attention.launches`` counts the first route's launches,
-``_sdpa_blocks.calls`` the second's calls.  No route stands in for the
+Under grad (grad mode on, an input that requires grad) every flash-path call
+takes the block schedule: K8 has no backward (its wrapper refuses such
+inputs), and the block schedule is what the reference differentiates when it
+trains.  ``flash_attention.launches`` counts K8's launches,
+``_sdpa_blocks.calls`` the block schedule's calls without grad and
+``_sdpa_blocks.grad_calls`` those under grad.  No route stands in for the
 other when it fails.  In bf16 K8 and the reference differ by design: the
 reference's schedule rounds its scores to bf16 (its einsum runs in the
 stream dtype), K8 keeps them in f32, as the reference's Pallas kernel does;
@@ -123,11 +127,18 @@ def _sdpa_plain(q, k, v, q_pos, k_pos, cfg, scale, *, causal, window):
     return out.reshape(b, s, h, hd)
 
 
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def _sdpa_flash(q, k, v, q_pos, k_pos, cfg, scale, *, causal, window):
     """The flash path: K8 where its tile-index positions give the mask (the
     queries' and keys' positions are the same tensor, or the call is
-    bidirectional without a window), else the block schedule."""
-    if q_pos is not k_pos and (causal or window):
+    bidirectional without a window), else the block schedule.  A call that
+    autograd records (grad mode on, an input that requires grad) always runs
+    the block schedule: K8 has no backward, and the reference trains through
+    its ``lax`` schedule, never through the Pallas kernel."""
+    if _wants_grad(q, k, v) or (q_pos is not k_pos and (causal or window)):
         return _sdpa_blocks(q, k, v, q_pos, k_pos, cfg, scale, causal=causal, window=window)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -145,8 +156,13 @@ def _sdpa_blocks(q, k, v, q_pos, k_pos, cfg, scale, *, causal, window):
     """The reference's ``lax`` flash schedule on tensors: query blocks of
     ``Q_CHUNK``, key blocks of ``KV_CHUNK`` with an online softmax (running
     max and denominator), padded keys at ``PAD_POS``; scores and the PV
-    product in the stream dtype, as the reference's einsums."""
-    _sdpa_blocks.calls += 1
+    product in the stream dtype, as the reference's einsums.  A call that
+    autograd records counts in ``_sdpa_blocks.grad_calls``, any other in
+    ``_sdpa_blocks.calls``."""
+    if _wants_grad(q, k, v):
+        _sdpa_blocks.grad_calls += 1
+    else:
+        _sdpa_blocks.calls += 1
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -184,6 +200,7 @@ def _sdpa_blocks(q, k, v, q_pos, k_pos, cfg, scale, *, causal, window):
 
 
 _sdpa_blocks.calls = 0
+_sdpa_blocks.grad_calls = 0
 
 
 def _sdpa(q, k, v, q_pos, k_pos, cfg, scale, *, causal=True, window=0):

@@ -9,24 +9,44 @@ Entry points
     (B, S) tokens -> (B, S, V) logits; optionally threads a per-layer cache
     list (prefill/decode: ``decode=True`` is S == 1 against the cache) and
     takes the encoder input of the cross-attention archs (``enc_input``).
+    ``remat`` checkpoints each super-block (``torch.utils.checkpoint``) and
+    ``remat_group > 1`` each group of that many super-blocks, as the
+    reference's ``jax.checkpoint`` does; neither changes a value.
 
 ``init_cache_tree(cfg, batch, max_seq)``
     the per-layer cache list.
 
 ``params_from_numpy(tree, cfg, device)``
     the weights bridge: the reference's materialised tree (or the port's own
-    :func:`~repro_torch.zoo.configs.base.materialize` output) -> an
-    :class:`nn.Module` of per-layer weights.
+    :func:`~repro_torch.zoo.configs.base.materialize` output) -> the serving
+    form, an :class:`nn.Module` of per-layer weights cast to ``cfg.dtype``;
+    with ``trainable=True`` -> the training form, the reference's stacked
+    tree of f32 ``nn.Parameter`` leaves.
+
+``params_to_numpy(params, cfg)``
+    the inverse bridge: either form -> the reference's stacked tree as numpy
+    arrays (the layout checkpoints are written in).
+
+Two forms of the params:
+  * **serving** (:class:`ParamDict`): per-layer weights, frozen, cast to
+    ``cfg.dtype`` once when loaded, where the reference casts them per block
+    at every call (the cast values are the same);
+  * **training** (a plain dict in the reference's layout: ``blocks`` with a
+    leading super-block axis, ``tail``, ``embed``, ...): the reference's
+    fp32-master scheme.  The leaves stay f32 and are cast to ``cfg.dtype``
+    at the reference's points: ``embed``, ``final_norm``, ``lm_head``,
+    ``encoder`` and ``tail`` up front, each super-block's params when the
+    block runs (inside its checkpoint under remat), so gradients arrive in
+    f32 through the cast, as JAX's do through ``astype``.
 
 Departures from the reference, none of which changes a value:
-  * the layers run in a Python loop: no scan, no remat (the port serves;
-    it does not train), so params and caches are per layer, not stacked;
-  * f32 weights are cast to ``cfg.dtype`` once, when loaded, where the
-    reference casts them per block at every call: the cast values are the
-    same;
+  * the layers run in a Python loop, not a scan; the stacked leaves of the
+    training form are unbound along their super-block axis once a forward;
   * where the reference's ``jnp`` ops promote a bf16 activation against f32
     weights (an encoder input in bf16 beside an f32 model), the port casts
     the activation up first, which is what the promotion computes;
+  * remat applies to calls without a cache (the reference checkpoints cached
+    calls too, which only matters under grad);
   * the reference's ``shard()`` calls are no-ops without a sharding context
     and are dropped.
 """
@@ -36,9 +56,10 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.zoo.configs.base import ModelConfig, leaves, tree_map
+from repro_torch.zoo.configs.base import ModelConfig, leaves, stack_layers, tree_map, unflatten
 from repro_torch.zoo.models import rglru as rglru_mod
 from repro_torch.zoo.models import rwkv6
 from repro_torch.zoo.models.attention import (
@@ -74,24 +95,46 @@ class ParamDict(nn.Module):
         return key in self._parameters or key in self._modules
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> ParamDict:
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None, *, trainable: bool = False):
     """The port's weights from a materialised param tree: numpy arrays (the
     reference's ``materialize`` output through ``np.asarray``) or tensors.
 
     Takes the stacked layout (``blocks``: per position of the layer pattern,
     leaves with a leading super-block axis, plus ``tail``) or a per-depth
-    ``layers`` list.  Returns a :class:`ParamDict` with ``embed``,
+    ``layers`` list.
+
+    Serving form (the default): a :class:`ParamDict` with ``embed``,
     ``final_norm``, ``lm_head`` (untied models), ``encoder`` (whisper: its
     per-depth ``layers``, ``final_norm``, ``pos_embed``) and ``layers``, one
     :class:`ParamDict` per depth (nested dicts such as RWKV's ``mu`` and the
     ``(E, d, f)`` expert leaves kept as they are); f32 leaves are cast to
     ``cfg.dtype`` once.
+
+    Training form (``trainable=True``): the reference's stacked tree (a
+    per-depth one is stacked by :func:`stack_layers`) as a plain dict whose leaves are
+    ``nn.Parameter``s in the tree's own dtype (f32 masters), requiring grad;
+    :func:`model_forward` casts them at use.  Its :func:`leaves` are in the
+    reference's flatten order.
     """
     device = resolve_device(device)
+    if trainable:
+        tree = stack_layers(cfg, tree) if "layers" in tree else tree
+        blocks = tree.get("blocks") or []
+        n = (leaves(blocks[0])[0].shape[0] * len(blocks) if blocks else 0) + len(
+            tree.get("tail") or [])
+        if n != cfg.num_layers:
+            raise ValueError(f"{cfg.name}: {n} layers in the tree, config has {cfg.num_layers}")
+
+        def master(a):  # a copy of its own: the train step updates it in place
+            t = a.to(device, copy=True) if isinstance(a, torch.Tensor) else torch.tensor(
+                a, device=device)
+            return nn.Parameter(t)
+
+        return tree_map(lambda a: None if a is None else master(a), tree)
     dtype = getattr(torch, cfg.dtype)
 
-    def load(a):
-        t = torch.as_tensor(a).to(device)
+    def load(a):  # tensors of the training form are detached: serving keeps no graph
+        t = torch.as_tensor(a).detach().to(device)
         return t.to(dtype) if t.dtype == torch.float32 else t
 
     if "layers" in tree:
@@ -113,6 +156,29 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> ParamDict:
     if cfg.encoder_layers:
         top["encoder"] = tree_map(load, tree["encoder"])
     return ParamDict({**top, "layers": layers})
+
+
+def _as_tree(p):
+    """A :class:`ParamDict` as nested dicts and lists of its tensors."""
+    if isinstance(p, nn.ModuleList):
+        return [_as_tree(m) for m in p]
+    return {**{k: v for k, v in p._parameters.items()},
+            **{k: _as_tree(m) for k, m in p._modules.items()}}
+
+
+def params_to_numpy(params, cfg: ModelConfig) -> dict:
+    """The inverse bridge: the serving form (:class:`ParamDict`) or the
+    training form -> the reference's stacked tree (``blocks`` with a leading
+    super-block axis, ``tail``, ``embed``, ...) as numpy arrays, the layout
+    :func:`params_from_numpy` takes back.  bf16 leaves come back as f32
+    arrays, exactly (numpy has no bf16)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    if isinstance(params, ParamDict):
+        params = stack_layers(cfg, _as_tree(params))
+    return tree_map(lambda t: None if t is None else host(t), params)
 
 
 # ---------------------------------------------------------------------------
@@ -230,32 +296,92 @@ def run_encoder(enc_params, enc_input: torch.Tensor, cfg: ModelConfig) -> torch.
 # Full model
 # ---------------------------------------------------------------------------
 
-def model_forward(params: ParamDict, cfg: ModelConfig, tokens: torch.Tensor, *,
+def _cast(tree, dtype):
+    """f32 leaves of ``tree`` cast to ``dtype`` (the fp32-master cast)."""
+    return tree_map(lambda a: a.to(dtype) if a.dtype == torch.float32 else a, tree)
+
+
+def model_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                   enc_input: Optional[torch.Tensor] = None, cache: Optional[list] = None,
-                  decode: bool = False, last_only: bool = False):
-    """tokens (B, S) -> logits (B, S, V).  Returns (logits, new_cache)."""
+                  decode: bool = False, remat: bool = False, remat_group: int = 1,
+                  last_only: bool = False):
+    """tokens (B, S) -> logits (B, S, V).  Returns (logits, new_cache).
+
+    ``params`` is either form of :func:`params_from_numpy`.  Without a
+    cache, ``remat`` checkpoints each super-block of ``pattern_period``
+    layers, and ``remat_group > 1`` checkpoints each group of that many
+    super-blocks (the blocks inside checkpointed too under ``remat``), as
+    the reference's scan-over-scan does; the remainder layers (``tail``)
+    run unchecked, as the reference's."""
     kinds = cfg.layer_kinds()
-    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    period = cfg.pattern_period
+    n_super = cfg.num_layers // period if cfg.num_layers // period > 1 else 0
+    dtype = getattr(torch, cfg.dtype)
+    if isinstance(params, ParamDict):  # serving: per-layer weights, cast at load
+        top, cast = params, None
+        layers = list(params["layers"])
+        body = [layers[j * period:(j + 1) * period] for j in range(n_super)]
+        tail = layers[n_super * period:]
+    else:  # training: f32 masters in the stacked layout, cast at use
+        top = {k: _cast(params[k], dtype) for k in ("embed", "final_norm", "lm_head", "encoder")
+               if params.get(k) is not None}
+        cast = lambda lp: _cast(lp, dtype)  # noqa: E731
+        blocks = params.get("blocks") or []
+        unbound = [[a.unbind(0) for a in leaves(b)] for b in blocks]
+        body = [[unflatten(b, [u[j] for u in ub]) for b, ub in zip(blocks, unbound)]
+                for j in range(n_super if blocks else 0)]
+        tail = [cast(lp) for lp in params.get("tail") or []]
+    x = top["embed"][tokens.long()].to(dtype)
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     enc_out = None
     if cfg.encoder_layers and enc_input is not None:
-        enc_out = run_encoder(params["encoder"], enc_input, cfg)
+        enc_out = run_encoder(top["encoder"], enc_input, cfg)
     elif cfg.cross_seq and enc_input is not None:
         enc_out = enc_input  # vlm: stub patch embeddings are the "encoder"
     new_cache = None if cache is None else []
-    for i, lp in enumerate(params["layers"]):
+
+    def layer(x, lp, i):
         x, nc = apply_layer(x, lp, cfg, kinds[i], cfg.is_moe_layer(i),
                             None if cache is None else cache[i], enc_out, decode)
         if cache is not None:
             new_cache.append(nc)
+        return x
+
+    def block(x, j):
+        bp = body[j] if cast is None else [cast(lp) for lp in body[j]]  # per-block cast
+        for t, lp in enumerate(bp):
+            x = layer(x, lp, j * period + t)
+        return x
+
+    remat = remat and cache is None
+    # no op of a block draws random numbers, so the recompute needs no saved
+    # RNG state
+    run_block = (lambda x, j: checkpoint(block, x, j, use_reentrant=False,
+                                         preserve_rng_state=False)) if remat else block
+    grouped = 0  # super-blocks run in checkpointed groups of remat_group
+    if remat_group > 1 and cache is None and len(body) > 1:
+        g = remat_group
+        grouped = len(body) - len(body) % g
+
+        def group(x, start):
+            for j in range(start, start + g):
+                x = run_block(x, j)
+            return x
+
+        for start in range(0, grouped, g):
+            x = checkpoint(group, x, start, use_reentrant=False, preserve_rng_state=False)
+    for j in range(grouped, len(body)):
+        x = run_block(x, j)
+    for i, lp in enumerate(tail):
+        x = layer(x, lp, len(body) * period + i)
     if last_only:
         x = x[:, -1:]  # prefill: only the last position feeds the LM head
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, top["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
+        logits = x @ top["embed"].to(x.dtype).T
     else:
-        logits = x @ params["lm_head"]
+        logits = x @ top["lm_head"]
     if cfg.final_softcap:
         logits = softcap(logits.float(), cfg.final_softcap)
     return logits, new_cache

@@ -982,3 +982,73 @@ def test_block_schedule_matches_plain_on_card(cuda):
         want = A._sdpa_plain(q, k, v, q_pos, k_pos, cfg, hd**-0.5, causal=True, window=window)
         _close(got, want)
     assert fa.flash_attention.launches == launches and A._sdpa_blocks.calls == calls + 2
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_train_step_on_card_follows_cpu(cuda, flash, monkeypatch):
+    """One smoke-size qwen3-8b train step (f32, two microbatches, remat) on
+    the card and on the CPU from the same params and batch: loss and grad
+    norm within 1e-5 relative, the moments within 1e-4 of max(1, max|cpu|)
+    (sums in other orders).  With ``flash`` the flash threshold is lowered
+    so that every attention call under grad takes the block schedule: K8
+    does not launch."""
+    import dataclasses
+
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.zoo.configs import get_config
+    from repro_torch.zoo.configs.base import leaves, materialize, model_spec_tree
+    from repro_torch.zoo.models import attention as A
+    from repro_torch.zoo.models.transformer import params_from_numpy
+
+    if flash:
+        monkeypatch.setattr(A, "FLASH_THRESHOLD", 16)
+        monkeypatch.setattr(A, "Q_CHUNK", 8)
+        monkeypatch.setattr(A, "KV_CHUNK", 8)
+    cfg = dataclasses.replace(get_config("qwen3-8b", smoke=True), dtype="float32")
+    tree = materialize(model_spec_tree(cfg), torch.Generator().manual_seed(0))
+    tok = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 33))
+                           .astype(np.int32))
+    out = {}
+    launches, grad_calls = fa.flash_attention.launches, A._sdpa_blocks.grad_calls
+    for dev in ("cpu", cuda):
+        params = params_from_numpy(tree, cfg, dev, trainable=True)
+        optimizer = opt.AdamW(lr=3e-4, weight_decay=0.1)
+        step = make_train_step(cfg, optimizer, microbatches=2, remat=True)
+        _, state, met = step(params, optimizer.init(leaves(params)), {"tokens": tok.to(dev)})
+        out[str(dev)] = (met["loss"].item(), met["grad_norm"].item(),
+                         [m.cpu() for m in state.m + state.v])
+    assert fa.flash_attention.launches == launches
+    assert (A._sdpa_blocks.grad_calls > grad_calls) == flash
+    (cl, cn, cm), (gl, gn, gm) = out["cpu"], out[str(cuda)]
+    assert gl == pytest.approx(cl, rel=1e-5) and gn == pytest.approx(cn, rel=1e-5)
+    for g, c in zip(gm, cm):
+        assert (g - c).abs().max().item() <= 1e-4 * max(1.0, c.abs().max().item())
+
+
+def test_kernels_refuse_grad_on_card(cuda):
+    """K1-K8 have no backward: with grad mode on, each wrapper refuses a
+    CUDA input that requires grad before it launches (no launch counted)."""
+    x = torch.ones((5, 4), device=cuda, requires_grad=True)
+    calls = {
+        gs.ld_grouped_apply: lambda f: f(x, None, None, 2),
+        gs.ld_grouped_mxu_apply: lambda f: f(x, None, None, 2),
+        gs.hd_grouped_apply: lambda f: f(x, None, None, None, None, 512),
+        gs.ld_bucket_apply: lambda f: f(x, None, 2),
+        gs.hd_apply: lambda f: f(x, None, None, None, 512),
+        fs.fused_ld_matmul: lambda f: f(x, None, None, 2),
+        fs.fused_ld_matmul_grouped: lambda f: f(x, None, None, None, 2),
+    }
+    for fn, call in calls.items():
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(fn)
+        assert fn.launches == before
+    q = torch.randn((2, 256, 128), device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.randn((2, 256, 128), device=cuda, dtype=torch.bfloat16)
+    before = fa.flash_attention.launches
+    with pytest.raises(RuntimeError, match="block schedule"):
+        fa.flash_attention(q, k, k)
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, k)
+    assert out.grad_fn is None and fa.flash_attention.launches == before + 1
