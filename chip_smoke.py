@@ -107,7 +107,7 @@ Phases (any failure raises and the script exits non-zero):
               modeled and measured peaks, per-partition times, plan-cache
               builds and launches, accuracy and both verdicts.  (b) the
               paper's input,
-              PART_BATCH x csa-<bits> (134,661,008 nodes at 1024 bits), cut
+              PART_BATCH x csa-<bits> (67,330,504 nodes at 1024 bits), cut
               PART_BATCH_K ways in topological stripes, on ``groot``
               (``Session.verify``) and ``ref`` (the loop): predictions within
               1e-5 of the nodes of each other, status ``classified``, the
@@ -256,6 +256,33 @@ Phases (any failure raises and the script exits non-zero):
               ("resumed from step 6", steps 6-11 only), and 12 uninterrupted:
               the two final checkpoints bit-equal (or within 1e-4 relative,
               said which), a heartbeat written, exit 0 each.
+15. dryrun    the dry run (``repro_torch.launch.dryrun``): (a) the
+              DRYRUN_CELLS on the production meshes (fake process groups of
+              256 and 512 ranks, fake CUDA tensors), each traced by ``python
+              -m repro_torch.launch.dryrun`` in a process of its own, one
+              after another on the host from phase 2 on (after phase 14
+              with ``--dryrun-after``): per-device argument
+              bytes and peak, dot FLOPs, collective bytes by kind, traffic,
+              the roofline's three terms on the H100 and the dominant one,
+              model FLOPs and the useful ratio, K8 calls traced, trace wall.
+              Fails if a cell fails, a useful ratio is over DRY_USEFUL_MAX,
+              qwen3-8b train_4k's f32 params a device are more than
+              DRY_PARAM_TOL from the local shards ``partition_spec`` implies,
+              prefill_32k traces no K8 call or groot-gnn moves a collective
+              byte.  (b) the dry run on a one-device ``"cuda"`` mesh against
+              the card, measured in the phases that hold the weights: phase
+              7's qwen3-8b prefill (B=SERVE_BATCH, S=SERVE_PROMPT, K8 a
+              layer) and phase 14 (b)'s train step; (c) groot-gnn's
+              DRY_GROOT_SHAPE cell (one partition: every node of the batch)
+              with seeded params on a seeded random graph of its dimensions.
+              Each prediction's peak within DRY_PEAK_TOL of
+              ``max_memory_allocated`` around the step (the arguments plus
+              the most allocated above what was allocated before it), its
+              dot FLOPs within DRY_FLOPS_TOL of ``FlopCounterMode`` on the
+              real step (the train step's loss and gradients: its AdamW
+              update does no dot FLOPs), its K8 calls equal to the
+              launches; the roofline's
+              bound beside the measured time.
 
 Every driven path of phases 4-14 runs with each kernel's launch count set to
 0 just before it and read just after; a kernel's ``launches`` in the summary
@@ -347,9 +374,11 @@ FLASH_SDPA = "acef"
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 4096, 32
 # the partitioned phase: (a) csa-<bits> cut PART_K ways (multilevel); (b) the
 # paper's input, PART_BATCH copies of csa-<bits>, cut PART_BATCH_K ways in
-# topological stripes (two a copy, so re-growth has real boundaries)
+# topological stripes (two a copy, so re-growth has real boundaries); the
+# paper's 16 copies (134,661,008 nodes at 1024 bits) took 145-190 s of the
+# script's time limit to partition on the host, and phase 15 needed the time
 PART_K = 4
-PART_BATCH, PART_BATCH_K = 16, 32
+PART_BATCH, PART_BATCH_K = 8, 16
 # (a)'s design: the host's multilevel partitioning of csa-1024 took 120-171 s
 # of the script's time limit; csa-640 still has HD rows (its inputs' fanout
 # degree 640 > E_T), so every grouped kernel runs on its partitions
@@ -369,12 +398,13 @@ CLI_TIMEOUT_S = 300
 # groot Session's batched engine, whose bucket ceiling streams
 # csa-<SERVICE_STREAM_BITS>; then SERVICE_MIX_BITS on groot_fused and groot_mxu.
 # csa-384 (1,188,974 nodes) is over the 2^20-node ceiling as csa-512 (2,111,243)
-# was, whose cut held the device worker 32 s on the H100: phase 14 took the time
-SERVICE_BITS = (64, 128, 256)
+# was, whose cut held the device worker 32 s on the H100: phase 14 took the time;
+# csa-192 stands for csa-256 (its own bucket still), phase 15 took that time
+SERVICE_BITS = (64, 128, 192)
 SERVICE_RETRY_BITS = 96
 SERVICE_STREAM_BITS = 384
 SERVICE_MAX_BUCKET_NODES = 2**20
-SERVICE_MIX_BITS = (64, 128, 256)
+SERVICE_MIX_BITS = (64, 128, 192)
 SERVICE_TIMEOUT_S = 600
 # the sharded phase: phase 8 (a)'s csa-<PART_A_BITS> cut over SHARD_LANES lanes
 # on the one card; capacity 1 packs each partition alone, so each of its two
@@ -405,6 +435,21 @@ FAMILY_NOISE = 0.1
 TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_MICRO = 4, 4, 4096, 2
 TRAIN_LM_STEPS, TRAIN_LM_LR = 8, 3e-4
 TRAIN_LAUNCH_TIMEOUT_S = 300
+# the dry-run phase: (a) the production-mesh cells, each traced by ``python -m
+# repro_torch.launch.dryrun`` in a process of its own on the host, one after
+# another while the card runs phases 2-14 (the traces need no card: fake
+# tensors and a fake process group of 256 or 512 ranks); (b) and (c) hold the
+# dry run's predictions on a one-device mesh against the card
+DRYRUN_CELLS = (("pod", "qwen3-8b", "train_4k"), ("pod", "qwen3-8b", "prefill_32k"),
+                ("pod", "qwen3-8b", "decode_32k"), ("pod", "groot-gnn", "verify_1024b_bs16"),
+                ("multipod", "qwen3-8b", "train_4k"),
+                ("pod", "qwen3-moe-235b-a22b", "train_4k"))
+DRYRUN_TIMEOUT_S = 420          # each cell's process
+DRY_PEAK_TOL = 0.25             # |predicted - measured| peak, of the measured
+DRY_FLOPS_TOL = 1e-3            # the same counter on the same path
+DRY_USEFUL_MAX = 1.05           # model FLOPs over counted dot FLOPs
+DRY_PARAM_TOL = 0.01            # qwen3-8b train_4k's f32 param bytes a device
+DRY_GROOT_SHAPE = "verify_256b_bs16"
 # the int8 moments' row bound (tests/test_infra.py: |decode(encode(x)) - x| <
 # 1.5/127 of the row's largest |x|), from which (c) derives its limit
 Q8_ROW_BOUND = 1.5 / 127
@@ -959,7 +1004,25 @@ def serve_phase(args, dev, drive, launches: dict, bodies: dict) -> dict:
     tok, _, cache = server.decode(params, cache, tok)  # warm
     _, rep["profile_decode"] = device_profile(
         f"qwen3-8b decode step B={SERVE_BATCH}", lambda: server.decode(params, cache, tok))
-    del server, params, cache
+    del server, cache
+    torch.cuda.empty_cache()
+
+    # -- phase 15 (b): the dry run's prediction of this prefill, on the card -----
+    from repro_torch.launch import steps as ST
+    from repro_torch.zoo.configs.shapes import ShapeSpec
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    spec = ShapeSpec("serve_prefill", SERVE_PROMPT, SERVE_BATCH, "prefill")
+    pred = dry_predict(lambda mesh: ST.build_cell(cfg, "prefill_32k", mesh, spec=spec,
+                                                  max_seq=max_seq))
+    args_bytes = sum(p.numel() * p.element_size() for p in params.parameters()) + \
+        toks0.numel() * toks0.element_size()
+    with torch.no_grad():
+        measured = measure_step(lambda: make_prefill_step(cfg, max_seq)(params, toks0), args_bytes)
+    rep["dryrun"] = dry_versus(f"qwen3-8b prefill B={SERVE_BATCH} S={SERVE_PROMPT} (36 layers)",
+                               pred, measured, smi)
+    del params
     torch.cuda.empty_cache()
     return rep
 
@@ -1443,6 +1506,33 @@ def train_phase(args, dev, drive, launches: dict, bodies: dict) -> dict:
         fail("train (b): a checkpoint was written")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
+    # -- phase 15 (b): the dry run's prediction of (b)'s step, on the card ------
+    # the peak is (b)'s over its steps above what the phase began with (the
+    # params, their moments, the step's transients); the FLOPs come from the
+    # step's loss and gradients once more under FlopCounterMode (the AdamW
+    # update does no dot FLOPs), with the gradients then dropped, so that
+    # the params and moments stay as (b) left them
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import steps as ST
+    from repro_torch.zoo.configs.shapes import ShapeSpec
+
+    spec = ShapeSpec("train_step", TRAIN_LM_SEQ, TRAIN_LM_BATCH, "train")
+    pred = dry_predict(lambda mesh: ST.build_cell(cfg, "train_4k", mesh, spec=spec,
+                                                  microbatches=TRAIN_LM_MICRO))
+    tok_f = torch.as_tensor(stream.batch_at(TRAIN_LM_STEPS), device=dev)
+    with FlopCounterMode(display=False) as counter:
+        loss_and_grads(params, cfg, tok_f, microbatches=TRAIN_LM_MICRO, remat=True)
+    torch.cuda.synchronize()
+    for p in leaves(params):
+        p.grad = None
+    rep["dryrun"] = dry_versus(
+        f"qwen3-8b train step, {cfg.num_layers} layers, {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ} tokens "
+        f"in {TRAIN_LM_MICRO} microbatches, remat", pred,
+        dict(peak_bytes=peak_b - before, flops=float(counter.get_total_flops()),
+             k8=used.get("flash_attention", 0), ms=step_s * 1e3), smi)
+    del tok_f
+
     # -- (c) AdamW8bit from (b)'s state on the next batch ----------------------
     adamw8 = opt_mod.AdamW8bit(lr=TRAIN_LM_LR, weight_decay=0.1)
     tok = torch.as_tensor(stream.batch_at(TRAIN_LM_STEPS), device=dev)
@@ -1579,6 +1669,262 @@ def train_phase(args, dev, drive, launches: dict, bodies: dict) -> dict:
     rep["phase_s"] = time.perf_counter() - t_phase
     rep["bytes_left"] = torch.cuda.memory_allocated()
     log(f"train phase: {rep['phase_s']:.1f} s")
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the dry run
+# ---------------------------------------------------------------------------
+
+class DryrunCells:
+    """Phase 15 (a)'s cells, traced one after another by ``python -m
+    repro_torch.launch.dryrun`` on a thread of this process, each process
+    given DRYRUN_TIMEOUT_S; :meth:`stop` kills the one running."""
+
+    def __init__(self, out_dir: Path):
+        import threading
+
+        self.out_dir, self.results, self.proc = out_dir, {}, None
+        self.stopped = False
+        self.thread = threading.Thread(target=self._run, name="dryrun-cells", daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+        for mesh, arch, shape in DRYRUN_CELLS:
+            if self.stopped:
+                return
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                    "--shape", shape, "--mesh", mesh, "--device", "cuda",
+                    "--out", str(self.out_dir)]
+            t0 = time.perf_counter()
+            self.proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
+            try:
+                out, _ = self.proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                out, _ = self.proc.communicate()
+                out += f"\n(killed after {DRYRUN_TIMEOUT_S} s)"
+            self.results[mesh, arch, shape] = dict(
+                rc=self.proc.returncode, wall_s=time.perf_counter() - t0, out=out[-3000:])
+
+    def stop(self):
+        self.stopped = True
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+    def wait(self, timeout: float) -> dict:
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            self.stop()
+            fail(f"dryrun (a): the cells' processes still ran after {timeout:.0f} s more")
+        return self.results
+
+
+def dry_predict(build) -> dict:
+    """The dry run's record of ``build(mesh)``'s cell traced on a one-device
+    ``"cuda"`` mesh (a fake process group of one rank)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun as D
+
+    with D.fake_world(1):
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        return D.run_cell(build(mesh), mesh, "card", save=False, device="cuda")
+
+
+def roofline_ms(rec: dict) -> float:
+    """The roofline's bound on the H100 for a one-device record: the larger
+    of its dot FLOPs at the dense bf16 rate and its traffic at 3.35 TB/s."""
+    from repro_torch.roofline import report as R
+
+    h = rec["hlo"]
+    return max(h["dot_flops_per_device"] / R.PEAK_FLOPS,
+               h["traffic_bytes_per_device"] / R.HBM_BW) * 1e3
+
+
+def dry_versus(tag: str, pred: dict, measured: dict, smi: str) -> dict:
+    """Log the dry run's prediction beside the card's measurement; fail on
+    the peak (DRY_PEAK_TOL), the FLOPs (DRY_FLOPS_TOL) or the K8 count."""
+    p_peak = pred["memory_analysis"]["peak_bytes"]
+    p_flops = pred["hlo"]["dot_flops_per_device"]
+    peak_rel = (p_peak - measured["peak_bytes"]) / measured["peak_bytes"]
+    flops_rel = (p_flops - measured["flops"]) / max(measured["flops"], 1.0)
+    row = dict(predicted_peak_bytes=p_peak, measured_peak_bytes=measured["peak_bytes"],
+               peak_ratio=p_peak / measured["peak_bytes"],
+               predicted_args_bytes=pred["memory_analysis"]["argument_size_in_bytes"],
+               predicted_flops=p_flops, measured_flops=measured["flops"],
+               flops_rel=flops_rel, predicted_k8=pred["k8_traced"],
+               measured_k8=measured["k8"], bound_ms=roofline_ms(pred),
+               measured_ms=measured["ms"], trace_s=pred["timing"]["trace_s"],
+               traffic_bytes=pred["hlo"]["traffic_bytes_per_device"], nvidia_smi=smi)
+    ok = (abs(peak_rel) <= DRY_PEAK_TOL and abs(flops_rel) <= DRY_FLOPS_TOL
+          and pred["k8_traced"] == measured["k8"])
+    log(f"dryrun (b/c) {tag}: peak predicted {p_peak / 1e9:.3f} GB, measured "
+        f"{measured['peak_bytes'] / 1e9:.3f} GB (ratio {row['peak_ratio']:.3f}, limit "
+        f"{1 - DRY_PEAK_TOL:.2f}-{1 + DRY_PEAK_TOL:.2f}); dot FLOPs predicted {p_flops:.6e}, "
+        f"measured {measured['flops']:.6e} ({flops_rel:+.2e}); K8 predicted "
+        f"{pred['k8_traced']}, launched {measured['k8']}; roofline bound "
+        f"{row['bound_ms']:.2f} ms, measured {measured['ms']:.2f} ms; traced in "
+        f"{row['trace_s']:.1f} s on {smi} {'ok' if ok else 'MISS'}")
+    if not ok:
+        fail(f"dryrun {tag}: predicted peak {p_peak} vs {measured['peak_bytes']} measured, "
+             f"FLOPs {p_flops} vs {measured['flops']}, K8 {pred['k8_traced']} vs "
+             f"{measured['k8']}")
+    return row
+
+
+def measure_step(fn, args_bytes: int) -> dict:
+    """One call of ``fn`` on the card: its peak (the arguments' bytes plus
+    the most allocated above what was allocated before it), its ms (CUDA
+    events), its K8 launches; then a second call under ``FlopCounterMode``
+    for its dot FLOPs (K8 by its registered formula)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k0 = fa.flash_attention.launches
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base + args_bytes
+    k8 = fa.flash_attention.launches - k0
+    del out
+    with FlopCounterMode(display=False) as counter:
+        out = fn()
+    torch.cuda.synchronize()
+    del out
+    return dict(peak_bytes=peak, ms=start.elapsed_time(end), k8=k8,
+                flops=float(counter.get_total_flops()))
+
+
+def groot_card_phase(args, dev, smi: str) -> dict:
+    """Phase 15 (c): groot-gnn's DRY_GROOT_SHAPE cell on one device (one
+    partition of the whole batch), predicted and run with seeded params on
+    a seeded random graph of the cell's dimensions."""
+    import torch
+
+    from repro_torch.core import gnn
+    from repro_torch.launch import steps as ST
+    from repro_torch.zoo.configs import get_config
+
+    gcfg = get_config("groot-gnn")
+    pred = dry_predict(lambda mesh: ST.build_groot_cell(gcfg, DRY_GROOT_SHAPE, mesh))
+    bits, batch = ST.GROOT_SHAPES[DRY_GROOT_SHAPE]
+    n_sub, e_sub = ST.groot_graph_dims(bits, batch, 1)
+    model = gnn.init_params(gcfg.gnn, seed=args.seed, device=dev)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    del model
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    ints = lambda hi, n, dt: torch.randint(0, hi, (1, n), generator=gen, device=dev,  # noqa: E731
+                                           dtype=dt)
+    data = {
+        "x": torch.randn((1, n_sub, gcfg.gnn.in_features), generator=gen,
+                         device=dev).to(torch.bfloat16),
+        "edge_src": ints(n_sub, e_sub, torch.int32), "edge_dst": ints(n_sub, e_sub, torch.int32),
+        "edge_inv": ints(2, e_sub, torch.uint8).bool(), "edge_slot": ints(2, e_sub, torch.uint8),
+        "core_mask": ints(10, n_sub, torch.uint8) > 0,
+    }
+    args_bytes = sum(t.numel() * t.element_size() for t in (*params.values(), *data.values()))
+    step = ST.groot_infer_step(gcfg.gnn, n_sub)
+    with torch.no_grad():
+        out = step(params, data)
+        torch.cuda.synchronize()
+        if out.shape != (1, n_sub) or int(out.min()) < -1 or int(out.max()) >= gcfg.gnn.num_classes:
+            fail(f"dryrun (c): predictions of shape {tuple(out.shape)} in "
+                 f"[{int(out.min())}, {int(out.max())}]")
+        del out
+        measured = measure_step(lambda: step(params, data), args_bytes)
+    row = dry_versus(f"groot-gnn {DRY_GROOT_SHAPE} ({n_sub} nodes, {e_sub} edges, hidden "
+                     f"{gcfg.gnn.hidden}, bf16)", pred, measured, smi)
+    row.update(nodes=n_sub, edges=e_sub)
+    del params, data
+    torch.cuda.empty_cache()
+    return row
+
+
+def dryrun_phase(args, dev, cells: DryrunCells, card: dict, smi: str) -> dict:
+    """Phase 15: (a) the production meshes' records against the roofline on
+    the H100; (b) the predictions of phases 7 and 14 (``card``); (c) the
+    GNN cell on the card."""
+    import math
+
+    from repro_torch.launch.mesh import PRODUCTION_MESHES
+    from repro_torch.roofline import report as R
+    from repro_torch.sharding.rules import make_rules, partition_spec
+    from repro_torch.zoo.configs import get_config
+    from repro_torch.zoo.configs.base import leaves, model_spec_tree
+
+    t_phase = time.perf_counter()
+    rep: dict = {"a": {}, "b": card}
+    t0 = time.perf_counter()
+    results = cells.wait(DRYRUN_TIMEOUT_S * len(DRYRUN_CELLS))
+    rep["a_wait_s"] = time.perf_counter() - t0
+    for (mesh, arch, shape) in DRYRUN_CELLS:
+        res = results.get((mesh, arch, shape))
+        tag = f"{arch} x {shape} x {mesh}"
+        path = cells.out_dir / mesh / f"{arch}__{shape}.json"
+        if res is None or res["rc"] != 0 or not path.exists():
+            fail(f"dryrun (a) {tag}: {res['out'] if res else 'never ran'}")
+        rec = json.loads(path.read_text())
+        t = R.terms(rec)
+        h, m = rec["hlo"], rec["memory_analysis"]
+        row = dict(args_bytes=m["argument_size_in_bytes"], peak_bytes=m["peak_bytes"],
+                   dot_flops=h["dot_flops_per_device"],
+                   collective_by_kind=h["collective_by_kind"],
+                   collective_bytes=h["collective_bytes_per_device"],
+                   traffic_bytes=h["traffic_bytes_per_device"], k8_traced=rec["k8_traced"],
+                   trace_s=rec["timing"]["trace_s"], process_s=res["wall_s"],
+                   method=rec.get("method"), **t)
+        rep["a"][tag] = row
+        log(f"dryrun (a) {tag}: args/dev {row['args_bytes'] / 1e9:.3f} GB, peak/dev "
+            f"{row['peak_bytes'] / 1e9:.3f} GB; dot {row['dot_flops']:.4e} FLOP/dev; "
+            f"collectives {json.dumps({k: f'{v:.4e}' for k, v in row['collective_by_kind'].items()})} "
+            f"B/dev; traffic {row['traffic_bytes']:.4e} B/dev; H100 roofline compute "
+            f"{t['compute_s']:.4f} s, memory {t['memory_s']:.4f} s, collective "
+            f"{t['collective_s']:.4f} s -> {t['dominant']}; model {t['model_flops_per_device']:.4e} "
+            f"FLOP/dev, useful ratio {t['useful_ratio']:.4f}; K8 traced {rec['k8_traced']}; "
+            f"traced in {row['trace_s']:.1f} s ({row['process_s']:.1f} s with the process)")
+        if t["useful_ratio"] > DRY_USEFUL_MAX:
+            fail(f"dryrun (a) {tag}: useful ratio {t['useful_ratio']:.4f} over {DRY_USEFUL_MAX}")
+        if shape == "prefill_32k" and rec["k8_traced"] <= 0:
+            fail(f"dryrun (a) {tag}: no K8 call traced")
+        if arch == "groot-gnn" and row["collective_bytes"] != 0:
+            fail(f"dryrun (a) {tag}: {row['collective_bytes']} collective bytes, expected none")
+        if (mesh, arch, shape) == ("pod", "qwen3-8b", "train_4k"):
+            # FSDP + TP applied: the f32 params' bytes a device against the
+            # sum of the local shards partition_spec implies
+            cfg = get_config(arch)
+            shape_mesh, names = PRODUCTION_MESHES[False]
+            stand_in = type("Mesh", (), {"axis_names": names,
+                                         "shape": dict(zip(names, shape_mesh))})()
+            rules = make_rules(stand_in, fsdp=True)
+            want = 0
+            for sp in leaves(model_spec_tree(cfg)):
+                spec = partition_spec(sp.shape, sp.axes, stand_in, rules)
+                split = math.prod(math.prod(shape_mesh[names.index(a)] for a in
+                                            ((e,) if isinstance(e, str) else e))
+                                  for e in spec if e is not None)
+                want += 4 * math.prod(sp.shape) // split
+            got = rec["param_bytes_per_device"]
+            ideal = 4 * cfg.param_count() / math.prod(shape_mesh)
+            rep["param_bytes"] = dict(got=got, partition_spec=want, ideal_4N_over_256=ideal)
+            log(f"dryrun (a) {tag}: f32 params {got} B a device, partition_spec's local "
+                f"shards {want} B ({got / want - 1:+.2e}), 4 N / 256 = {ideal:.4e} B")
+            if abs(got / want - 1) > DRY_PARAM_TOL:
+                fail(f"dryrun (a) {tag}: param bytes {got} vs {want} from partition_spec")
+    rep["c"] = groot_card_phase(args, dev, smi)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"dryrun phase: {rep['phase_s']:.1f} s (waited {rep['a_wait_s']:.1f} s for (a))")
     return rep
 
 
@@ -2918,6 +3264,9 @@ def main() -> int:
                     help="csa width; the smallest that runs every kernel is 513")
     ap.add_argument("--reps", type=int, default=10, help="timed launches per shape")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dryrun-after", action="store_true",
+                    help="trace phase 15 (a)'s cells after phase 14 instead of beside phases "
+                         "2-14 (to time the host-bound phases without them)")
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2957,6 +3306,16 @@ def main() -> int:
     log(smi)
     report["nvidia_smi"] = smi
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+
+    # -- 15 (a), on the host from here on: the production-mesh cells --------------
+    import atexit
+
+    def start_dry_cells() -> DryrunCells:
+        cells = DryrunCells(ROOT / "chiprun_out" / "dryrun_torch")
+        atexit.register(cells.stop)
+        return cells
+
+    dry_cells = None if args.dryrun_after else start_dry_cells()
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3673,6 +4032,11 @@ def main() -> int:
     # -- 14. train: the zoo's training path, qwen3-8b at full width, 4 layers ---
     torch.cuda.empty_cache()
     report["train_lm"] = train_phase(args, dev, drive, launches, bodies)
+
+    # -- 15. the dry run: the production meshes, predictions against the card ---
+    torch.cuda.empty_cache()
+    report["dryrun"] = dryrun_phase(args, dev, dry_cells or start_dry_cells(), dict(
+        prefill=report["serve"]["dryrun"], train=report["train_lm"]["dryrun"]), smi)
 
     total = {kn: sum(counts[kn] for counts in launches.values()) for kn in kernels}
     report["launches"] = launches

@@ -22,19 +22,24 @@ its moments read ``[1].m[5]`` where the reference's read
 tensor has no numpy dtype (there is no ``ml_dtypes`` on the card's
 machine), so :func:`save` refuses one with a ``ValueError``; the training
 state holds none.  ``restore`` takes a ``device`` where the reference takes
-``shardings``.
+``shardings``.  A tree of DTensors (the sharded launcher's state) is saved
+and restored by all ranks together, rank 0 alone writing and reading its
+leaves, one leaf at a time: the checkpoint is the one a single device would
+write (:func:`save`, :func:`restore`).
 
 The journal's file layout, the atomic commit and the plan fingerprint are
 the reference's, so a journal either package wrote restores in the other.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
 import shutil
 import threading
 import time
+import zipfile
 from pathlib import Path
 from typing import Optional
 
@@ -61,6 +66,19 @@ def _flatten_with_names(tree, prefix: str = "") -> list:
     return [] if tree is None else [(prefix, tree)]
 
 
+def _rank() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _is_sharded(tree) -> bool:
+    from repro_torch.sharding.rules import is_dtensor
+
+    return any(is_dtensor(x) for x in leaves(tree))
+
+
 def _host_copy(leaf) -> np.ndarray:
     """A leaf as a numpy array of its own (tensors copied off the device)."""
     if isinstance(leaf, torch.Tensor):
@@ -72,24 +90,50 @@ def _host_copy(leaf) -> np.ndarray:
 
 
 def save(tree, directory: str | os.PathLike, step: int, *, host_id: int = 0) -> Path:
-    """Synchronous atomic save of a tree of tensors or arrays."""
+    """Synchronous atomic save of a tree of tensors or arrays, written to
+    the file one leaf at a time.
+
+    A tree holding DTensors is saved by every rank of the default process
+    group together: each DTensor leaf in turn is gathered whole (a
+    collective, so every rank calls ``save`` at the same point), rank 0
+    alone copies it to the host and writes it, and the other ranks drop
+    it.  The checkpoint is the one a single device would write, and no
+    process holds more than one whole leaf.  Every rank returns once rank 0
+    has published it (a barrier); ``directory`` is rank 0's."""
+    from repro_torch.sharding.rules import is_dtensor
+
+    sharded = _is_sharded(tree)
+    writer = not sharded or _rank() == 0
     d = Path(directory)
     final = d / f"step_{step:09d}"
     tmp = d / (final.name + ".tmp")
-    tmp.mkdir(parents=True, exist_ok=True)
-    arrays = {}
     manifest = {"step": step, "leaves": [], "hosts": 1}
-    for i, (name, leaf) in enumerate(_flatten_with_names(tree)):
-        arr = leaf if isinstance(leaf, np.ndarray) else _host_copy(leaf)
-        key = f"leaf_{i:05d}"
-        arrays[key] = arr
-        manifest["leaves"].append(
-            {"key": key, "name": name, "shape": list(arr.shape), "dtype": str(arr.dtype)})
-    np.savez(tmp / f"shard_{host_id}.npz", **arrays)
-    (tmp / "manifest.json").write_text(json.dumps(manifest))
-    if final.exists():
-        shutil.rmtree(final)
-    tmp.rename(final)  # atomic publish
+    if writer:
+        tmp.mkdir(parents=True, exist_ok=True)
+    # the layout np.savez writes (one stored ``<key>.npy`` member a leaf)
+    with (zipfile.ZipFile(tmp / f"shard_{host_id}.npz", "w", allowZip64=True) if writer
+          else contextlib.nullcontext()) as zf:
+        for i, (name, leaf) in enumerate(_flatten_with_names(tree)):
+            if is_dtensor(leaf):
+                leaf = leaf.full_tensor()
+            if writer:
+                arr = leaf if isinstance(leaf, np.ndarray) else _host_copy(leaf)
+                key = f"leaf_{i:05d}"
+                with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, arr, allow_pickle=False)
+                manifest["leaves"].append({"key": key, "name": name, "shape": list(arr.shape),
+                                           "dtype": str(arr.dtype)})
+                del arr
+            del leaf
+    if writer:
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)  # atomic publish
+    if sharded:
+        import torch.distributed as dist
+
+        dist.barrier()
     return final
 
 
@@ -111,31 +155,60 @@ def restore(like_tree, directory: str | os.PathLike, *, step: Optional[int] = No
     (tree, step).  A tensor leaf comes back as a tensor of the like leaf's
     dtype on ``device`` (default: the like leaf's), requiring grad where the
     like leaf does (an ``nn.Parameter`` as an ``nn.Parameter``); an array
-    leaf as an array of its dtype."""
+    leaf as an array of its dtype.
+
+    A DTensor leaf comes back as a DTensor of the like leaf's placements:
+    every rank of the default process group restores together, rank 0
+    reads the leaf and broadcasts it, and each rank keeps its own shard, so
+    one process reads each DTensor leaf and none holds more than one whole.
+    Every rank reads the manifest and the other leaves, so ``directory``
+    must be one that every rank sees."""
+    from repro_torch.sharding.rules import is_dtensor
+
     d = Path(directory)
     step = step if step is not None else latest_step(d)
     if step is None:
         raise FileNotFoundError(f"no complete checkpoint under {d}")
     final = d / f"step_{step:09d}"
     manifest = json.loads((final / "manifest.json").read_text())
-    with np.load(final / "shard_0.npz") as data:
-        arrays = [data[entry["key"]] for entry in manifest["leaves"]]
     flat_like = leaves(like_tree)
-    if len(flat_like) != len(arrays):
-        raise ValueError(f"checkpoint has {len(arrays)} leaves, target tree {len(flat_like)}")
+    if len(flat_like) != len(manifest["leaves"]):
+        raise ValueError(f"checkpoint has {len(manifest['leaves'])} leaves, target tree "
+                         f"{len(flat_like)}")
+    root = _rank() == 0
     out = []
-    for like, arr in zip(flat_like, arrays):
-        if isinstance(like, torch.Tensor):
-            t = torch.from_numpy(np.array(arr)).to(
-                device=like.device if device is None else device, dtype=like.dtype)
+    with np.load(final / "shard_0.npz") as data:  # members are read on access
+        for like, entry in zip(flat_like, manifest["leaves"]):
+            if not isinstance(like, torch.Tensor):
+                arr = data[entry["key"]]
+                out.append(arr.astype(like.dtype) if hasattr(like, "dtype") else arr)
+                continue
+            dev = like.device if device is None else device
+            if is_dtensor(like):
+                t = _from_root(data[entry["key"]] if root else None, like, dev)
+            else:
+                t = torch.from_numpy(np.array(data[entry["key"]])).to(device=dev,
+                                                                      dtype=like.dtype)
             if isinstance(like, torch.nn.Parameter):
                 t = torch.nn.Parameter(t, requires_grad=like.requires_grad)
             elif like.requires_grad:
                 t.requires_grad_(True)
             out.append(t)
-        else:
-            out.append(arr.astype(like.dtype) if hasattr(like, "dtype") else arr)
     return unflatten(like_tree, out), step
+
+
+def _from_root(arr: Optional[np.ndarray], like, dev):
+    """Rank 0's whole ``arr`` broadcast to every rank and placed as the
+    DTensor ``like`` (each rank keeps its own shard of its copy)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    if arr is None:
+        t = torch.empty(tuple(like.shape), dtype=like.dtype, device=dev)
+    else:
+        t = torch.from_numpy(np.array(arr)).to(device=dev, dtype=like.dtype)
+    dist.broadcast(t, src=0)
+    return distribute_tensor(t, like.device_mesh, like.placements, src_data_rank=None)
 
 
 class CheckpointManager:
@@ -160,6 +233,14 @@ class CheckpointManager:
 
     def save_async(self, tree, step: int):
         self.wait()
+        if _is_sharded(tree):
+            # DTensor leaves are gathered by collectives, which must keep
+            # their order among the step's own: saved now, on this thread
+            save(tree, self.directory, step)
+            if _rank() == 0:
+                self._gc()
+            self.save_count += 1
+            return
         # snapshot to host memory now: the caller updates its tensors in place
         host_tree = tree_map(lambda x: None if x is None else _host_copy(x), tree)
 

@@ -27,11 +27,21 @@ or raises.  ``flash_attention.launches`` counts the launches,
 backward, as the Pallas kernel has none: with grad mode on and an input that
 requires grad, the wrapper raises on every device (the model trains through
 the block schedule of ``zoo/models/attention.py`` instead).
+
+On the card the launch goes through a custom op,
+``torch.ops.repro_torch.flash_attention`` (:func:`_flash_op`), so the dry
+run can trace the program the card runs: on a fake CUDA tensor (a
+``FakeTensorMode`` trace) the op's fake implementation returns an empty
+output of q's shape and dtype and launches nothing, the wrapper counts the
+call in ``flash_attention.traced`` (never in ``launches``), and
+``torch.utils.flop_counter`` bills it :func:`flash_flops`, the attended
+(query, key) pairs only.  A DTensor sharding rule splits it over BH.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -128,13 +138,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    fake = is_fake(q)
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous() or x.device != q.device or x.data_ptr() % 16:
+        if not x.is_contiguous() or x.device != q.device or (not fake and x.data_ptr() % 16):
             raise ValueError(f"flash_attention: {name} must be contiguous, 16-byte aligned "
                              f"and on {q.device}")
     if bh > 65535 or s <= 0 or t <= 0:
         raise ValueError(f"flash_attention: BH={bh} (at most 65535), S={s}, T={t}")
-    # TMA (the wgmma body) needs a 16-byte aligned base: the check above
+    if fake:
+        flash_attention.traced += 1
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal), int(window),
+                                                 float(scale), float(softcap))
+
+
+flash_attention.launches = 0
+flash_attention.body_launches = dict.fromkeys(BODY_IDS, 0)
+flash_attention.traced = 0
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """True for a tensor of a ``FakeTensorMode`` trace (no storage)."""
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+
+    return _is_fake(t)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+              scale: float, softcap: float) -> torch.Tensor:
+    """K8's launch on validated CUDA tensors (see :func:`flash_attention`)."""
+    bh, s, hd = q.shape
+    t = k.shape[1]
+    # TMA (the wgmma body) needs a 16-byte aligned base: the wrapper checks it
     body = BODIES[(q.dtype, hd)]
     out = torch.empty_like(q)
     rc = build.library("flash_attention").flash_attention(
@@ -148,5 +183,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     return out
 
 
-flash_attention.launches = 0
-flash_attention.body_launches = dict.fromkeys(BODY_IDS, 0)
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window, scale, softcap):
+    return torch.empty_like(q)
+
+
+def attended_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that K8's mask keeps: the work the data needs."""
+    qi = np.arange(s)
+    hi = np.minimum(qi, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(qi - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_flops(q_shape, k_shape, causal: bool, window: int) -> int:
+    """K8's dot FLOPs: QK^T and PV over the attended pairs only, 4·hd a pair
+    and a query row."""
+    bh, s, hd = q_shape
+    return 4 * bh * hd * attended_pairs(s, k_shape[1], causal, window)
+
+
+def _register_cost_and_sharding() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _flops(q_shape, k_shape, v_shape, causal, window, scale, softcap, *args, out_shape=None,
+               **kwargs) -> int:
+        return flash_flops(q_shape, k_shape, causal, window)
+
+    try:
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import register_sharding
+    except ImportError:  # a build without torch.distributed
+        return
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _rule(q, k, v, causal, window, scale, softcap):
+        # query rows and their KV rows split alike over BH, or all replicated
+        return [([Shard(0)], [Shard(0), Shard(0), Shard(0), None, None, None, None]),
+                ([Replicate()], [Replicate(), Replicate(), Replicate(), None, None, None, None])]
+
+
+_register_cost_and_sharding()

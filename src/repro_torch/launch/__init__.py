@@ -1,2 +1,3 @@
 """Launchers of the port: the batched serving loop (`serve`), the zoo's
-training loop (`train`) and the host mesh (`mesh`)."""
+training loop (`train`), the host and production meshes (`mesh`), the step
+builders (`steps`) and the multi-pod dry run (`dryrun`)."""

@@ -7,9 +7,12 @@ state.  :func:`visible_devices` is the port's counterpart of
 as a ``(data, model)`` grid, which :class:`repro_torch.mesh.MeshRunner`
 reads lane by lane along the data axis.
 
-The reference's ``make_production_mesh`` (a 256-chip TPU pod for the zoo's
-dry run) is not ported here: it belongs to the zoo's tooling (ROADMAP
-Queue 1, item 8).
+:func:`make_production_mesh` is the zoo's production mesh, a
+``torch.distributed`` ``DeviceMesh`` of the reference's shape and axis
+names: ``(16, 16)`` ``("data", "model")`` over 256 ranks, or ``(2, 16, 16)``
+``("pod", "data", "model")`` over 512.  It needs a process group of that
+world size: a real one (``torchrun`` on 256 or 512 GPUs) or the fake
+backend the dry run opens for itself (``launch/dryrun.py:fake_world``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,31 @@ from repro_torch import resolve_device
 
 class MeshConfigError(ValueError):
     """The requested mesh shape cannot be built from the visible devices."""
+
+
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The production ``DeviceMesh``: 256 ranks as ``(data 16, model 16)``,
+    or 512 as ``(pod 2, data 16, model 16)`` with ``multi_pod``.  Raises
+    :class:`MeshConfigError` naming the world size it needs when no process
+    group of that size is initialised."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, names = PRODUCTION_MESHES[bool(multi_pod)]
+    need = int(np.prod(shape))
+    have = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 0
+    if have != need:
+        raise MeshConfigError(
+            f"the {'multi-pod' if multi_pod else 'pod'} mesh {shape} {names} needs a process "
+            f"group of {need} ranks (torchrun, or the dry run's fake backend); "
+            + (f"the initialised one has {have}" if have else "none is initialised"))
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 def visible_devices(device=None) -> list:

@@ -14,10 +14,16 @@ masters; the optimizer is ``AdamW(lr, weight_decay=0.1)``; the step is
 archs get the reference's zeros stub input.  ``--ckpt-dir`` defaults to
 ``repro_ckpt`` in the temporary directory (``TMPDIR``).
 
-``--mesh host`` runs on the one device.  ``--mesh pod|multipod`` (the
-reference's production meshes) needs the sharding rules and the pod mesh,
-which the next slice of the port brings (ROADMAP Queue 1 item 8): it raises,
-and never runs on one device instead.
+``--mesh host`` runs on the one device.  ``--mesh pod|multipod`` runs one
+rank of the reference's production mesh: it needs a 256- or 512-rank
+``torchrun`` world (``MeshConfigError`` otherwise, naming the size), builds
+``make_production_mesh``, places the params and the optimizer state by
+``launch/steps.py``'s train shardings (:func:`place_train_state`: FSDP
+over "data" and TP over "model") and trains under ``use_sharding``; the
+batch is split over the batch axes.  The ranks share one checkpoint
+directory, which every rank must see: rank 0 alone writes and reads the
+state there, one leaf at a time, in the single-device format
+(``checkpoint/manager.py``); each rank beats its own heartbeat file.
 """
 from __future__ import annotations
 
@@ -27,15 +33,53 @@ import tempfile
 import time
 
 import torch
+from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.distributed.fault_tolerance import ResilientLoop
+from repro_torch.sharding.rules import is_dtensor, use_sharding
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.data import TokenStream, TokenStreamConfig
 from repro_torch.training.train_step import make_train_step
 from repro_torch.zoo.configs import get_config
-from repro_torch.zoo.configs.base import leaves, materialize, model_spec_tree
+from repro_torch.zoo.configs.base import leaves, materialize, model_spec_tree, tree_map
 from repro_torch.zoo.models.transformer import params_from_numpy
+
+
+def place_train_state(tree, cfg, mesh, optimizer):
+    """The f32 masters of a materialised param tree and their optimizer
+    state as DTensors on ``mesh``, placed by the train cells' shardings
+    (``launch/steps.py``: FSDP over "data", TP over "model"; Q8 moments as
+    their params).  Every rank passes the same ``tree``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.steps import _leaf_placements, opt_state_shardings
+    from repro_torch.sharding.rules import as_dtensor, make_rules, tree_shardings
+
+    spec = model_spec_tree(cfg)
+    p_shard = tree_shardings(spec, mesh, make_rules(mesh, fsdp=True))
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+
+    def place(a, pl):
+        if a is None:
+            return None
+        t = torch.as_tensor(a).to(device=dev, dtype=torch.float32)
+        return nn.Parameter(distribute_tensor(t, mesh, pl))
+
+    params = tree_map(place, tree, p_shard)
+    opt_state = optimizer.init(leaves(params))
+    o_shard = opt_state_shardings(opt_state, _leaf_placements(p_shard), mesh)
+    opt_state = tree_map(lambda z, pl: as_dtensor(z, mesh, pl), opt_state, o_shard)
+    return params, opt_state
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """A batch every rank holds alike, split over the batch axes."""
+    from repro_torch.launch.steps import _batch_sharding
+    from repro_torch.sharding.rules import as_dtensor
+
+    return {k: as_dtensor(v, mesh, _batch_sharding(mesh, v.shape)) for k, v in batch.items()}
 
 
 def main(argv=None, device=None):
@@ -53,21 +97,27 @@ def main(argv=None, device=None):
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes need the sharding rules and "
-            "launch/mesh.py:make_production_mesh, which the port's next slice brings "
-            "(ROADMAP Queue 1 item 8); --mesh host runs on one device")
     dev = resolve_device(device)
     cfg = get_config(args.arch, smoke=args.smoke)
 
     optimizer = opt_mod.AdamW(lr=args.lr, weight_decay=0.1)
     step_fn = make_train_step(cfg, optimizer, microbatches=args.microbatches, remat=True)
 
+    mesh, rank = None, 0
+    if args.mesh != "host":
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_production_mesh
+
+        mesh = make_production_mesh(multi_pod=args.mesh == "multipod", device_type=dev.type)
+        rank = dist.get_rank()
     tree = materialize(model_spec_tree(cfg), torch.Generator(dev).manual_seed(0), torch.float32)
-    params = params_from_numpy(tree, cfg, dev, trainable=True)
+    if mesh is None:
+        params = params_from_numpy(tree, cfg, dev, trainable=True)
+        opt_state = optimizer.init(leaves(params))
+    else:
+        params, opt_state = place_train_state(tree, cfg, mesh, optimizer)
     del tree
-    opt_state = optimizer.init(leaves(params))
     n_enc = cfg.encoder_seq or cfg.cross_seq
 
     def loop_step(state, batch):
@@ -76,13 +126,17 @@ def main(argv=None, device=None):
         if n_enc:
             b["enc_input"] = torch.zeros((batch.shape[0], n_enc, cfg.d_model),
                                          dtype=torch.bfloat16, device=dev)
-        params, opt_state, metrics = step_fn(params, opt_state, b)
+        if mesh is not None:
+            b = shard_batch(b, mesh)
+        with use_sharding(mesh, fsdp=True):
+            params, opt_state, metrics = step_fn(params, opt_state, b)
+        metrics = {k: v.full_tensor() if is_dtensor(v) else v for k, v in metrics.items()}
         return (params, opt_state), metrics
 
     stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                                            global_batch=args.global_batch))
     loop = ResilientLoop(loop_step, (params, opt_state), ckpt_dir=args.ckpt_dir,
-                         ckpt_every=args.ckpt_every, device=dev)
+                         ckpt_every=args.ckpt_every, device=dev, host_id=rank)
     if loop.resumed:
         print(f"resumed from step {loop.step}")
 

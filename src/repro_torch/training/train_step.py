@@ -26,9 +26,12 @@ Departures from the reference, none of which changes a value:
     dropped (``.grad = None``) once the optimizer has used them;
   * the optimizer takes the params' :func:`~repro_torch.zoo.configs.base.leaves`
     (the reference's flatten order, dict keys sorted), so its state lines up
-    with the reference's leaf for leaf;
-  * the reference's ``constrain_like_params`` and ``shard`` calls do nothing
-    without a sharding context and are dropped.
+    with the reference's leaf for leaf.
+
+Under a sharding context the params are DTensors; the gradients are pinned
+to the params' logical axes once accumulated (the reference's
+``constrain_like_params``: the ZeRO-style reduce-scatter onto the FSDP
+shards), a no-op without a context.
 """
 from __future__ import annotations
 
@@ -36,8 +39,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding import rules as sh
+from repro_torch.sharding.rules import shard
 from repro_torch.training import optimizer as opt_mod
-from repro_torch.zoo.configs.base import ModelConfig, leaves
+from repro_torch.zoo.configs.base import ModelConfig, leaves, model_spec_tree
 from repro_torch.zoo.models.transformer import model_forward
 
 
@@ -53,8 +58,34 @@ def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
         col = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(col < cfg.vocab_size, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return (lse - picked).mean()
+    return (lse - _picked(logits, labels)).mean()
+
+
+def _picked(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label's logit of each position.  Over vocab-sharded DTensor
+    logits each rank gathers the labels in its slice of the vocabulary and
+    the partial results sum over the ranks that split it."""
+    if not sh.is_dtensor(logits):
+        return logits.gather(-1, labels.long()[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    lp = tuple(logits.placements)
+    n, lo = sh.local_range(logits, 2)
+    out = [Partial() if p == Shard(2) else (p if p == Shard(0) else Replicate()) for p in lp]
+    lab = [Shard(0) if p == Shard(0) else Replicate() for p in lp]
+
+    def local(lg, lb):
+        idx = lb.long() - lo
+        ok = (idx >= 0) & (idx < n)
+        v = lg.gather(-1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where(ok, v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+    fn = local_map(local, out_placements=out, in_placements=(list(lp), lab),
+                   in_grad_placements=(list(lp), lab), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(logits, labels).redistribute(mesh, lab)
 
 
 def loss_and_grads(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -71,11 +102,10 @@ def loss_and_grads(params, cfg: ModelConfig, tokens: torch.Tensor,
     b = tokens.shape[0]
     if b % microbatches:
         raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
-    mb = b // microbatches
     loss = None
     for i in range(microbatches):
-        enc = None if enc_input is None else enc_input[i * mb:(i + 1) * mb]
-        li = lm_loss(params, cfg, tokens[i * mb:(i + 1) * mb], enc, remat=remat,
+        enc = None if enc_input is None else sh.microbatch(enc_input, i, microbatches)
+        li = lm_loss(params, cfg, sh.microbatch(tokens, i, microbatches), enc, remat=remat,
                      remat_group=remat_group)
         li.backward()
         li = li.detach()
@@ -93,6 +123,11 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_mod.AdamW, *, microbatches:
                     remat: bool = True, remat_group: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` for the training form of ``cfg``'s params."""
+    spec_axes = [sp.axes for sp in leaves(model_spec_tree(cfg))]
+
+    def constrain_like_params(grads):
+        """Pin gradient shardings to the parameters' logical axes."""
+        return [shard(g, ax) for g, ax in zip(grads, spec_axes)]
 
     def train_step(params, opt_state, batch):
         plist = leaves(params)
@@ -100,6 +135,7 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_mod.AdamW, *, microbatches:
             loss, grads = loss_and_grads(params, cfg, batch["tokens"], batch.get("enc_input"),
                                          microbatches=microbatches, remat=remat,
                                          remat_group=remat_group)
+            grads = constrain_like_params(grads)
             grad_norm = opt_mod.global_norm(grads)
             updates, opt_state = optimizer.update(grads, opt_state, plist)
         finally:

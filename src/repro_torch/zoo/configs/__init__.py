@@ -1,9 +1,10 @@
-"""Architecture registry (port of ``repro/zoo/configs/__init__.py``): the
-reference's ten LM architectures.  ``groot-gnn`` (the dry run's GNN entry)
-joins with the dry-run slice, so ``ARCHS`` equals ``LM_ARCHS`` here."""
+"""Architecture registry (port of ``repro/zoo/configs/__init__.py``):
+``--arch <id>`` resolution for the launchers and the dry run — the ten LM
+architectures (``LM_ARCHS``) and ``groot-gnn``, the paper's GNN."""
 from repro_torch.zoo.configs import (
     deepseek_67b,
     gemma2_9b,
+    groot_gnn,
     llama32_vision_11b,
     llama4_maverick,
     qwen2_7b,
@@ -25,10 +26,11 @@ _MODULES = (
     whisper_base,
     llama32_vision_11b,
     recurrentgemma_9b,
+    groot_gnn,
 )
 
 ARCHS = {m.ARCH_ID: m for m in _MODULES}
-LM_ARCHS = dict(ARCHS)
+LM_ARCHS = {k: v for k, v in ARCHS.items() if k != "groot-gnn"}
 
 
 def get_config(arch: str, smoke: bool = False):

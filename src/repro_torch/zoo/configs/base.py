@@ -5,9 +5,9 @@ One :class:`ModelConfig` dataclass, field for field the reference's, drives
 every LM architecture of the zoo; parameters are described once as a tree
 of :class:`ParamSpec` (shape + logical axes + init).  The port walks its own
 spec trees (nested dicts and lists with ``ParamSpec`` leaves) and
-materialises them from an explicit :class:`torch.Generator`.  The
-reference's ``abstract`` and ``logical_axes`` (the dry run's) are not
-ported.
+materialises them from an explicit :class:`torch.Generator`, or stands
+them in by shape and dtype alone (:func:`abstract`, meta tensors: the dry
+run's ``ShapeDtypeStruct``).
 """
 from __future__ import annotations
 
@@ -355,6 +355,19 @@ def materialize(tree, generator: torch.Generator, dtype=torch.float32, device=No
         return (x.mul_(scale)).to(device=device, dtype=dtype)
 
     return tree_map(lambda s: None if s is None else mk(s), tree)
+
+
+def abstract(tree, dtype) -> Any:
+    """Meta-tensor stand-ins (``device="meta"``: shape and dtype, no
+    storage), the dry run's counterpart of the reference's
+    ``ShapeDtypeStruct`` tree."""
+    return tree_map(lambda s: None if s is None else torch.empty(s.shape, dtype=dtype,
+                                                                device="meta"), tree)
+
+
+def logical_axes(tree) -> Any:
+    """Tree of logical-axes tuples, same structure as the param tree."""
+    return tree_map(lambda s: None if s is None else s.axes, tree)
 
 
 def _stack(*xs):

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import shard
+
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
@@ -26,7 +28,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     ang = positions.float()[..., None] * freq  # (..., S, half)
     cos = torch.cos(ang)[..., None, :]  # broadcast over heads
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x[..., :half], x[..., half:]
+    x1, x2 = x.split(half, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -41,6 +43,10 @@ def gelu_mlp(x: torch.Tensor, w_in, w_out) -> torch.Tensor:
 
 
 def mlp(x: torch.Tensor, p, act: str) -> torch.Tensor:
+    """The dense FFN, its hidden activation constrained to (batch, -, d_ff)
+    as the reference's (Megatron TP: d_ff over "model")."""
     if act == "swiglu" and "w_gate" in p:
-        return swiglu(x, p["w_in"], p["w_gate"], p["w_out"])
-    return gelu_mlp(x, p["w_in"], p["w_out"])
+        h = shard(F.silu(x @ p["w_gate"]) * (x @ p["w_in"]), ("batch", None, "d_ff"))
+        return h @ p["w_out"]
+    h = shard(F.gelu(x @ p["w_in"], approximate="tanh"), ("batch", None, "d_ff"))
+    return h @ p["w_out"]

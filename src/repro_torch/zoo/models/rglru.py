@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import rules as sh
 from repro_torch.zoo.configs.base import ModelConfig
 
 C_EXP = 8.0
@@ -35,9 +36,9 @@ C_EXP = 8.0
 def init_state(cfg: ModelConfig, batch: int, device=None) -> dict:
     dr = cfg.d_rnn_
     return {
-        "h": torch.zeros((batch, dr), dtype=torch.float32, device=device),
-        "conv": torch.zeros((batch, cfg.conv_width - 1, dr), dtype=torch.bfloat16,
-                            device=device),
+        "h": sh.zeros((batch, dr), ("batch", None), dtype=torch.float32, device=device),
+        "conv": sh.zeros((batch, cfg.conv_width - 1, dr), ("batch", None, None),
+                         dtype=torch.bfloat16, device=device),
     }
 
 

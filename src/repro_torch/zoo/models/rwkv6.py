@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import rules as sh
 from repro_torch.zoo.configs.base import ModelConfig
 
 LOGW_FLOOR = -8.0
@@ -92,9 +93,12 @@ def init_state(cfg: ModelConfig, batch: int, device=None) -> dict:
     nh = cfg.mixer_heads_
     hs = cfg.d_model // nh
     return {
-        "s": torch.zeros((batch, nh, hs, hs), dtype=torch.float32, device=device),
-        "x_prev": torch.zeros((batch, cfg.d_model), dtype=torch.bfloat16, device=device),
-        "ffn_prev": torch.zeros((batch, cfg.d_model), dtype=torch.bfloat16, device=device),
+        "s": sh.zeros((batch, nh, hs, hs), ("batch", None, None, None), dtype=torch.float32,
+                      device=device),
+        "x_prev": sh.zeros((batch, cfg.d_model), ("batch", None), dtype=torch.bfloat16,
+                           device=device),
+        "ffn_prev": sh.zeros((batch, cfg.d_model), ("batch", None), dtype=torch.bfloat16,
+                             device=device),
     }
 
 

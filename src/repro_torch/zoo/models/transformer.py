@@ -46,9 +46,15 @@ Departures from the reference, none of which changes a value:
     weights (an encoder input in bf16 beside an f32 model), the port casts
     the activation up first, which is what the promotion computes;
   * remat applies to calls without a cache (the reference checkpoints cached
-    calls too, which only matters under grad);
-  * the reference's ``shard()`` calls are no-ops without a sharding context
-    and are dropped.
+    calls too, which only matters under grad).
+
+Under a sharding context (``repro_torch.sharding.use_sharding``) the params
+are DTensors placed by ``tree_shardings``; the residual stream, the caches
+and the logits are constrained at the reference's ``shard()`` points, and
+each block's params are all-gathered over their FSDP axes where the block
+uses them (``sharding.rules.gather_params``: cast first, so the gather moves
+``cfg.dtype``), where the reference leaves that gather to GSPMD.  Without a
+context every such point is the identity.
 """
 from __future__ import annotations
 
@@ -59,6 +65,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.sharding import rules as sh
+from repro_torch.sharding.rules import shard
 from repro_torch.zoo.configs.base import ModelConfig, leaves, stack_layers, tree_map, unflatten
 from repro_torch.zoo.models import rglru as rglru_mod
 from repro_torch.zoo.models import rwkv6
@@ -214,32 +222,35 @@ def apply_layer(x: torch.Tensor, lp, cfg: ModelConfig, kind: str, is_moe: bool,
     elif kind == "rwkv":
         st = cache.get("mix") if cache else None
         if decode or rwkv6.FORCE_SCAN or (st is not None and x.shape[1] <= 4):
-            out, ns = rwkv6.time_mix_scan(h, lp["rwkv"], cfg, st)
+            mix = rwkv6.time_mix_scan
         else:
-            out, ns = rwkv6.time_mix_chunked(h, lp["rwkv"], cfg, st)
+            mix = rwkv6.time_mix_chunked
+        out, ns = sh.batch_local(lambda x, p, s: mix(x, p, cfg, s), h, lp["rwkv"], st)
         if cache is not None:
             new_cache["mix"] = ns
     elif kind == "rglru":
         st = cache.get("rec") if cache else None
-        out, ns = rglru_mod.rglru_block(h, lp["rglru"], cfg, st, decode=decode)
+        out, ns = sh.batch_local(
+            lambda x, p, s: rglru_mod.rglru_block(x, p, cfg, s, decode=decode), h, lp["rglru"], st)
         if cache is not None:
             new_cache["rec"] = ns
     else:
         raise ValueError(kind)
     x = x + out.to(x.dtype)
+    x = shard(x, ("batch", "seq_shard", None))
 
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if is_moe:
         out = moe_apply(h, lp["moe"], cfg)
     elif kind == "rwkv":
         prev = cache.get("ffn_prev") if cache else None
-        out, carry = rwkv6.channel_mix(h, lp["ffn"], prev)
+        out, carry = sh.batch_local(rwkv6.channel_mix, h, lp["ffn"], prev)
         if cache is not None:
             new_cache["ffn_prev"] = carry
     else:
         out = mlp(h, lp["ffn"], cfg.act)
     x = x + out.to(x.dtype)
-    return x, new_cache
+    return shard(x, ("batch", "seq_shard", None)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -255,8 +266,9 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype, d
     if kind == "cross+global":
         kv, hd = cfg.num_kv_heads, cfg.head_dim_
         enc_s = cfg.encoder_seq or cfg.cross_seq
-        c["ck"] = torch.zeros((batch, enc_s, kv, hd), dtype=dtype, device=device)
-        c["cv"] = torch.zeros((batch, enc_s, kv, hd), dtype=dtype, device=device)
+        axes = ("batch", None, None, None)
+        c["ck"] = sh.zeros((batch, enc_s, kv, hd), axes, dtype=dtype, device=device)
+        c["cv"] = sh.zeros((batch, enc_s, kv, hd), axes, dtype=dtype, device=device)
     if kind == "rwkv":
         st = rwkv6.init_state(cfg, batch, device)
         c["mix"] = {"s": st["s"], "x_prev": st["x_prev"]}
@@ -296,6 +308,36 @@ def run_encoder(enc_params, enc_input: torch.Tensor, cfg: ModelConfig) -> torch.
 # Full model
 # ---------------------------------------------------------------------------
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings.  Over a vocab-sharded DTensor table each rank
+    looks up the tokens in its slice of the vocabulary (zeros elsewhere)
+    and the partial rows sum over the ranks that split it."""
+    if not sh.is_dtensor(table):
+        return table[tokens.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    n, lo = sh.local_range(table, 0)
+    tp = tuple(table.placements)
+    b_ok = tokens.shape[0] % sh.axis_size(mesh, sh.batch_axes(mesh)) == 0
+    tok = [Shard(0) if b_ok and name in sh.batch_axes(mesh) else Replicate()
+           for name in sh.axis_names(mesh)]
+    out = [Partial() if p == Shard(0) else t for p, t in zip(tp, tok)]
+    grad = [p if p == Shard(0) else (Partial() if t == Shard(0) else Replicate())
+            for p, t in zip(tp, tok)]
+
+    def local(tb, tk):
+        idx = tk.long() - lo
+        ok = ((idx >= 0) & (idx < n))[..., None]
+        rows = tb[idx.clamp(0, n - 1)]
+        return torch.where(ok, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+    fn = local_map(local, out_placements=out, in_placements=(list(tp), tok),
+                   in_grad_placements=(grad, tok), device_mesh=mesh, redistribute_inputs=True)
+    return fn(table, tokens)
+
+
 def _cast(tree, dtype):
     """f32 leaves of ``tree`` cast to ``dtype`` (the fp32-master cast)."""
     return tree_map(lambda a: a.to(dtype) if a.dtype == torch.float32 else a, tree)
@@ -317,23 +359,31 @@ def model_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     period = cfg.pattern_period
     n_super = cfg.num_layers // period if cfg.num_layers // period > 1 else 0
     dtype = getattr(torch, cfg.dtype)
+    sharded = sh.current_ctx() is not None
+    top_keys = ("embed", "final_norm", "lm_head", "encoder")
     if isinstance(params, ParamDict):  # serving: per-layer weights, cast at load
         top, cast = params, None
         layers = list(params["layers"])
+        if sharded:  # each layer's FSDP shards gathered where it runs
+            top = sh.gather_params({k: _as_tree(params[k]) if isinstance(params[k], nn.Module)
+                                    else params[k] for k in top_keys if k in params})
+            cast = lambda lp: sh.gather_params(_as_tree(lp))  # noqa: E731
         body = [layers[j * period:(j + 1) * period] for j in range(n_super)]
         tail = layers[n_super * period:]
+        tail = tail if cast is None else [cast(lp) for lp in tail]
     else:  # training: f32 masters in the stacked layout, cast at use
-        top = {k: _cast(params[k], dtype) for k in ("embed", "final_norm", "lm_head", "encoder")
+        top = {k: sh.gather_params(_cast(params[k], dtype)) for k in top_keys
                if params.get(k) is not None}
-        cast = lambda lp: _cast(lp, dtype)  # noqa: E731
+        cast = lambda lp: sh.gather_params(_cast(lp, dtype))  # noqa: E731
         blocks = params.get("blocks") or []
         unbound = [[a.unbind(0) for a in leaves(b)] for b in blocks]
         body = [[unflatten(b, [u[j] for u in ub]) for b, ub in zip(blocks, unbound)]
                 for j in range(n_super if blocks else 0)]
         tail = [cast(lp) for lp in params.get("tail") or []]
-    x = top["embed"][tokens.long()].to(dtype)
+    x = _embed(top["embed"], tokens).to(dtype)
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    x = shard(x, ("batch", "seq_shard", None))
     enc_out = None
     if cfg.encoder_layers and enc_input is not None:
         enc_out = run_encoder(top["encoder"], enc_input, cfg)
@@ -384,4 +434,5 @@ def model_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         logits = x @ top["lm_head"]
     if cfg.final_softcap:
         logits = softcap(logits.float(), cfg.final_softcap)
+    logits = shard(logits, ("batch", None, "vocab"))
     return logits, new_cache

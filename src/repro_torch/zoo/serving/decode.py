@@ -6,6 +6,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding.rules import shard
 from repro_torch.zoo.configs.base import ModelConfig
 from repro_torch.zoo.models.transformer import init_cache_tree, model_forward
 
@@ -33,7 +34,8 @@ def make_serve_step(cfg: ModelConfig):
         if cfg.padded_vocab != cfg.vocab_size:  # never sample pad ids
             col = torch.arange(logits.shape[-1], device=logits.device)
             logits = logits.masked_fill(col >= cfg.vocab_size, float("-inf"))
-        nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+        # the argmax reads the whole vocabulary: gathered where it is split
+        nxt = shard(logits[:, -1:], ("batch", None, None)).argmax(-1).to(torch.int32)
         return nxt, logits[:, -1], cache
 
     return serve_step

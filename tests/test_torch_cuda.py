@@ -471,6 +471,29 @@ def test_flash_wgmma_body_matches_plain_version(cuda, case):
     assert (got != want).float().mean().item() <= FLASH_OFF_SHARE
 
 
+def test_flash_custom_op_matches_plain_version(cuda):
+    """K8 called through its custom op, ``torch.ops.repro_torch.flash_attention``
+    (what the wrapper launches and the dry run traces), at a prefill shape
+    (32 query heads over 8 KV heads, S = T = 1024, causal, bf16): equal to
+    the plain version within the wrapper's limits, one launch a call, no
+    call counted as traced."""
+    rng = np.random.default_rng(1024)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+               .to(cuda, torch.bfloat16)
+               for shape in ((32, 1024, 128), (8, 1024, 128), (8, 1024, 128)))
+    before, traced = fa.flash_attention.launches, fa.flash_attention.traced
+    got = torch.ops.repro_torch.flash_attention(q, k, v, True, 0, 128**-0.5, 0.0)
+    again = fa.flash_attention(q, k, v, causal=True, kv_block=1024)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    assert fa.flash_attention.traced == traced
+    want = fa.flash_plain(q, k, v, causal=True)
+    scale = max(1.0, want.float().abs().max().item())
+    assert torch.equal(got, again)
+    assert (got.float() - want.float()).abs().max().item() <= FLASH_TOL[torch.bfloat16] * scale
+    assert (got != want).float().mean().item() <= FLASH_OFF_SHARE
+
+
 def test_flash_bodies_by_dtype(cuda):
     """Every bf16 call at hd 64 and 128 launches the wgmma body, every f32
     call the mma_sync body."""

@@ -382,8 +382,11 @@ def test_launcher_resumes(tmp_path, capsys):
 
 
 def test_launcher_refuses_pod_mesh_and_missing_card(tmp_path, monkeypatch):
-    for mesh in ("pod", "multipod"):
-        with pytest.raises(NotImplementedError, match="next slice"):
+    # the production meshes need a 256- or 512-rank world; none is initialised here
+    from repro_torch.launch.mesh import MeshConfigError
+
+    for mesh, ranks in (("pod", 256), ("multipod", 512)):
+        with pytest.raises(MeshConfigError, match=f"needs a process group of {ranks} ranks"):
             TL.main(["--arch", "qwen3-8b", "--smoke", "--mesh", mesh], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

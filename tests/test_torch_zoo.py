@@ -117,10 +117,12 @@ def test_spec_trees_equal(arch):
 
 
 def test_registry_holds_every_lm_arch():
-    """The port's registry holds the reference's ten LM architectures, and
-    each builds its full-size and smoke param trees."""
-    assert set(TC.ARCHS) == set(RC.LM_ARCHS) == set(TC.LM_ARCHS)
-    for arch in TC.ARCHS:
+    """The port's registry holds the reference's ten LM architectures and
+    groot-gnn, in the reference's order, and each LM builds its full-size
+    and smoke param trees."""
+    assert set(RC.LM_ARCHS) == set(TC.LM_ARCHS)
+    assert list(TC.ARCHS) == list(RC.ARCHS)
+    for arch in TC.LM_ARCHS:
         for smoke in (False, True):
             tree = TB.param_tree(TC.get_config(arch, smoke))
             assert len(tree["layers"]) == TC.get_config(arch, smoke).num_layers
