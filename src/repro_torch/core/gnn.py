@@ -269,18 +269,22 @@ def forward(
     grad mode on and params (or ``x``) that require grad raises instead of
     returning logits whose gradient would silently be zero; otherwise it
     runs under ``torch.no_grad()``.
+
+    The body runs under the ``gnn.forward`` span: the host's side of the
+    launches, which the device may run well after the span has closed.
     """
-    _count_trace(x, edge_src, num_nodes, agg, stream_dtype)
-    if agg is None:
-        return _forward(params, x, edge_src, edge_dst, edge_inv, edge_slot,
-                        num_nodes=num_nodes, agg=None, stream_dtype=stream_dtype)
-    if _wants_grad(params, x):
-        raise RuntimeError(
-            "the aggregation kernels have no backward: train on the plain "
-            "reference (agg=None), or run this backend under torch.no_grad()")
-    with torch.no_grad():
-        return _forward(params, x, edge_src, edge_dst, edge_inv, edge_slot,
-                        num_nodes=num_nodes, agg=agg, stream_dtype=stream_dtype)
+    with span("gnn.forward"):
+        _count_trace(x, edge_src, num_nodes, agg, stream_dtype)
+        if agg is None:
+            return _forward(params, x, edge_src, edge_dst, edge_inv, edge_slot,
+                            num_nodes=num_nodes, agg=None, stream_dtype=stream_dtype)
+        if _wants_grad(params, x):
+            raise RuntimeError(
+                "the aggregation kernels have no backward: train on the plain "
+                "reference (agg=None), or run this backend under torch.no_grad()")
+        with torch.no_grad():
+            return _forward(params, x, edge_src, edge_dst, edge_inv, edge_slot,
+                            num_nodes=num_nodes, agg=agg, stream_dtype=stream_dtype)
 
 
 def _forward(params, x, edge_src, edge_dst, edge_inv, edge_slot, *, num_nodes, agg,
@@ -505,19 +509,38 @@ def _make_agg(g, backend: str, device, *, cache: bool = True):
                              cache=cache)
 
 
+def staged_bytes(tensors) -> int:
+    """The bytes of ``tensors`` (None entries skipped): a ``gnn.stage``
+    span's ``bytes``."""
+    return sum(t.nbytes for t in tensors if t is not None)
+
+
 def graph_tensors(g, device) -> tuple:
     """(edge_src, edge_dst, edge_inv, edge_slot) of an EdgeGraph on ``device``
-    (indices int64; missing annotations stay None)."""
+    (indices int64; missing annotations stay None), copied under the
+    ``gnn.stage`` span."""
     def t(a, dtype=None):
         a = torch.as_tensor(np.ascontiguousarray(a))
         return a.to(device=device, dtype=dtype)
 
-    return (
-        t(g.edge_src, torch.int64),
-        t(g.edge_dst, torch.int64),
-        None if g.edge_inv is None else t(g.edge_inv),
-        None if g.edge_slot is None else t(g.edge_slot),
-    )
+    with span("gnn.stage") as sp:
+        out = (
+            t(g.edge_src, torch.int64),
+            t(g.edge_dst, torch.int64),
+            None if g.edge_inv is None else t(g.edge_inv),
+            None if g.edge_slot is None else t(g.edge_slot),
+        )
+        sp.set(bytes=staged_bytes(out))
+    return out
+
+
+def readback(logits: torch.Tensor) -> np.ndarray:
+    """The int32 argmax of ``logits`` on the host, under the ``gnn.readback``
+    span.  The copy to the host waits for the device to finish the forward
+    the launches queued, so the span holds that wait as well as the argmax
+    and the copy."""
+    with span("gnn.readback"):
+        return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
 
 
 def _params_on(params: GrootGNN, device) -> torch.device:
@@ -531,11 +554,13 @@ def _params_on(params: GrootGNN, device) -> torch.device:
 @torch.no_grad()
 def _predict_graph(params, num_nodes: int, tensors, features, agg, stream_dtype,
                    device) -> np.ndarray:
-    x = torch.as_tensor(np.asarray(features, np.float32)).to(device)
+    with span("gnn.stage") as sp:
+        x = torch.as_tensor(np.asarray(features, np.float32)).to(device)
+        sp.set(bytes=x.nbytes)
     logits = forward(
         params, x, *tensors, num_nodes=num_nodes, agg=agg, stream_dtype=stream_dtype,
     )
-    return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+    return readback(logits)
 
 
 def predict(params: GrootGNN, design, features, backend: str = "ref", *,

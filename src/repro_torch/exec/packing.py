@@ -22,6 +22,7 @@ import numpy as np
 
 from repro_torch.exec.plan import PartitionPlan
 from repro_torch.kernels.plan_cache import structure_keys
+from repro_torch.obs import span
 from repro_torch.service.bucketing import (
     BucketShape,
     WorkItem,
@@ -61,12 +62,14 @@ def pack_partitions(
     *,
     keyed: bool = False,
 ) -> PackedBatch:
-    """Stage one schedule entry: gather features, pad, pack into slots; with
-    ``keyed``, hash the packed structure for the plan cache as well."""
-    items = [
-        item_from_subgraph(0, i, plan.subgraphs[i], features) for i in indices
-    ]
-    arrays = pack_batch(items, shape, capacity)
+    """Stage one schedule entry: gather features, pad, pack into slots (the
+    ``exec.gather`` span); with ``keyed``, hash the packed structure for the
+    plan cache as well (``plan.key``)."""
+    with span("exec.gather"):
+        items = [
+            item_from_subgraph(0, i, plan.subgraphs[i], features) for i in indices
+        ]
+        arrays = pack_batch(items, shape, capacity)
     gkeys = (structure_keys(arrays["edge_src"], arrays["edge_dst"], arrays["num_nodes"])
              if keyed else None)
     return PackedBatch(shape=shape, indices=list(indices), items=items, arrays=arrays,

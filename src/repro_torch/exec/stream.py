@@ -37,8 +37,9 @@ Instruments (``repro_torch.obs``, under the reference's names): the
 counters, the ``exec.queue_depth``/``exec.*_peak_bytes``/
 ``exec.effective_capacity`` gauges and the ``exec.*_s`` histograms of the
 process-wide ``REGISTRY``, and the ``exec.stream``/``exec.pack``/
-``exec.launch`` spans (the prefetch thread's pack spans parent under the
-run's stream span).  :class:`StreamStats` keeps the per-executor numbers.
+``exec.launch``/``exec.wait`` spans (the prefetch thread's pack spans parent
+under the run's stream span; ``exec.wait`` is the consumer blocked on the
+prefetch queue).  :class:`StreamStats` keeps the per-executor numbers.
 """
 from __future__ import annotations
 
@@ -330,17 +331,19 @@ class StreamingExecutor:
     def _next_batch(q: queue.Queue, th: threading.Thread):
         """Bounded-wait queue read with a producer watchdog: a dead
         prefetch thread that delivered neither a batch nor an exception
-        fails the run loudly instead of hanging it."""
-        while True:
-            try:
-                return q.get(timeout=0.2)
-            except queue.Empty:
-                if not th.is_alive():
-                    REGISTRY.counter("exec.prefetch_deaths").inc()
-                    raise RuntimeError(
-                        "prefetch thread died without delivering a batch or an error "
-                        "(see exec.prefetch_deaths)"
-                    ) from None
+        fails the run loudly instead of hanging it.  The consumer waits
+        under the ``exec.wait`` span."""
+        with span("exec.wait"):
+            while True:
+                try:
+                    return q.get(timeout=0.2)
+                except queue.Empty:
+                    if not th.is_alive():
+                        REGISTRY.counter("exec.prefetch_deaths").inc()
+                        raise RuntimeError(
+                            "prefetch thread died without delivering a batch or an error "
+                            "(see exec.prefetch_deaths)"
+                        ) from None
 
     def _pack_timed(self, plan, indices, features, shape,
                     capacity: Optional[int] = None) -> PackedBatch:

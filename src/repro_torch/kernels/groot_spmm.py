@@ -346,6 +346,13 @@ class DevicePlan:
     cat_eids: torch.Tensor  # (num_slots,) int64 staging index
     asm_index: torch.Tensor  # (N,) int64
 
+    @property
+    def nbytes(self) -> int:
+        """The bytes of the index tensors on the device."""
+        tensors = (*self.cols, self.hd_cols, self.hd_meta, self.hd_row_chunks,
+                   self.cat_eids, self.asm_index)
+        return sum(t.nbytes for t in tensors if t is not None)
+
     @classmethod
     def build(cls, plan: SpmmPlan, device: torch.device) -> "DevicePlan":
         def t(a, dtype=torch.int32):

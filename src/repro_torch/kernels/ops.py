@@ -370,6 +370,12 @@ def make_agg_pair(edge_src, edge_dst, num_nodes: int, backend: str = "ref", *,
     )
 
 
+def device_nbytes(pair: AggPair, device) -> int:
+    """The bytes of the device copies of a pair's plans on ``device``."""
+    return sum(plan.on(device).nbytes for plan in (pair.in_plan, pair.out_plan)
+               if plan is not None)
+
+
 def release_device(pair: AggPair, device=None) -> None:
     """Drop the device copies of a pair's plans on ``device``, or on every
     device when None (``SpmmPlan.release``)."""

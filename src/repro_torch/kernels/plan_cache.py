@@ -22,6 +22,8 @@ from typing import Callable, Hashable
 
 import numpy as np
 
+from repro_torch.obs import span
+
 
 @dataclasses.dataclass
 class PlanCacheStats:
@@ -100,13 +102,15 @@ PLAN_CACHE = PlanCache(capacity=256)
 
 def graph_key(edge_src, edge_dst, num_nodes: int) -> str:
     """Content hash of a graph structure (direction-sensitive: the fanin
-    and fanout plans of the same graph hash differently, as they must)."""
-    h = hashlib.sha256()
-    h.update(np.int64(num_nodes).tobytes())
-    h.update(np.ascontiguousarray(np.asarray(edge_src, dtype=np.int64)).tobytes())
-    h.update(b"|")
-    h.update(np.ascontiguousarray(np.asarray(edge_dst, dtype=np.int64)).tobytes())
-    return h.hexdigest()
+    and fanout plans of the same graph hash differently, as they must).
+    Runs under the ``plan.key`` span, whose ``bytes`` are the bytes hashed."""
+    with span("plan.key", bytes=8 * (np.size(edge_src) + np.size(edge_dst)) + 9):
+        h = hashlib.sha256()
+        h.update(np.int64(num_nodes).tobytes())
+        h.update(np.ascontiguousarray(np.asarray(edge_src, dtype=np.int64)).tobytes())
+        h.update(b"|")
+        h.update(np.ascontiguousarray(np.asarray(edge_dst, dtype=np.int64)).tobytes())
+        return h.hexdigest()
 
 
 def structure_keys(edge_src, edge_dst, num_nodes: int) -> tuple[str, str]:

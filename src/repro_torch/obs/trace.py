@@ -17,6 +17,12 @@ in.  That is the one-flag gate: ``SessionConfig(trace=True)`` builds a
 real tracer and activates it around each ``verify``; everything else in
 the stack is permanently instrumented.
 
+While a ``torch.profiler`` records, a real tracer's span also opens a
+profiler range of its name (:func:`_profiler_range`), so the profiler's own
+trace (``prof.export_chrome_trace``) holds the program's spans on its clock,
+on the thread that ran them, above the kernels they launched.  The disabled
+path never asks the profiler.
+
     tracer = Tracer()
     with tracer.activate():
         with span("parse"):
@@ -28,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import sys
 import threading
 import time
 from typing import Optional
@@ -103,10 +110,31 @@ def span(name: str, **attrs):
     return current_tracer().span(name, **attrs)
 
 
+def _profiler_range(name: str):
+    """A range of ``name`` for the torch profiler's trace while a profiler
+    records (the span enters and leaves it), else None.
+
+    The gate is torch's process-wide "a profiler is on" flag, not the
+    calling thread's: a profiler started with ``profile_all_threads`` also
+    records the ranges of the prefetch thread, which the thread-local query
+    reports as off.  The range is a function-scope record (torch's
+    ``_RecordFunctionFast``), not ``record_function``'s user annotation,
+    which the profiler would also draw on the device's timeline across the
+    range's kernels, where it reads as device time.  Nothing here imports
+    torch for a process that has not: no profiler runs there."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    import torch
+
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    return None if fast is None else fast(name)
+
+
 class _SpanCtx:
     """Context manager recording one span on enter/exit."""
 
-    __slots__ = ("_tracer", "name", "attrs", "span_id", "parent_id", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "span_id", "parent_id", "_t0", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -115,6 +143,7 @@ class _SpanCtx:
         self.span_id = None
         self.parent_id = None
         self._t0 = 0.0
+        self._range = None
 
     def set(self, **attrs) -> None:
         """Attach attributes mid-span (e.g. the routing mode, an accuracy)."""
@@ -126,11 +155,16 @@ class _SpanCtx:
         self.parent_id = stack[-1] if stack else None
         self.span_id = tr._new_id()
         stack.append(self.span_id)
+        self._range = _profiler_range(self.name)
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(*exc)
         tr = self._tracer
         stack = tr._stack()
         if stack and stack[-1] == self.span_id:

@@ -143,7 +143,9 @@ class BucketRunner:
                      for k in ("edge_src", "edge_dst"))
 
     def _structure(self, batch: dict, gkeys) -> tuple:
-        """(edge_src, edge_dst, pair) of the batch's structure on the device."""
+        """(edge_src, edge_dst, pair, bytes) of the batch's structure on the
+        device; ``bytes`` are what reached the device now (0 for the held
+        structure)."""
         if gkeys not in self._structures_seen:
             if len(self._structures_seen) >= self.max_structures:
                 self._structures_seen.clear()
@@ -151,7 +153,7 @@ class BucketRunner:
             self._structures_seen.add(gkeys)
             self._first_sight()
         if self._held is not None and self._held[0] == gkeys:
-            return self._held[1:]
+            return (*self._held[1:], 0)
         self._drop()
         builds = PLAN_CACHE.snapshot().builds
         src, dst = self._edges(batch)
@@ -159,36 +161,41 @@ class BucketRunner:
                                  self.backend, device=self.device, cache=False, gkeys=gkeys)
         self._compiled(PLAN_CACHE.snapshot().builds - builds)
         self._held = (gkeys, src, dst, pair)
-        return src, dst, pair
+        return src, dst, pair, src.nbytes + dst.nbytes + ops.device_nbytes(pair, self.device)
 
     def __call__(self, batch: dict, gkeys: Optional[tuple] = None) -> np.ndarray:
         """Predictions (int32, one a packed row) of one packed batch.
         ``gkeys`` are the batch's ``structure_keys`` where the caller has
-        them (structure-keyed backends hash the batch otherwise)."""
+        them (structure-keyed backends hash the batch otherwise).  The
+        copies to the device run under the ``gnn.stage`` span: a new
+        structure's edges and plans, then x, inv and slot."""
         num_nodes = batch["num_nodes"]
         with self._lock:  # one device stream; keeps the probes race-free
             self.run_count += 1
-            if self.structure_keyed:
-                if gkeys is None:
-                    gkeys = structure_keys(batch["edge_src"], batch["edge_dst"], num_nodes)
-                src, dst, agg = self._structure(batch, gkeys)
-            else:
-                sig = (batch["x"].shape, batch["edge_src"].shape, num_nodes)
-                if sig not in self._signatures:
-                    self._signatures.add(sig)
-                    self._compiled(1)
-                    self._first_sight()
-                src, dst = self._edges(batch)
-                agg = None if self.backend == "ref" else ops.make_agg_pair(
-                    batch["edge_src"], batch["edge_dst"], num_nodes, self.backend,
-                    device=self.device, cache=False)
-            x, inv, slot = (torch.from_numpy(batch[k]).to(self.device)
-                            for k in ("x", "edge_inv", "edge_slot"))
+            if self.structure_keyed and gkeys is None:
+                gkeys = structure_keys(batch["edge_src"], batch["edge_dst"], num_nodes)
+            with span("gnn.stage") as sp:
+                if self.structure_keyed:
+                    src, dst, agg, staged = self._structure(batch, gkeys)
+                else:
+                    sig = (batch["x"].shape, batch["edge_src"].shape, num_nodes)
+                    if sig not in self._signatures:
+                        self._signatures.add(sig)
+                        self._compiled(1)
+                        self._first_sight()
+                    src, dst = self._edges(batch)
+                    agg = None if self.backend == "ref" else ops.make_agg_pair(
+                        batch["edge_src"], batch["edge_dst"], num_nodes, self.backend,
+                        device=self.device, cache=False)
+                    staged = src.nbytes + dst.nbytes
+                x, inv, slot = (torch.from_numpy(batch[k]).to(self.device)
+                                for k in ("x", "edge_inv", "edge_slot"))
+                sp.set(bytes=staged + gnn.staged_bytes((x, inv, slot)))
             with torch.no_grad():
                 logits = gnn.forward(self.params, x, src, dst, inv, slot,
                                      num_nodes=num_nodes, agg=agg,
                                      stream_dtype=self._stream_dtype)
-            return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            return gnn.readback(logits)
 
 
 @dataclasses.dataclass

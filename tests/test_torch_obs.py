@@ -1,6 +1,7 @@
 """The port's observability spine (``repro_torch.obs``) against the
 reference's (``repro.obs``): the cases of ``tests/test_obs.py``,
-``test_obs_flight.py`` and ``test_obs_export.py`` on the port (CPU), and the
+``test_obs_flight.py`` and ``test_obs_export.py`` on the port (CPU; the
+reference's regression sentry has no port), and the
 same requests through both packages giving the same counter deltas and
 flight-record stages.
 
@@ -9,7 +10,6 @@ Every ``result()`` passes a timeout, and every engine is closed in a
 """
 from __future__ import annotations
 
-import copy
 import json
 import threading
 import time
@@ -40,7 +40,6 @@ from repro_torch.obs import (  # noqa: E402
     spans_from_chrome,
     start_metrics_server,
 )
-from repro_torch.obs import regress  # noqa: E402
 from repro_torch.obs.check import check_trace  # noqa: E402
 from repro_torch.obs.export import sanitize_metric_name  # noqa: E402
 from repro_torch.obs.flight import stages_from_marks  # noqa: E402
@@ -690,148 +689,6 @@ def test_metrics_server_scrape():
             urllib.request.urlopen(f"{srv.url}/nope", timeout=10)
     finally:
         srv.close()
-
-
-# ---------------------------------------------------------------------------
-# regression sentry
-# ---------------------------------------------------------------------------
-
-def bench_payload(**over) -> dict:
-    base = {
-        "schema": regress.SCHEMA_VERSION,
-        "host": regress.host_info(),
-        "suite": "service",
-        "ok": True,
-        "runtime_s": 10.0,
-        "report": {"plan_cache_hit_rate": 0.80},
-        "tables": [
-            {"mode": "service", "req_per_s": 40.0, "p95_ms": 120.0,
-             "cold_compiles": 0, "compiles": 3},
-            {"mode": "one-shot", "req_per_s": 10.0, "p95_ms": 300.0,
-             "cold_compiles": 0, "compiles": 3},
-        ],
-    }
-    base.update(over)
-    return base
-
-
-def test_flatten_keys_table_rows_by_tag():
-    flat = regress.flatten(bench_payload())
-    assert flat["tables.service.req_per_s"] == 40.0
-    assert flat["tables.one-shot.p95_ms"] == 300.0
-    assert flat["runtime_s"] == 10.0
-    assert flat["report.plan_cache_hit_rate"] == 0.80
-    assert "host.machine" not in " ".join(flat)       # fenced, not compared
-
-
-def test_compare_unperturbed_passes():
-    cmp = regress.compare(bench_payload(), bench_payload(), suite="svc")
-    assert cmp.ok and not cmp.skipped_timing
-    assert len(cmp.findings) > 0
-    table = regress.render_table(cmp)
-    assert "0 regression(s)" in table
-
-
-def test_compare_names_metric_and_tolerance_on_regression():
-    fresh = bench_payload()
-    fresh["tables"][0]["req_per_s"] = 20.0            # -50% > the 30% floor
-    cmp = regress.compare(fresh, bench_payload(), suite="svc")
-    assert not cmp.ok
-    bad = cmp.regressions[0]
-    assert bad.key == "tables.service.req_per_s"
-    assert bad.rule.kind == "min_ratio" and bad.rule.tol == 0.30
-    table = regress.render_table(cmp)
-    assert "tables.service.req_per_s" in table and "REGRESSION" in table
-    assert "-30%" in table                            # the tolerance, spelled out
-
-
-def test_compare_rules():
-    # runtimes may grow 50%, no further
-    slow = bench_payload(runtime_s=14.9)
-    assert regress.compare(slow, bench_payload(), suite="s").ok
-    slower = bench_payload(runtime_s=15.1)
-    assert not regress.compare(slower, bench_payload(), suite="s").ok
-    # cold_compiles must match exactly
-    cold = bench_payload()
-    cold["tables"][0]["cold_compiles"] = 1
-    cmp = regress.compare(cold, bench_payload(), suite="s")
-    assert [f.key for f in cmp.regressions] == ["tables.service.cold_compiles"]
-    # total compiles may shrink but never grow
-    grew = bench_payload()
-    grew["tables"][0]["compiles"] = 4
-    assert not regress.compare(grew, bench_payload(), suite="s").ok
-    shrank = bench_payload()
-    shrank["tables"][0]["compiles"] = 2
-    assert regress.compare(shrank, bench_payload(), suite="s").ok
-    # hit rates may sag 5 points
-    sagged = bench_payload(report={"plan_cache_hit_rate": 0.76})
-    assert regress.compare(sagged, bench_payload(), suite="s").ok
-    cratered = bench_payload(report={"plan_cache_hit_rate": 0.70})
-    assert not regress.compare(cratered, bench_payload(), suite="s").ok
-
-
-def test_schema_mismatch_is_a_hard_failure():
-    stale = bench_payload(schema=regress.SCHEMA_VERSION - 1)
-    with pytest.raises(ValueError, match="schema mismatch"):
-        regress.compare(bench_payload(), stale, suite="svc")
-
-
-def test_host_mismatch_skips_timing_rules_only():
-    other = bench_payload()
-    other["host"] = dict(other["host"], machine="arm64", device="tpu")
-    fresh = bench_payload(runtime_s=99.0)             # 10x slower...
-    fresh["tables"][0]["cold_compiles"] = 1           # ...and a counter break
-    cmp = regress.compare(fresh, other, suite="svc")
-    assert cmp.skipped_timing and "timing rules skipped" in cmp.note
-    # the runtime blowup is forgiven (different machine), the counter is not
-    assert [f.key for f in cmp.regressions] == ["tables.service.cold_compiles"]
-    with pytest.raises(ValueError, match="host mismatch"):
-        regress.compare(fresh, other, suite="svc", strict_host=True)
-
-
-def test_regress_cli_end_to_end(tmp_path, capsys):
-    fresh_p = tmp_path / "BENCH_service.json"
-    base_dir = tmp_path / "baselines"
-    fresh_p.write_text(json.dumps(bench_payload()))
-    # no baseline yet: skip with a notice, exit 0
-    assert regress.main([str(fresh_p), "--baseline", str(base_dir)]) == 0
-    assert "no baseline" in capsys.readouterr().out
-    # bless, then an unperturbed re-run passes
-    assert regress.main([str(fresh_p), "--baseline", str(base_dir),
-                         "--bless"]) == 0
-    assert (base_dir / "BENCH_service.json").exists()
-    assert regress.main([str(fresh_p), "--baseline", str(base_dir)]) == 0
-    # a perturbed run fails, naming the metric in the output
-    bad = bench_payload()
-    bad["tables"][0]["req_per_s"] = 1.0
-    fresh_p.write_text(json.dumps(bad))
-    assert regress.main([str(fresh_p), "--baseline", str(base_dir)]) == 1
-    assert "tables.service.req_per_s" in capsys.readouterr().out
-    # a suite that itself failed is a regression even if metrics pass
-    sick = bench_payload(ok=False, error="boom")
-    fresh_p.write_text(json.dumps(sick))
-    assert regress.main([str(fresh_p), "--baseline", str(base_dir)]) == 1
-    # schema mismatch is exit 2
-    stale = copy.deepcopy(bench_payload())
-    stale["schema"] = regress.SCHEMA_VERSION - 1
-    fresh_p.write_text(json.dumps(stale))
-    assert regress.main([str(fresh_p), "--baseline", str(base_dir)]) == 2
-
-
-def test_committed_baselines_match_sentry_schema():
-    """The blessed baselines in-repo must be diffable by this sentry."""
-    from pathlib import Path
-
-    base_dir = Path(__file__).resolve().parent.parent / "benchmarks" / "baselines"
-    paths = sorted(base_dir.glob("BENCH_*.json"))
-    assert paths, f"no blessed baselines under {base_dir}"
-    for p in paths:
-        payload = json.loads(p.read_text())
-        assert payload["schema"] == regress.SCHEMA_VERSION, p.name
-        assert payload["ok"] is True, p.name
-        assert payload["host"]["machine"], p.name
-        # self-comparison of a blessed payload is clean by construction
-        assert regress.compare(payload, payload, suite=p.name).ok
 
 
 # ---------------------------------------------------------------------------
