@@ -21,6 +21,7 @@ when a gradient is asked for, and the predict paths run without a graph.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -499,14 +500,17 @@ def train(
 # Prediction
 # ---------------------------------------------------------------------------
 
-def _make_agg(g, backend: str, device, *, cache: bool = True):
-    """The aggregation pair for a graph (None = the plain reference)."""
+def _make_agg(structure, backend: str, device, *, cache: bool = True):
+    """The aggregation pair for a prepared structure (an EdgeGraph or a
+    Subgraph; None = the plain reference), looked up by its memoized
+    structure keys (``plan_cache.keys_of``)."""
     if backend in (None, "ref"):
         return None
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, plan_cache
 
-    return ops.make_agg_pair(g.edge_src, g.edge_dst, g.num_nodes, backend, device=device,
-                             cache=cache)
+    return ops.make_agg_pair(structure.edge_src, structure.edge_dst, structure.num_nodes,
+                             backend, device=device, cache=cache,
+                             gkeys=plan_cache.keys_of(structure))
 
 
 def staged_bytes(tensors) -> int:
@@ -523,7 +527,11 @@ def graph_tensors(g, device) -> tuple:
         a = torch.as_tensor(np.ascontiguousarray(a))
         return a.to(device=device, dtype=dtype)
 
-    with span("gnn.stage") as sp:
+    with span("gnn.stage") as sp, warnings.catch_warnings():
+        # a keyed graph's endpoints are read-only (plan_cache.keys_of): the
+        # copies only read them
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable",
+                                UserWarning)
         out = (
             t(g.edge_src, torch.int64),
             t(g.edge_dst, torch.int64),
@@ -679,7 +687,7 @@ def predict_partitioned_loop(
     for group in structure_groups(subgraphs):
         g = subgraphs[group[0]].to_edge_graph()
         tensors = graph_tensors(g, device)
-        agg = _make_agg(g, backend, device, cache=False)
+        agg = _make_agg(subgraphs[group[0]], backend, device, cache=False)
         for i in group:
             sg = subgraphs[i]
             feats = features[sg.global_ids]

@@ -23,6 +23,11 @@ class EdgeGraph:
     ``edge_slot[k]`` is the fanin position (0=left, 1=right — AIG nodes have
     exactly two ordered fanins, the ordering the paper's '01'/'10' polarity
     encoding relies on).
+
+    Once keyed for the plan cache (``kernels.plan_cache.keys_of``, the first
+    groot-backend prediction on it), ``edge_src`` and ``edge_dst`` are
+    read-only and ``key_memo`` holds their structure keys: a changed
+    structure is a new object, never an in-place write.
     """
 
     num_nodes: int
@@ -30,6 +35,11 @@ class EdgeGraph:
     edge_dst: np.ndarray  # int32 (E,)
     edge_inv: Optional[np.ndarray] = None  # bool (E,)
     edge_slot: Optional[np.ndarray] = None  # uint8 (E,)
+    #: ``plan_cache.keys_of``'s memo: a ``dataclasses.replace`` copy of the
+    #: graph starts without one; a copy of a holder (``PreparedDesign``)
+    #: holds this same graph, memo and all
+    key_memo: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def num_edges(self) -> int:

@@ -26,7 +26,13 @@ from repro_torch.core.graph import EdgeGraph
 
 @dataclasses.dataclass
 class Subgraph:
-    """One partition, relabeled to local ids [0, num_nodes)."""
+    """One partition, relabeled to local ids [0, num_nodes).
+
+    Keyed like an ``EdgeGraph`` (``kernels.plan_cache.keys_of``, by the
+    partitioned loop and the packer): from then on ``edge_src`` and
+    ``edge_dst`` are read-only and ``key_memo`` holds their structure keys;
+    a changed subgraph is a new object.
+    """
 
     global_ids: np.ndarray   # int64 (n_local,) — core nodes first, halo after
     num_core: int            # first num_core of global_ids are S_p
@@ -34,6 +40,9 @@ class Subgraph:
     edge_dst: np.ndarray     # int32, local ids
     edge_inv: np.ndarray | None
     edge_slot: np.ndarray | None = None
+    #: ``plan_cache.keys_of``'s memo (see ``EdgeGraph.key_memo``)
+    key_memo: tuple | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def num_nodes(self) -> int:

@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.exec.plan import PartitionPlan
-from repro_torch.kernels.plan_cache import structure_keys
+from repro_torch.kernels.plan_cache import keys_of, recipe_keys
 from repro_torch.obs import span
 from repro_torch.service.bucketing import (
     BucketShape,
@@ -63,15 +63,22 @@ def pack_partitions(
     keyed: bool = False,
 ) -> PackedBatch:
     """Stage one schedule entry: gather features, pad, pack into slots (the
-    ``exec.gather`` span); with ``keyed``, hash the packed structure for the
-    plan cache as well (``plan.key``)."""
+    ``exec.gather`` span); with ``keyed``, the packed structure's plan-cache
+    keys as well: each slot subgraph's memoized keys, then the packed
+    arrays' keys looked up by that recipe (one ``plan.key`` span each;
+    the arrays are hashed only on the recipe's first sight)."""
     with span("exec.gather"):
         items = [
             item_from_subgraph(0, i, plan.subgraphs[i], features) for i in indices
         ]
         arrays = pack_batch(items, shape, capacity)
-    gkeys = (structure_keys(arrays["edge_src"], arrays["edge_dst"], arrays["num_nodes"])
-             if keyed else None)
+    gkeys = None
+    if keyed:
+        # the packed arrays are a function of the bucket shape, the capacity
+        # and each slot's structure, in slot order
+        slots = tuple(keys_of(plan.subgraphs[i]) for i in indices)
+        gkeys = recipe_keys(("pack_keys", shape, capacity, slots),
+                            arrays["edge_src"], arrays["edge_dst"], arrays["num_nodes"])
     return PackedBatch(shape=shape, indices=list(indices), items=items, arrays=arrays,
                        capacity=capacity, gkeys=gkeys)
 

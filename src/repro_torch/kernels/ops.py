@@ -359,14 +359,16 @@ def make_agg_pair(edge_src, edge_dst, num_nodes: int, backend: str = "ref", *,
     ``cache=False`` builds a pair the cache does not keep (its host plans
     still come from, and stay in, the cache); with :func:`release_device`
     after use, nothing of it stays on the device.  ``gkeys`` are the
-    structure's ``plan_cache.structure_keys`` where the caller hashed it
-    already (the streaming executor, on its prefetch thread)."""
+    structure's ``plan_cache.structure_keys`` where the caller has them
+    (a prepared structure's ``plan_cache.keys_of``, a packed launch's
+    recipe keys); else the arrays are hashed."""
     device = torch.device(device)
     if not cache:
         return _build_pair(edge_src, edge_dst, num_nodes, backend, device, gkeys)
-    key = ("pair", pc.graph_key(edge_src, edge_dst, num_nodes), backend, str(device))
+    k_in = gkeys[0] if gkeys else pc.graph_key(edge_src, edge_dst, num_nodes)
+    key = ("pair", k_in, backend, str(device))
     return pc.PLAN_CACHE.get_or_build(
-        key, lambda: _build_pair(edge_src, edge_dst, num_nodes, backend, device)
+        key, lambda: _build_pair(edge_src, edge_dst, num_nodes, backend, device, gkeys)
     )
 
 

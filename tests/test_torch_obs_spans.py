@@ -77,6 +77,8 @@ def test_full_route_predict_holds_stage_key_forward_readback(params):
     assert {s.name for s in kids} == {"gnn.stage", "plan.key", "gnn.forward", "gnn.readback"}
     assert collections.Counter(s.name for s in kids) == {
         "gnn.stage": 2, "plan.key": 1, "gnn.forward": 1, "gnn.readback": 1}
+    # each verify prepares a new graph object: its keys are hashed anew
+    assert only(kids, "plan.key").attrs["memo"] == "miss"
     assert predict.duration >= 0.010
     assert span_coverage(spans, predict.span_id) >= 0.9
 
@@ -132,6 +134,10 @@ def test_pack_holds_gather_and_keys_on_the_prefetch_thread(params):
         kids = children(spans, pack)
         assert collections.Counter(s.name for s in kids) == {"exec.gather": 1, "plan.key": 2}
         assert all(s.tid == pack.tid for s in kids)
+        # the slot's new Subgraph object is hashed; the packed arrays' keys
+        # come from the first verify's entry for the same recipe
+        assert [s.attrs["memo"] for s in sorted(kids, key=lambda s: s.t0)
+                if s.name == "plan.key"] == ["miss", "hit"]
 
 
 def test_launch_holds_stage_forward_readback(params):
