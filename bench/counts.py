@@ -1,5 +1,6 @@
-"""Frozen operation and byte counts of the GNN forward and of its two SpMM
-kernels, from the graph alone.
+"""Frozen operation and byte counts: of the GNN forward and of its two SpMM
+kernels, from the graph alone; and of the zoo's dense decoder LM,
+from the model's sizes (below).
 
 The forward is GROOT's SAGE layer, per layer with input width F and hidden
 width H over N nodes and E fanin->node edges:
@@ -71,3 +72,36 @@ def spmm_counts(src: np.ndarray, dst: np.ndarray, num_nodes: int, gnn: dict) -> 
                 acc["t_min"] += max(b / peaks.HBM_BYTES_PER_S, fl / peaks.F32_FLOPS)
                 acc["launches"] += 1
     return out
+
+
+# -- the zoo's dense decoder LM (lm_serve) ----------------------------------
+#
+# Model FLOPs of a served batch: every matrix product of every token the
+# server runs, padded prompt positions included (the server computes them),
+# as 2 a multiply-add: a layer's Q, K, V and O projections and its three
+# SwiGLU products; causal attention over the keys a query attends (QK^T and
+# PV, 4 hd a (query, key) pair and head); the head on each prefill row's last
+# position and on every decoded token.  Norms, RoPE and softmax are left out.
+
+
+def lm_token_flops(model: dict) -> int:
+    """The projections and FFN products of one token through every layer."""
+    d, h, kv, hd, f = (model[k] for k in ("d_model", "num_heads", "num_kv_heads", "head_dim",
+                                          "d_ff"))
+    return model["num_layers"] * 2 * (d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * f)
+
+
+def lm_attention_flops(model: dict, pairs: int) -> int:
+    return model["num_layers"] * 4 * model["num_heads"] * model["head_dim"] * pairs
+
+
+def lm_batch_flops(model: dict, batch: int, prompt: int, new: int) -> int:
+    """One served batch: the prefill of ``batch`` rows of ``prompt`` (padded)
+    tokens, then ``new - 1`` decode steps, the step at position p attending
+    the p + 1 keys written so far."""
+    head = 2 * model["d_model"] * model["vocab_size"]
+    prefill = (prompt * lm_token_flops(model) + head
+               + lm_attention_flops(model, prompt * (prompt + 1) // 2))
+    decode = sum(lm_token_flops(model) + head + lm_attention_flops(model, p + 1)
+                 for p in range(prompt, prompt + new - 1))
+    return batch * (prefill + decode)

@@ -42,7 +42,10 @@ def short_name(name: str, width: int = 100) -> str:
 def profile(fn, requests: int, spans_of=None) -> dict:
     """Run ``fn`` ``requests`` times under the profiler.  ``spans_of()``
     returns the program tracer's finished spans (``t0``/``t1`` on the
-    ``perf_counter`` clock), or None."""
+    ``perf_counter`` clock), or None.  The device events are read from the
+    profiler's raw results, named and filtered as its event tree
+    (``prof.events()``) has them: building that tree takes minutes for the
+    10^6 events of a served LM batch, which a run's time limit cannot hold."""
     cuda = torch.cuda.is_available()
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
@@ -59,21 +62,23 @@ def profile(fn, requests: int, spans_of=None) -> dict:
         if cuda:
             torch.cuda.synchronize()
         t1 = time.perf_counter()
-    events = prof.events()
-    mark = next(e for e in events if e.name == "bench.mark")
+    results = prof.profiler.kineto_results
+    base = results.trace_start_ns()
+    events = [e for e in results.events() if not getattr(e, "is_hidden_event", lambda: False)()]
+    mark = next(e for e in events if e.name() == "bench.mark")
 
     def us(t: float) -> float:
-        return mark.time_range.start + (t - t_mark) * 1e6
+        return (mark.start_ns() - base) / 1e3 + (t - t_mark) * 1e6
 
     w0, w1 = us(t0), us(t1)
     dev, by_name = [], defaultdict(float)
     for e in events:
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        a, b = max(e.time_range.start, w0), min(e.time_range.end, w1)
+        a, b = max((e.start_ns() - base) / 1e3, w0), min((e.end_ns() - base) / 1e3, w1)
         if b > a:
             dev.append((a, b))
-            by_name[short_name(e.name)] += (b - a) / 1e6
+            by_name[short_name(torch._C._demangle(e.name()))] += (b - a) / 1e6
     busy = _union(dev)
     spans = [s for s in (spans_of() if spans_of else []) if s.tid == me]
     gaps: dict = defaultdict(float)

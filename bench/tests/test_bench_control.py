@@ -17,7 +17,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from bench import harness  # noqa: E402
+from bench.runners import gnn as runner  # noqa: E402
 from bench.reference import generators as G  # noqa: E402
 from repro_torch.api.config import SessionConfig  # noqa: E402
 from repro_torch.api.session import Session  # noqa: E402
@@ -38,15 +38,15 @@ def test_tf32_control_fails_and_the_program_passes(config):
                                  fanin1=d["fanin1"], label=d["label"], n_pi=d["n_pi"],
                                  pos=d["pos"]))
     for seed in (0, 1, 2):
-        params = harness.make_params(cfg["gnn"], seed, torch.device(device))
-        session.set_params(harness._numpy_tree(params))
-        with harness.LogitCapture(params, tf32_control=True) as cap:
+        params = runner.make_params(cfg["gnn"], seed, torch.device(device))
+        session.set_params(runner._numpy_tree(params))
+        with runner.LogitCapture(params, tf32_control=True) as cap:
             pred = session.verify(prepared=prep, verify=False, use_cache=False,
                                   return_predictions=True).predictions
         assert cap.calls == 1
         assert cap.worst <= err_limit < cap.worst_tf32, seed
-        want, _, _, _ = harness.reference_logits(d, params, cfg, mix, torch.device(device))
-        low, _, _, _ = harness.reference_logits(d, params, cfg, mix, torch.device(device),
+        want, _, _, _ = runner.reference_logits(d, params, cfg, mix, torch.device(device))
+        low, _, _, _ = runner.reference_logits(d, params, cfg, mix, torch.device(device),
                                                 tf32=True)
-        assert harness.logit_gap(want, pred) <= limit, seed
-        assert harness.logit_gap(want, low.argmax(1).cpu().numpy()) > limit, seed
+        assert runner.logit_gap(want, pred) <= limit, seed
+        assert runner.logit_gap(want, low.argmax(1).cpu().numpy()) > limit, seed

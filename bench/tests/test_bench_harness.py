@@ -144,6 +144,29 @@ def test_added_cell_runs_correct_with_the_contract_keys(tiny_root, cell):
     assert not FORBIDDEN & set(modules), sorted(FORBIDDEN & set(modules))
 
 
+@pytest.mark.parametrize("cell,trace,metrics", [
+    ("tiny.full", 0, {"nodes_per_s", "setup_s"}),
+    ("tiny.budget", 0, {"nodes_per_s", "setup_s"}),
+    ("tiny.budget", 1, {"route_ms", "plan_builds_per_req", "step_mfu", "pack_share",
+                        "h2d_mib_per_req", "prepare_s", "key_ms", "stage_ms", "wait_share"}),
+])
+def test_gnn_runner_prints_the_result_line_the_harness_printed(tiny_root, cell, trace, metrics):
+    # the line of the harness before configurations had kinds, on these cells
+    # and seed: its keys in order, its metrics (no peak on a CPU; a p90 only
+    # where the window held two requests), its checks
+    code, res, _, _ = _run(tiny_root, cell, trace=trace)
+    assert code == 0
+    keys = ["correct", "attempted", "failed", "metrics", "device", "requests"]
+    assert list(res) == keys + (["breakdown"] if trace else []) + ["checks"]
+    assert set(res["metrics"]) - {"classify_p90_ms"} == metrics
+    assert list(res["device"]) == ["platform", "kind", "count", "memory_peak_bytes"] + (
+        ["busy_s", "window_s"] if trace else [])
+    checks = {"max_logit_gap", "max_logit_error", "failed_requests"}
+    assert set(res["checks"]) == checks | ({"partition_count_diff"} if "budget" in cell else set())
+    assert res["checks"]["max_logit_gap"]["value"] == 0.0
+    assert res["checks"]["max_logit_error"]["value"] < 1e-6
+
+
 def test_traced_run_reads_the_added_metric(tiny_root):
     code, res, _, _ = _run(tiny_root, "tiny.full", trace=1)
     assert code == 0 and res["correct"] is True
@@ -219,3 +242,28 @@ def test_no_source_of_the_benchmark_imports_jax_or_the_jax_package():
 def test_reference_imports_nothing_of_the_program():
     for path in (BENCH / "reference").rglob("*.py"):
         assert not _imports(path) & (FORBIDDEN | {"repro_torch"}), path
+
+
+def test_window_judges_a_seeded_uniform_sample_of_its_answers():
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        from bench.runners.gnn import Sample
+    finally:
+        sys.path.remove(str(ROOT))
+
+    def kept(seed, n):
+        sample = Sample(seed)
+        for answer in range(n):
+            sample.offer(answer)
+        return sample.kept
+
+    assert kept(7, 5) == [0, 1, 2, 3, 4]
+    picks = kept(2**31 + 5, 120)
+    assert len(picks) == 8 and picks == kept(2**31 + 5, 120) != kept(2**31 + 6, 120)
+    assert max(picks) >= 8
+    times = np.zeros(40)
+    for seed in range(2000):
+        times[kept(seed, 40)] += 1
+    assert np.abs(times / 2000 - 8 / 40).max() < 0.05

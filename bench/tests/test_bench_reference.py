@@ -14,7 +14,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-from bench import harness  # noqa: E402
+from bench.runners import gnn as runner  # noqa: E402
 from bench.reference import generators as G  # noqa: E402
 from bench.reference import model as ref  # noqa: E402
 from repro_torch.core import aig as A  # noqa: E402
@@ -64,20 +64,20 @@ def test_features_and_edges_equal_the_program(gen):
 @pytest.mark.parametrize("seed", [0, 2**31 + 11])
 def test_forward_equals_the_programs_ref_backend(gen, seed):
     d = G.GENERATORS[gen](16)
-    params = harness.make_params(GNN, seed, torch.device("cpu"))
+    params = runner.make_params(GNN, seed, torch.device("cpu"))
     x, (src, dst, slot, inv) = _tensors(d)
     want = ref.forward(params, x, src, dst, slot, inv, x.shape[0])
-    model = gnn.params_from_numpy(harness._numpy_tree(params))
+    model = gnn.params_from_numpy(runner._numpy_tree(params))
     g = _aig(d).to_edge_graph()
     t = gnn.graph_tensors(g, "cpu")
     got = gnn.forward(model, torch.as_tensor(groot_features(_aig(d))), *t, num_nodes=g.num_nodes)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    assert harness.logit_gap(want, got.argmax(1).numpy()) <= 1e-5
+    assert runner.logit_gap(want, got.argmax(1).numpy()) <= 1e-5
 
 
 def test_tf32_control_moves_the_logits():
     d = G.csa(16)
-    params = harness.make_params(GNN, 3, torch.device("cpu"))
+    params = runner.make_params(GNN, 3, torch.device("cpu"))
     x, (src, dst, slot, inv) = _tensors(d)
     f32 = ref.forward(params, x, src, dst, slot, inv, x.shape[0])
     tf32 = ref.forward(params, x, src, dst, slot, inv, x.shape[0], tf32=True)
@@ -107,16 +107,16 @@ def test_stripes_and_regrowth_equal_the_programs(k):
 
 def test_partitioned_logits_agree_with_the_programs_partitioned_loop():
     d = G.csa(16)
-    params = harness.make_params(GNN, 5, torch.device("cpu"))
+    params = runner.make_params(GNN, 5, torch.device("cpu"))
     x, (src, dst, slot, inv) = _tensors(d)
     part = ref.stripes(x.shape[0], 4, "cpu")
     want = ref.partitioned_logits(params, x, src, dst, slot, inv, part)
     g = _aig(d).to_edge_graph()
     subs = extract_partitions(g, part.numpy().astype(np.int32), regrow=True, hops=1)
-    got = gnn.predict_partitioned_loop(gnn.params_from_numpy(harness._numpy_tree(params)),
+    got = gnn.predict_partitioned_loop(gnn.params_from_numpy(runner._numpy_tree(params)),
                                        subs, groot_features(_aig(d)), g.num_nodes, "ref",
                                        device="cpu")
-    assert harness.logit_gap(want, got) <= 1e-5
+    assert runner.logit_gap(want, got) <= 1e-5
     full = ref.forward(params, x, src, dst, slot, inv, x.shape[0])
     assert float((full - want).abs().max()) > 1e-3   # re-growth of one hop is not exact
 
