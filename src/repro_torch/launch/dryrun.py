@@ -47,7 +47,7 @@ from repro_torch.launch.mesh import PRODUCTION_MESHES, make_production_mesh
 from repro_torch.launch.steps import GROOT_SHAPES, build_cell, build_groot_cell
 from repro_torch.roofline.counter import CostCounter
 from repro_torch.sharding.rules import is_dtensor, use_sharding
-from repro_torch.zoo.configs import ARCHS, get_config
+from repro_torch.zoo.configs import ARCHS, PORT_ARCHS, get_config
 from repro_torch.zoo.configs.base import tree_map
 from repro_torch.zoo.configs.shapes import supported_shapes
 from repro_torch.zoo.models.attention import KVCache
@@ -355,6 +355,9 @@ def main(argv=None):
     ap.add_argument("--exact", action="store_true",
                     help="trace each cell whole instead of cut in depth and extended")
     args = ap.parse_args(argv)
+    if args.arch in PORT_ARCHS:
+        raise SystemExit(f"{args.arch}: a port-only arch whose dropless experts have no "
+                         "expert-parallel form; the dry run traces sharded cells only")
 
     if args.list:
         for arch, _, shape in iter_cells():

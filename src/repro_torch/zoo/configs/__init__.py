@@ -1,6 +1,8 @@
 """Architecture registry (port of ``repro/zoo/configs/__init__.py``):
 ``--arch <id>`` resolution for the launchers and the dry run — the ten LM
-architectures (``LM_ARCHS``) and ``groot-gnn``, the paper's GNN."""
+architectures (``LM_ARCHS``) and ``groot-gnn``, the paper's GNN, as the
+reference registers them; beside them ``PORT_ARCHS``, the architectures the
+port alone has (``trinity-mini``), which ``get_config`` resolves too."""
 from repro_torch.zoo.configs import (
     deepseek_67b,
     gemma2_9b,
@@ -12,6 +14,7 @@ from repro_torch.zoo.configs import (
     qwen3_moe_235b,
     recurrentgemma_9b,
     rwkv6_3b,
+    trinity_mini,
     whisper_base,
 )
 
@@ -31,8 +34,9 @@ _MODULES = (
 
 ARCHS = {m.ARCH_ID: m for m in _MODULES}
 LM_ARCHS = {k: v for k, v in ARCHS.items() if k != "groot-gnn"}
+PORT_ARCHS = {m.ARCH_ID: m for m in (trinity_mini,)}
 
 
 def get_config(arch: str, smoke: bool = False):
-    mod = ARCHS[arch]
+    mod = ARCHS[arch] if arch in ARCHS else PORT_ARCHS[arch]
     return mod.smoke_config() if smoke else mod.config()

@@ -2,7 +2,10 @@
 ``repro/zoo/configs/base.py``).
 
 One :class:`ModelConfig` dataclass, field for field the reference's, drives
-every LM architecture of the zoo; parameters are described once as a tree
+every LM architecture of the zoo; :class:`PortModelConfig` adds, as fields,
+the options of the architectures only the port has (``PORT_ARCHS``), which
+every other config reads as their "off" defaults.  Parameters are described
+once as a tree
 of :class:`ParamSpec` (shape + logical axes + init).  The port walks its own
 spec trees (nested dicts and lists with ``ParamSpec`` leaves) and
 materialises them from an explicit :class:`torch.Generator`, or stands
@@ -76,6 +79,20 @@ class ModelConfig:
     # which shapes this arch supports (DESIGN.md shape-skip notes)
     skip_shapes: tuple = ()
 
+    # The port-only options, as class attributes and not fields: their "off"
+    # defaults, which leave the reference's architectures as they are, field
+    # for field.  :class:`PortModelConfig` declares them as fields.
+    dense_layers = 0                 # leading layers with a dense FFN (d_ff) before the MoE ones
+    router_score = "softmax"         # softmax | sigmoid
+    router_bias = False              # a per-expert bias, added to the scores for selection only
+    route_scale = 1.0                # sigmoid routing: the renormalised top-k weights scaled
+    shared_experts = 0               # SwiGLU experts of moe_d_ff each, run on every token
+    dropless = False                 # sorted grouped-GEMM dispatch: no capacity, no drops
+    attn_out_gate = False            # attention output * sigmoid(h Wgate), per channel
+    rope_local_only = False          # RoPE on "local" layers only; global layers NoPE
+    sandwich_norm = False            # RMSNorm on each block's output too (ln1_post, ln2_post)
+    embed_scale = False              # embeddings * sqrt(d_model) on untied models too
+
     @property
     def padded_vocab(self) -> int:
         """Vocab padded to a lane multiple so logits stay TP-shardable
@@ -103,11 +120,14 @@ class ModelConfig:
         return [p[i % len(p)] for i in range(self.num_layers)]
 
     def is_moe_layer(self, i: int) -> bool:
-        return self.moe and ((i + 1) % self.moe_interleave == 0)
+        return self.moe and i >= self.dense_layers and ((i + 1) % self.moe_interleave == 0)
 
     @property
     def pattern_period(self) -> int:
-        """Length of the repeating super-block (layer pattern x MoE phase)."""
+        """Length of the repeating super-block (layer pattern x MoE phase);
+        the whole depth where leading dense layers break the repetition."""
+        if self.dense_layers:
+            return self.num_layers
         p = len(self.layer_pattern)
         if self.moe:
             p = int(np.lcm(p, self.moe_interleave))
@@ -128,6 +148,24 @@ class ModelConfig:
                 n = n * self.top_k // max(self.num_experts, 1)
             total += n
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class PortModelConfig(ModelConfig):
+    """A :class:`ModelConfig` with the port-only options as fields (so
+    ``dataclasses.replace`` sets them): the config of an architecture the
+    reference does not have."""
+
+    dense_layers: int = 0
+    router_score: str = "softmax"
+    router_bias: bool = False
+    route_scale: float = 1.0
+    shared_experts: int = 0
+    dropless: bool = False
+    attn_out_gate: bool = False
+    rope_local_only: bool = False
+    sandwich_norm: bool = False
+    embed_scale: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +200,8 @@ def _attention_specs(cfg: ModelConfig, cross: bool = False) -> dict:
     if cfg.qk_norm:
         s["q_norm"] = _p((hd,), (None,), init="ones")
         s["k_norm"] = _p((hd,), (None,), init="ones")
+    if cfg.attn_out_gate and not cross:
+        s["wgate"] = _p((d, h, hd), ("d_model", "heads", None))
     return s
 
 
@@ -185,6 +225,10 @@ def _moe_specs(cfg: ModelConfig) -> dict:
     }
     if cfg.act == "swiglu":
         s["w_gate"] = _p((e, d, f), ("experts", "d_model", None))
+    if cfg.router_bias:
+        s["bias"] = _p((e,), (None,), init="zeros")
+    if cfg.shared_experts:
+        s["shared"] = _mlp_specs(cfg, f * cfg.shared_experts)
     return s
 
 
@@ -241,6 +285,9 @@ def _layer_specs(cfg: ModelConfig, layer_idx: int) -> dict:
     else:
         raise ValueError(kind)
     s["ln2"] = _p((cfg.d_model,), ("d_model",), init="ones")
+    if cfg.sandwich_norm:
+        s["ln1_post"] = _p((cfg.d_model,), ("d_model",), init="ones")
+        s["ln2_post"] = _p((cfg.d_model,), ("d_model",), init="ones")
     if cfg.is_moe_layer(layer_idx):
         s["moe"] = _moe_specs(cfg)
     elif kind == "rwkv":

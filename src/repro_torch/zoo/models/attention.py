@@ -1,6 +1,9 @@
 """Attention (port of ``repro/zoo/models/attention.py``): GQA + RoPE +
 qk-norm + QKV-bias + sliding window + softcap + cross-attention, with a KV
-cache for decode.
+cache for decode; and two port-only options: a sigmoid output gate
+(``wgate``: the attention output times sigmoid(x Wgate), per head channel,
+before Wo) and attention without RoPE (``rotary=False``: the global layers
+of ``cfg.rope_local_only``).
 
 One function serves prefill (causal + cache write-out), decode (single
 query against the cache), full-sequence calls and the encoder
@@ -381,8 +384,11 @@ def attention(
     window: int = 0,
     cache: Optional[KVCache] = None,
     bidirectional: bool = False,
+    rotary: bool = True,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
-    """Self-attention.  Returns (out, updated_cache).
+    """Self-attention.  Returns (out, updated_cache).  ``rotary=False``
+    leaves q and k without RoPE (the NoPE global layers of
+    ``cfg.rope_local_only``).
 
     Full sequence: ``cache=None``.  Prefill: pass a zeroed cache of S_max
     (or a ring); keys land at positions [pos, pos + S).  Decode: S == 1,
@@ -393,8 +399,9 @@ def attention(
     q, k, v = _project_qkv(x, p, cfg)
     offset = cache.pos if cache is not None else 0
     positions = torch.arange(offset, offset + s, dtype=torch.int32, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if rotary:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     scale = cfg.head_dim_**-0.5
 
     new_cache = None
@@ -440,6 +447,8 @@ def attention(
         out = _sdpa(q, k, v, positions, positions, cfg, scale, causal=not bidirectional,
                     window=window)
     out = shard(out, ("batch", None, "heads", None))
+    if "wgate" in p:  # the output gate: each head channel times sigmoid(x Wgate)
+        out = out * torch.sigmoid(_proj(x, p["wgate"]))
     return _out_proj(out, p["wo"]), new_cache
 
 

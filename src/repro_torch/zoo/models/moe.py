@@ -1,5 +1,5 @@
 """Mixture-of-Experts with sort-based capacity dispatch (port of
-``repro/zoo/models/moe.py``).
+``repro/zoo/models/moe.py``), and the port's dropless dispatch.
 
 The token->expert dispatch count-sorts (token, expert) pairs by expert, so
 each expert's inputs become a contiguous dense slab processed by a plain
@@ -18,14 +18,32 @@ form, :func:`moe_ffn_dist`: a ``local_map`` over the mesh (the reference's
 ``shard_map``) in which each rank dispatches its tokens onto its own slice
 of the experts (:func:`_local_dispatch_ffn`), then one all-reduce over
 "model" sums the slices' outputs.
+
+Configs with ``dropless`` (the port-only ``trinity-mini``) run
+:func:`moe_dropless` on one device instead: the (token, expert) pairs
+sorted by expert, each expert's tokens one contiguous segment, and one
+grouped GEMM a projection over the segments (``torch._grouped_mm`` on the
+card, :func:`grouped_mm_plain` on the CPU).  No capacity, no dropped token,
+no host sync: an expert that holds no token is not read.  Routing may score
+by sigmoid with a selection-only bias, the weights renormalised and scaled
+(``route_scale``), and a shared expert adds a SwiGLU of every token.  Its
+spans (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.shared``,
+``moe.combine``) and counters (``moe.assignments``; with a tracer active,
+which reads device values, ``moe.experts_active`` and the gauge
+``moe.max_expert_tokens``) are the benchmark's view of the layer.  These
+configs have no expert-parallel form: ``moe_apply`` refuses them under a
+sharding context rather than drop tokens or the selection bias there.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.trace import current_tracer, span
 from repro_torch.sharding.rules import shard
 from repro_torch.zoo.configs.base import ModelConfig
+from repro_torch.zoo.models.layers import mlp
 
 
 def capacity(tokens: int, cfg: ModelConfig) -> int:
@@ -33,8 +51,21 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
     return max(c, cfg.top_k)
 
 
-def route(x2d: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
-    """Top-k routing.  x2d: (T, D).  Returns (idx (T,k) int32, weights (T,k))."""
+def route(x2d: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig, bias=None):
+    """Top-k routing.  x2d: (T, D).  Returns (idx (T,k) int32, weights (T,k)).
+
+    ``router_score == "sigmoid"``: scores s = sigmoid(x W), the product and
+    the scores in f32 (a bf16 product's rounding swaps near-tied experts); the k
+    experts of the largest s + ``bias`` (selection only); weights s over
+    their sum (+ 1e-20), times ``route_scale``."""
+    if cfg.router_score == "sigmoid":
+        logits = x2d.float() @ router_w.float()
+        scores = torch.sigmoid(logits)
+        pick = scores if bias is None else scores + bias.float()
+        top_i = torch.topk(pick, cfg.top_k, dim=-1).indices
+        top_w = scores.gather(-1, top_i)
+        top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-20)
+        return top_i.to(torch.int32), (top_w * cfg.route_scale).to(x2d.dtype)
     logits = (x2d @ router_w).float()
     gates = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(gates, cfg.top_k, dim=-1)
@@ -187,12 +218,99 @@ def moe_ffn_dist(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     return y.redistribute(mesh, x_place)
 
 
+def grouped_mm_plain(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """Plain version of the grouped GEMM: rows [offs[e-1], offs[e]) of
+    ``x`` (M, K) times ``w[e]`` (K, N), one matmul an expert that holds rows
+    (the segment ends are read on the host)."""
+    out = x.new_zeros((x.shape[0], w.shape[-1]))
+    start = 0
+    for e, end in enumerate(offs.tolist()):
+        if end > start:
+            out[start:end] = x[start:end] @ w[e]
+        start = end
+    return out
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """``x`` (M, K), its rows sorted by expert with segment ends ``offs``
+    (E,) int32, times each segment's expert ``w`` (E, K, N): one
+    ``torch._grouped_mm`` on the card (no host sync; empty segments read no
+    weights; a dtype it does not take raises), :func:`grouped_mm_plain` on
+    the CPU."""
+    if x.is_cuda:
+        return torch._grouped_mm(x, w, offs=offs)
+    return grouped_mm_plain(x, w, offs)
+
+
+def _expert_counters(offs: torch.Tensor):
+    """Under a tracer: ``moe.experts_active`` and the gauge
+    ``moe.max_expert_tokens`` from the experts' segment ends, and the
+    ``moe.experts`` span's attributes (the pairs its GEMMs take, the experts
+    holding them).  Device values: read only under a tracer, else None."""
+    if not current_tracer().enabled:
+        return None
+    counts = torch.diff(offs, prepend=offs.new_zeros(1))
+    active = int((counts > 0).sum())
+    REGISTRY.counter("moe.experts_active").inc(active)
+    REGISTRY.gauge("moe.max_expert_tokens").set(int(counts.max()))
+    return {"computed": int(offs[-1]), "experts": active}
+
+
+def moe_dropless(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D): the routed experts' weighted SwiGLUs of
+    every (token, expert) pair, plus the shared expert's SwiGLU.  Under a
+    tracer the ``moe.experts`` span holds ``routed`` (token, expert) pairs,
+    ``computed`` (the rows its grouped GEMMs take: every routed pair) and
+    ``experts`` (the experts holding them)."""
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.top_k, cfg.num_experts
+    x2 = x.reshape(t, d)
+    with span("moe.route"):
+        top_i, top_w = route(x2, p["router"], cfg, p["bias"] if "bias" in p else None)
+    REGISTRY.counter("moe.assignments").inc(t * k)
+    with span("moe.dispatch"):
+        flat_e = top_i.reshape(-1)
+        order = torch.argsort(flat_e, stable=True)
+        # segment ends: the pairs routed to experts 0..e
+        offs = torch.searchsorted(flat_e[order], torch.arange(e, device=x.device,
+                                                              dtype=flat_e.dtype), right=True)
+        seen = _expert_counters(offs)
+        offs = offs.to(torch.int32)
+        xs = x2[order // k]
+    with span("moe.experts") as sp:
+        if seen is not None:
+            sp.set(routed=t * k, **seen)
+        h = F.silu(grouped_mm(xs, p["w_gate"], offs)) * grouped_mm(xs, p["w_in"], offs)
+        del xs
+        ys = grouped_mm(h, p["w_out"], offs)
+        del h
+    with span("moe.combine"):
+        # back to (token, k) order, then each token's weighted sum of its k
+        y = torch.empty_like(ys).index_copy_(0, order, ys).view(t, k, d)
+        del ys
+        y = torch.bmm(top_w.to(y.dtype)[:, None, :], y).view(b, s, d)
+    if "shared" in p:
+        with span("moe.shared"):
+            y = y + mlp(x, p["shared"], cfg.act)
+    return y
+
+
 def moe_apply(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
-    """Dispatch to :func:`moe_ffn_dist` when a sharding context is active."""
+    """Dispatch to :func:`moe_ffn_dist` when a sharding context is active,
+    else to :func:`moe_dropless` or :func:`moe_ffn` as the config says.  A
+    dropless config under a sharding context raises: the expert-parallel
+    form drops tokens past capacity and routes without the selection bias,
+    so it would compute another model."""
     from repro_torch.sharding import current_ctx
 
     if current_ctx() is not None:
+        if cfg.dropless or "bias" in p:
+            raise NotImplementedError(
+                f"{cfg.name}: dropless experts have no expert-parallel form; "
+                "serve it on one device, outside a sharding context")
         return moe_ffn_dist(x, p, cfg)
+    if cfg.dropless:
+        return moe_dropless(x, p, cfg)
     return moe_ffn(x, p, cfg)
 
 

@@ -1,7 +1,10 @@
 """The LM stack (port of ``repro/zoo/models/transformer.py``): attention
 (``global``, ``local``, ``cross+global``), RWKV6 (``rwkv``) and RG-LRU
-(``rglru``) layers with a dense or MoE FFN, per the config's layer pattern,
-and the whisper encoder.
+(``rglru``) layers with a dense or MoE FFN, per the config's layer pattern
+(a config's ``dense_layers`` leading layers dense), and the whisper encoder.
+The port-only options: sandwich norms (a layer's ``ln1_post``/``ln2_post``
+norm each block's output before the residual add) and the embedding scale
+of untied models (``cfg.embed_scale``).
 
 Entry points
 ------------
@@ -202,7 +205,8 @@ def apply_layer(x: torch.Tensor, lp, cfg: ModelConfig, kind: str, is_moe: bool,
     if kind in ("global", "local"):
         window = cfg.sliding_window if kind == "local" else 0
         kv_cache = cache.get("kv") if cache else None
-        out, nc = attention(h, lp["attn"], cfg, window=window, cache=kv_cache)
+        out, nc = attention(h, lp["attn"], cfg, window=window, cache=kv_cache,
+                            rotary=kind == "local" or not cfg.rope_local_only)
         if nc is not None:
             new_cache["kv"] = nc
     elif kind == "cross+global":
@@ -236,6 +240,8 @@ def apply_layer(x: torch.Tensor, lp, cfg: ModelConfig, kind: str, is_moe: bool,
             new_cache["rec"] = ns
     else:
         raise ValueError(kind)
+    if "ln1_post" in lp:  # sandwich norms: each block's output normed too
+        out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
     x = x + out.to(x.dtype)
     x = shard(x, ("batch", "seq_shard", None))
 
@@ -249,6 +255,8 @@ def apply_layer(x: torch.Tensor, lp, cfg: ModelConfig, kind: str, is_moe: bool,
             new_cache["ffn_prev"] = carry
     else:
         out = mlp(h, lp["ffn"], cfg.act)
+    if "ln2_post" in lp:
+        out = rms_norm(out, lp["ln2_post"], cfg.norm_eps)
     x = x + out.to(x.dtype)
     return shard(x, ("batch", "seq_shard", None)), new_cache
 
@@ -381,7 +389,7 @@ def model_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 for j in range(n_super if blocks else 0)]
         tail = [cast(lp) for lp in params.get("tail") or []]
     x = _embed(top["embed"], tokens).to(dtype)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings or cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     x = shard(x, ("batch", "seq_shard", None))
     enc_out = None

@@ -1075,3 +1075,60 @@ def test_kernels_refuse_grad_on_card(cuda):
     with torch.no_grad():
         out = fa.flash_attention(q, k, k)
     assert out.grad_fn is None and fa.flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("tokens", [16, 300])
+def test_grouped_mm_on_card_matches_plain_version(cuda, tokens):
+    """The dropless dispatch's grouped GEMM (``torch._grouped_mm``) against
+    its plain version, bf16 at trinity-mini's expert widths, with segments
+    ragged and empty (16 tokens: a decode step's 128 pairs over at most 128
+    experts): both take bf16 inputs, accumulate in f32 and round the output
+    once, so within 2^-7 of max(1, max|plain|)."""
+    from repro_torch.zoo.models import moe
+
+    gen = torch.Generator(cuda).manual_seed(tokens)
+    e, d, f, k = 128, 2048, 1024, 8
+    ids = torch.randint(0, e // 2, (tokens * k,), generator=gen, device=cuda).sort().values
+    offs = torch.searchsorted(ids, torch.arange(e, device=cuda), right=True).to(torch.int32)
+    x = torch.randn((tokens * k, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn((e, d, f), generator=gen, device=cuda, dtype=torch.bfloat16) * d ** -0.5
+    got = moe.grouped_mm(x, w, offs)
+    want = moe.grouped_mm_plain(x, w, offs)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2**-7 * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("tokens", [16, 4096])
+def test_dropless_moe_on_card_without_host_sync(cuda, tokens):
+    """trinity-mini's MoE layer at its published widths on the card, bf16:
+    the dropless dispatch issues no host sync (the sync debug mode raises on
+    one) and equals the same layer with the plain grouped GEMM within 2^-6
+    of max(1, max|plain|) (both round the same bf16 products; the combine
+    and the shared expert alike)."""
+    import dataclasses
+
+    from repro_torch.zoo.configs import base, get_config
+    from repro_torch.zoo.models import moe
+
+    cfg = dataclasses.replace(get_config("trinity-mini"), num_layers=3)
+    spec = base.param_tree(cfg)["layers"][2]["moe"]
+    p = base.materialize(spec, torch.Generator(cuda).manual_seed(0), torch.bfloat16)
+    p["bias"] = 0.05 * torch.randn(cfg.num_experts, device=cuda)
+    x = torch.randn((1, tokens, cfg.d_model), device=cuda, dtype=torch.bfloat16)
+    moe.moe_dropless(x, p, cfg)                     # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe.moe_dropless(x, p, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    plain = moe.grouped_mm
+    moe.grouped_mm = moe.grouped_mm_plain
+    try:
+        want = moe.moe_dropless(x, p, cfg)
+    finally:
+        moe.grouped_mm = plain
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2**-6 * max(1.0, want.float().abs().max().item())
